@@ -1,0 +1,474 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``segmentalist_torch``) once on one CUDA card.
+
+Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases, each failing the run (non-zero exit, no result line) at the first
+check that does not hold:
+
+1. environment: the card's name and power limit, torch and CUDA versions;
+   TF32 must be off;
+2. build: compile the hand-written kernels from ``segmentalist_torch/csrc``;
+3. each kernel against its plain PyTorch version on the card, in float32,
+   at the flagship shapes (B=125, N_max=20, W=6, K=1000, D=13) and a
+   long/wide case (N_max=120, D=130), with CUDA-event timings;
+4. small-input references: the reference-pinned candidate scores of the
+   one-utterance toy corpus, and a block step on the card against the same
+   block step on the CPU (plain versions) on shared noise;
+5. the slice at bench scale: the unigram fixed-variance segmenter on the
+   1000-utterance synthetic corpus, 137 sweeps, every kernel's launch
+   count, ms/sweep, log_marg and boundary F1.
+
+The second-to-last line is a JSON summary of the kernels, the last line
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+FLAGSHIP = dict(B=125, N_max=20, W=6, K=1000, D=13)
+LONG = dict(B=125, N_max=120, W=6, K=1000, D=130)
+SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
+AGREE_MIN = 0.999       # share of identical boundaries / assignments
+F1_MIN = 0.67
+DEVICE = "cuda"
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds of ``fn()`` over ``reps`` calls, CUDA events."""
+    import torch
+
+    fn()  # warm-up
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# ----------------------------------------------------------------- inputs
+
+def fixedvar_prior(D, dtype, device):
+    from segmentalist_torch import FixedVarPrior
+
+    return FixedVarPrior.create(
+        np.full(D, 0.05, dtype), np.zeros(D, dtype), np.ones(D, dtype),
+        device=device)
+
+
+def leave_out_stats(rng, B, K, D, device):
+    """Per-utterance leave-out counts / feature-major sums like a sweep's:
+    ~40% empty slots, occupied slots centred on random prototypes."""
+    import torch
+
+    counts = rng.randint(1, 60, (B, K)) * (rng.rand(B, K) > 0.4)
+    protos = rng.randn(K, D) * 3.0
+    sum_x = counts[..., None] * protos[None] \
+        + np.sqrt(np.maximum(counts, 1))[..., None] * rng.randn(B, K, D)
+    return (torch.as_tensor(counts, dtype=torch.int32, device=device),
+            torch.as_tensor(sum_x.transpose(0, 2, 1), dtype=torch.float32,
+                            device=device).contiguous(), protos)
+
+
+def score_inputs(shape, seed, device):
+    import torch
+    from segmentalist_torch.models import components_fixedvar as cfv
+    from segmentalist_torch.models.fbgmm import log_weights
+
+    rng = np.random.RandomState(seed)
+    B, N_max, W, K, D = (shape[k] for k in ("B", "N_max", "W", "K", "D"))
+    M = N_max * W
+    counts, sum_xT, protos = leave_out_stats(rng, B, K, D, device)
+    prior = fixedvar_prior(D, np.float32, device)
+    Xc = protos[rng.randint(0, K, (B, M))] + 0.3 * rng.randn(B, M, D)
+    Xc = torch.as_tensor(Xc, dtype=torch.float32, device=device)
+    prior_c = cfv.log_prior_batch(prior, Xc)
+    muT, precT = cfv.predictive_params_T(prior, counts, sum_xT)
+    w = log_weights(counts, 1.0, K, 1.0, include_denominator=True,
+                    dtype=torch.float32)
+    lengths = rng.randint(2, N_max + 1, B)
+    valid_m = torch.as_tensor(lengths * W, dtype=torch.int32, device=device)
+    return Xc, prior_c, muT.contiguous(), precT.contiguous(), w, counts, \
+        valid_m
+
+
+def dp_inputs(shape, seed, device):
+    """Candidate scores shaped like a sweep's: duration-scaled log marginals
+    (~ -20 per slice), -inf for spans past the utterance start or end."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    B, N, W = shape["B"], shape["N_max"], shape["W"]
+    lengths = rng.randint(2, N + 1, B)
+    dur = np.arange(1, W + 1)[None, None, :] * 10.0
+    scores = (-2.0 + 0.5 * rng.randn(B, N, W)) * dur
+    t = np.arange(N)[None, :, None]
+    w = np.arange(W)[None, None, :]
+    scores[(w > t) | (t >= lengths[:, None, None])] = -np.inf
+    gumbel = -np.log(-np.log(rng.uniform(1e-30, 1.0, (B, N, W))))
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        a, dtype=dt, device=device)
+    return as_t(scores), as_t(lengths, torch.int32), as_t(gumbel)
+
+
+def chain_inputs(shape, seed, device):
+    import torch
+    from segmentalist_torch.models import components_fixedvar as cfv
+
+    rng = np.random.RandomState(seed)
+    B, S, K, D = shape["B"], shape["N_max"], shape["K"], shape["D"]
+    counts, sum_xT, protos = leave_out_stats(rng, B, K, D, device)
+    n_seg = rng.randint(1, S + 1, B)
+    ok = np.arange(S)[None, :] < n_seg[:, None]
+    embeds = np.where(ok, rng.randint(0, 10 ** 6, (B, S)), -1)
+    Xe = protos[rng.randint(0, K, (B, S))] + 0.3 * rng.randn(B, S, D)
+    Xe[rng.rand(B, S) < 0.1] = 5.0 * rng.randn(D)  # some far-off segments
+    gumbel = -np.log(-np.log(rng.uniform(1e-30, 1.0, (B, S, K))))
+    prior = fixedvar_prior(D, np.float32, device)
+    Xe = torch.as_tensor(Xe, dtype=torch.float32, device=device)
+    return (torch.as_tensor(embeds, dtype=torch.int32, device=device), Xe,
+            cfv.log_prior_batch(prior, Xe),
+            torch.as_tensor(gumbel, dtype=torch.float32, device=device),
+            counts, sum_xT, prior)
+
+
+# ------------------------------------------------------------- phase 3
+
+def compare_score(shape, name):
+    import torch
+    from segmentalist_torch.ops import cuda_score
+
+    Xc, prior_c, muT, precT, w, counts, valid_m = score_inputs(shape, 1,
+                                                               DEVICE)
+    args = (Xc, prior_c, muT, precT, torch.log(precT).sum(-2), w, counts,
+            valid_m)
+    got = cuda_score.fixedvar_scores(*args)
+    ref = cuda_score.fixedvar_scores_plain(*args)
+    sync()
+    fin = torch.isfinite(ref)
+    check(bool((torch.isfinite(got) == fin).all()),
+          "K1 %s: -inf pattern differs from the plain version" % name)
+    err = (got - ref).abs()[fin]
+    rel = (err / ref.abs()[fin].clamp_min(1.0)).max().item()
+    max_abs = err.max().item()
+    check(rel <= SCORE_TOL, "K1 %s: relative error %.3g > %g"
+          % (name, rel, SCORE_TOL))
+    ms = cuda_ms(lambda: cuda_score.fixedvar_scores(*args), 50)
+    plain_ms = cuda_ms(lambda: cuda_score.fixedvar_scores_plain(*args), 20)
+    log("K1 fixedvar_scores %s: max|d|=%.3g max rel=%.3g  kernel %.4f ms  "
+        "plain %.4f ms" % (name, max_abs, rel, ms, plain_ms))
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+
+
+def compare_dp(shape, name):
+    import torch
+    from segmentalist_torch.ops import cuda_dp, dp
+
+    scores, lengths, noise = dp_inputs(shape, 2, DEVICE)
+    rev = dp._rev_mask_scores(scores, 0)
+    lpc = torch.full((), math.log(0.9), device=DEVICE)
+    out = {}
+    for use_max in (False, True):
+        a_k = cuda_dp.forward_alphas(rev, lengths, lpc, use_max)
+        a_p = cuda_dp.forward_alphas_plain(rev, lengths, lpc, use_max)
+        sync()
+        fin = torch.isfinite(a_p)
+        check(bool((torch.isfinite(a_k) == fin).all()),
+              "K2 %s: -inf pattern differs" % name)
+        err = (a_k - a_p).abs()[fin]
+        rel = (err / a_p.abs()[fin].clamp_min(1.0)).max().item()
+        check(rel <= SCORE_TOL, "K2 %s: relative error %.3g" % (name, rel))
+        _, b_k = dp.backward_sample(rev, a_k, lengths, 1.0, use_max, noise)
+        _, b_p = dp.backward_sample(rev, a_p, lengths, 1.0, use_max, noise)
+        same = (b_k == b_p).all(1).float().mean().item()
+        log("K2 forward_alphas %s use_max=%s: max|d|=%.3g max rel=%.3g  "
+            "identical boundaries %d/%d" % (
+                name, use_max, err.max().item(), rel,
+                int((b_k == b_p).all(1).sum()), b_k.shape[0]))
+        check(same >= AGREE_MIN, "K2 %s: boundary agreement %.4f"
+              % (name, same))
+        out["max_abs_err"] = max(out.get("max_abs_err", 0.0),
+                                 err.max().item())
+    out["ms"] = cuda_ms(lambda: cuda_dp.forward_alphas(rev, lengths, lpc),
+                        50)
+    out["plain_ms"] = cuda_ms(
+        lambda: cuda_dp.forward_alphas_plain(rev, lengths, lpc), 10)
+    log("K2 forward_alphas %s: kernel %.4f ms  plain %.4f ms"
+        % (name, out["ms"], out["plain_ms"]))
+    return out
+
+
+def compare_chain(shape, name):
+    import torch
+    from segmentalist_torch.ops import cuda_chain
+
+    embeds, Xe, lpe, gumbel, counts, sum_xT, prior = chain_inputs(
+        shape, 3, DEVICE)
+    K = shape["K"]
+    prec = 1.0 / prior.var
+    prec0 = 1.0 / prior.var_0
+    data = (embeds, Xe, lpe, gumbel, counts, sum_xT)
+
+    def kernel(use_argmax=False):
+        return cuda_chain.fixedvar_chain(
+            *data, prior.var, prior.var_0, prior.mu_0, 0.8, alpha=1.0, K=K,
+            use_argmax=use_argmax)
+
+    def plain(use_argmax=False):
+        return cuda_chain.fixedvar_chain_plain(
+            *data, prec, prec0, prec0 * prior.mu_0, 0.8, 1.0, K, 1.0,
+            use_argmax)
+
+    out = {"max_abs_err": 0.0}
+    for use_argmax in (False, True):
+        ks_k = kernel(use_argmax)
+        ks_p = plain(use_argmax)
+        sync()
+        valid = embeds >= 0
+        n_valid = int(valid.sum())
+        n_same = int(((ks_k == ks_p) & valid).sum())
+        check(bool((ks_k[~valid] == -1).all()), "K3 %s: pads not -1" % name)
+        log("K3 fixedvar_chain %s use_argmax=%s: identical ks %d/%d"
+            % (name, use_argmax, n_same, n_valid))
+        check(n_same >= AGREE_MIN * n_valid, "K3 %s: ks agreement %d/%d"
+              % (name, n_same, n_valid))
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((ks_k - ks_p).abs().max()))
+    out["ms"] = cuda_ms(kernel, 20)
+    out["plain_ms"] = cuda_ms(plain, 3)
+    log("K3 fixedvar_chain %s: kernel %.4f ms  plain %.4f ms"
+        % (name, out["ms"], out["plain_ms"]))
+    return out
+
+
+# ------------------------------------------------------------- phase 4
+
+def toy_reference():
+    """Reference-pinned candidate scores of the one-utterance toy corpus
+    (tests/test_unigram_wordseg.py:69), computed on the card."""
+    import segmentalist_torch as pt
+
+    emb = np.array([
+        [-0.2702691, -0.12348549, -0.20069546, -0.10067126, -0.32822475,
+         -0.24878924, -0.17988801, -0.13201745, 0.66409844, -0.44816282],
+        [-0.27186683, -0.12384345, -0.20049213, -0.10272419, -0.32618827,
+         -0.24660945, -0.17784701, -0.13362537, 0.66524321, -0.44805479],
+        [-0.2465426, -0.06354388, -0.22458388, 0.79060942, 0.48230717,
+         -0.11888564, 0.06724239, -0.04977163, 0.06908087, 0.03395205]])
+    S_0 = 0.002 * np.ones(10)
+    seg = pt.UnigramAcousticWordseg(
+        pt.FBGMM, 10.0, 2, pt.FixedVarPrior.create(S_0, np.zeros(10),
+                                                   S_0 / 0.05),
+        {"test": emb}, {"test": np.array([0, 1, 2])}, {"test": [1, 2, 1]},
+        {"test": [1, 2]}, seed_boundaries_dict={"test": [2]},
+        beta_sent_boundary=-1, n_slices_max=20, batch_size=1, device=DEVICE)
+    seg.acoustic_model.setup_components(2, np.array([0, -1, 1]))
+    got = seg.get_vec_embed_log_probs(seg.utterances.vec_ids[0],
+                                      seg.utterances.durations[0])
+    want = np.array([17.5548998, 35.103967, 17.5548998])
+    log("toy reference scores on the card: %s (pinned %s)"
+        % (got.tolist(), want.tolist()))
+    check(np.allclose(got, want, atol=1e-5), "toy reference scores differ")
+
+
+def small_block_vs_cpu():
+    """Three block steps on the card (kernels) and on the CPU (plain
+    versions), float32, from one initial state on shared numpy noise."""
+    import torch
+    import segmentalist_torch as pt
+    from segmentalist_torch.utils.synth import synthetic_corpus
+
+    em, vi, du, lm, _ = synthetic_corpus(n_utterances=24, n_landmarks_max=12,
+                                         D=13, K_true=6, n_slices_max=6,
+                                         seed=4)
+    em = {k: v.astype(np.float32) for k, v in em.items()}
+    segs = {}
+    for dev in ("cpu", DEVICE):
+        segs[dev] = pt.UnigramAcousticWordseg(
+            pt.FBGMM, 1.0, 40, fixedvar_prior(13, np.float32, "cpu"), em, vi,
+            du, lm, p_boundary_init=0.5, beta_sent_boundary=2.0,
+            n_slices_max=6, batch_size=8, seed=4, device=dev)
+    rng = np.random.RandomState(5)
+    N_max, W_dp = segs["cpu"].utterances.N_max, segs["cpu"].W_dp
+    for block in np.arange(24).reshape(3, 8):
+        dp_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, W_dp))))
+        ch_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, 40))))
+        for dev, seg in segs.items():
+            as_t = lambda a: torch.as_tensor(  # noqa: E731
+                a, dtype=torch.float32, device=dev)
+            seg.block_step(block, 1.0, 1.0, dp_noise=as_t(dp_noise),
+                           chain_noise=as_t(ch_noise))
+    b = {d: s.utterances.boundaries for d, s in segs.items()}
+    a = {d: s.acoustic_model.assignments.cpu().numpy()
+         for d, s in segs.items()}
+    same_b = int((b["cpu"] == b[DEVICE]).all(1).sum())
+    same_a = int((a["cpu"] == a[DEVICE]).sum())
+    log("small block steps, card vs CPU: identical boundary rows %d/%d, "
+        "identical assignments %d/%d" % (same_b, b["cpu"].shape[0], same_a,
+                                         a["cpu"].size))
+    check(same_b >= AGREE_MIN * b["cpu"].shape[0]
+          and same_a >= AGREE_MIN * a["cpu"].size,
+          "card and CPU block steps disagree")
+    stats = segs[DEVICE].acoustic_model.stats
+    check(bool(torch.isfinite(stats.sum_x).all()), "non-finite statistics")
+
+
+# ------------------------------------------------------------- phase 5
+
+def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
+    import torch
+    import segmentalist_torch as pt
+    from segmentalist_torch.ops import cuda_chain, cuda_dp, cuda_score
+    from segmentalist_torch.utils.synth import (boundary_f_score,
+                                                synthetic_corpus)
+
+    t0 = time.time()
+    em, vi, du, lm, truth = synthetic_corpus(
+        n_utterances=n_utterances, n_landmarks_max=20, D=13, K_true=50,
+        n_slices_max=6, seed=0)
+    em = {k: v.astype(np.float32) for k, v in em.items()}
+    seg = pt.UnigramAcousticWordseg(
+        pt.FBGMM, am_alpha=1.0, am_K=1000,
+        am_param_prior=fixedvar_prior(13, np.float32, "cpu"),
+        embedding_mats=em, vec_ids_dict=vi, durations_dict=du,
+        landmarks_dict=lm, p_boundary_init=0.5, beta_sent_boundary=-1,
+        n_slices_max=6, batch_size=125, seed=0, device=DEVICE)
+    n_cand = int((seg.utterances.seg_ids >= 0).sum())
+    log("slice: %d utterances, %d candidate spans, setup %.1f s"
+        % (n_utterances, n_cand, time.time() - t0))
+
+    def f1():
+        pred = {u: seg.utterances.boundaries[i]
+                for i, u in enumerate(seg.ids_to_utterance_labels)}
+        return boundary_f_score(pred, truth)[2]
+
+    f1_0 = f1()
+    for mod in (cuda_score, cuda_dp, cuda_chain):
+        mod.launches = 0
+    records, sweep_ms = [], []
+    for n in sweeps:  # bench.py's sequence: warm-up 1 + 8, timed 2 x 64
+        sync()
+        t = time.time()
+        records.append(seg.gibbs_sample(n))
+        sync()
+        sweep_ms.append((time.time() - t) / n * 1e3)
+    sweep_ms = sweep_ms[2:]
+    launches = {"K1": cuda_score.launches, "K2": cuda_dp.launches,
+                "K3": cuda_chain.launches}
+    log_marg = [v for r in records for v in r["log_marg"]]
+    f1_end = f1()
+    log("slice: %d sweeps, ms/sweep %s (best %.3f), log_marg first %.6g "
+        "last %.6g, F1 sweep 0 %.4f -> end %.4f, launches %s"
+        % (len(log_marg), [round(v, 3) for v in sweep_ms], min(sweep_ms),
+           log_marg[0], log_marg[-1], f1_0, f1_end, launches))
+    check(len(log_marg) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
+    check(all(math.isfinite(v) for v in log_marg), "non-finite log_marg")
+    for k, n in launches.items():
+        check(n > 0, "kernel %s was not launched on the main path" % k)
+    check(f1_end >= F1_MIN, "final F1 %.4f < %.2f" % (f1_end, F1_MIN))
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from segmentalist_torch.device import resolve_device
+    from segmentalist_torch.ops import cuda_lib
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
+                                   torch.cuda.get_device_name(0)))
+    resolve_device("cuda")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+
+    t0 = time.time()
+    cuda_lib.library()
+    log("kernel library built/loaded in %.1f s (nvcc %s s)"
+        % (time.time() - t0, cuda_lib.build_seconds))
+
+    results = {}
+    for name, shape in (("flagship", FLAGSHIP), ("long", LONG)):
+        results[("K1", name)] = compare_score(shape, name)
+        results[("K2", name)] = compare_dp(shape, name)
+        results[("K3", name)] = compare_chain(shape, name)
+
+    toy_reference()
+    small_block_vs_cpu()
+    launches = run_slice()
+
+    meta = {
+        "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
+               "segmentalist_tpu/ops/pallas_score.py:185"),
+        "K2": ("forward_alphas", "segmentalist_torch/csrc/forward_dp.cu",
+               "segmentalist_tpu/ops/pallas_dp.py:122"),
+        "K3": ("fixedvar_chain", "segmentalist_torch/csrc/fixedvar_chain.cu",
+               "segmentalist_tpu/ops/pallas_chain.py:327"),
+    }
+    kernels = []
+    for k, (fn, src, tpu) in meta.items():
+        fl, lo = results[(k, "flagship")], results[(k, "long")]
+        kernels.append({
+            "name": fn, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[k],
+            "max_abs_err": max(fl["max_abs_err"], lo["max_abs_err"]),
+            "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+            "long_ms": lo["ms"], "long_plain_ms": lo["plain_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except CheckFailed as e:
+        print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
+        sys.exit(1)

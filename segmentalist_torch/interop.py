@@ -1,0 +1,46 @@
+"""Carry a segmenter's state across from the JAX package.
+
+The JAX segmenter's state, fetched as numpy arrays, replaces the port's,
+so both packages can continue from one state (the parity tests start a
+block step of each from it).  Imports no JAX: the caller converts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.stats import SuffStats
+from .priors import FixedVarPrior
+
+STATE_KEYS = ("X", "counts", "sum_x", "sum_sq", "assignments", "boundaries",
+              "var", "mu_0", "var_0")
+
+
+def load_state(seg, state: dict):
+    """Replace the state of ``seg`` (a port ``UnigramAcousticWordseg``)
+    with ``state``: numpy arrays under ``STATE_KEYS`` -- data ``X`` [N, D],
+    statistics ``counts`` [K] / ``sum_x`` / ``sum_sq`` [K, D], the ``[N]``
+    assignments, the ``[U, N_max]`` boundaries and the fixed-variance prior
+    vectors [D]."""
+    missing = [k for k in STATE_KEYS if k not in state]
+    if missing:
+        raise KeyError("state lacks %s" % missing)
+    am, dev = seg.acoustic_model, seg.device
+
+    def t(name, dtype=None):
+        return torch.as_tensor(np.array(state[name]), dtype=dtype,
+                               device=dev)
+
+    X = t("X")
+    am.X = X
+    am.N, am.D = X.shape
+    am.prior = FixedVarPrior(t("var", X.dtype), t("mu_0", X.dtype),
+                             t("var_0", X.dtype))
+    am.stats = SuffStats(t("counts", torch.int32), t("sum_x", X.dtype),
+                         t("sum_sq", X.dtype))
+    am.K_max = int(am.stats.counts.shape[0])
+    am.assignments = t("assignments", torch.int32)
+    am.log_prior_vec = am.cov.log_prior_batch(am.prior, X)
+    seg.utterances.boundaries_dev = t("boundaries", torch.bool)
+    seg.refresh_candidates()

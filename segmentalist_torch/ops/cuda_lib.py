@@ -1,0 +1,133 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+All sources under ``segmentalist_torch/csrc/`` compile with ``nvcc`` into one
+shared library with a plain C interface, loaded with ctypes.  The build runs
+at first use into the git-ignored ``segmentalist_torch/_build/``, named by a
+hash of the sources and flags, so a fresh checkout builds everything on its
+first call and later calls reuse the library.
+
+``-fmad=false`` keeps every ``a * b + c`` as two rounded operations, the
+same arithmetic as the plain PyTorch versions' separate elementwise kernels,
+so a kernel and its plain version can agree bit for bit where their
+operation orders match.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on anything but success.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: every pointer, and the stream, as c_void_p.
+_SIGNATURES = {
+    # Xc, prior_c, muT, precT, log_prod, w, counts, valid_m, out,
+    # B, M, D, K, c0, stream
+    "fixedvar_scores_launch": [_P] * 9 + [_I] * 4 + [_F, _P],
+    # rev, lengths, lpc, out, B, N, W, use_max, stream
+    "forward_alphas_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0, p0m0,
+    # cnt_s, sumx_s, mu_s, pp_s, lpp_s, ks, B, S, D, K, alpha_over_K, lms,
+    # temp, c0, use_argmax, stream
+    "fixedvar_chain_launch": [_P] * 15 + [_I] * 4 + [_F] * 4 + [_I, _P],
+}
+
+build_seconds = None  # wall time of the last nvcc build in this process
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global build_seconds
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    so = os.path.join(BUILD_DIR, "libsegkernels_%s.so" % h.hexdigest()[:16])
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = "%s.%d.tmp" % (so, os.getpid())
+        cu = [p for p in sources() if p.endswith(".cu")]
+        t0 = time.time()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + proc.stderr)
+        build_seconds = time.time() - t0
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str):
+    if err != 0:
+        raise RuntimeError("%s: CUDA error %d" % (name, err))
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def require(t: torch.Tensor, name: str, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what the kernels take)."""
+    if t.device != device:
+        raise ValueError("%s is on %s, expected %s" % (name, t.device, device))
+    if t.dtype != dtype:
+        raise TypeError("%s has dtype %s, expected %s" % (name, t.dtype,
+                                                          dtype))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("%s has shape %s, expected %s"
+                         % (name, tuple(t.shape), tuple(shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s is not contiguous" % name)
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (take the kernel), False for a CPU tensor
+    (take the plain version); any other device raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError("no kernel or plain version for device %s" % t.device)

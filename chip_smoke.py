@@ -11,15 +11,17 @@ check that does not hold:
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 must be off;
 2. build: compile the hand-written kernels from ``segmentalist_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card, in float32,
-   at the flagship shapes (B=125, N_max=20, W=6, K=1000, D=13) and a
-   long/wide case (N_max=120, D=130), with CUDA-event timings;
+3. each kernel (K1-K4) against its plain PyTorch version on the card, in
+   float32, at the flagship shapes (B=125, N_max=20, W=6, K=1000, D=13)
+   and a long/wide case (N_max=120, D=130), with CUDA-event timings;
 4. small-input references: the reference-pinned candidate scores of the
-   one-utterance toy corpus, and a block step on the card against the same
-   block step on the CPU (plain versions) on shared noise;
-5. the slice at bench scale: the unigram fixed-variance segmenter on the
-   1000-utterance synthetic corpus, 137 sweeps, every kernel's launch
-   count, ms/sweep, log_marg and boundary F1.
+   one-utterance toy corpus, and block steps of the unigram and of the
+   bigram segmenter on the card against the same block steps on the CPU
+   (plain versions) on shared noise;
+5. the two slices at bench scale, on the 1000-utterance synthetic corpus,
+   137 sweeps each: the unigram fixed-variance segmenter (K1, K2, K3) and
+   the bigram fixed-variance segmenter (K1, K2, K4); for each, every
+   kernel's launch count in that run, ms/sweep, log_marg and boundary F1.
 
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``.
@@ -43,6 +45,7 @@ LONG = dict(B=125, N_max=120, W=6, K=1000, D=130)
 SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
 AGREE_MIN = 0.999       # share of identical boundaries / assignments
 F1_MIN = 0.67
+BIGRAM_LM = {"type": "smooth", "intrp_lambda": 0.1, "a": 1.0, "b": 1.0}
 DEVICE = "cuda"
 
 
@@ -278,6 +281,78 @@ def compare_chain(shape, name):
     return out
 
 
+def bigram_chain_inputs(shape, seed, device):
+    """K3's inputs plus the LM's: leave-out unigram counts equal to the
+    acoustic ones (as in the segmenter); as each utterance's old transcript,
+    K3's argmax chain on the same segments, so that K4's draws often follow
+    an old pair and its correction is exercised; and a sparse global table
+    that counts every old pair of every utterance."""
+    import torch
+    from segmentalist_torch.models.bigram_lm import transcript_pairs_batch
+    from segmentalist_torch.ops import cuda_chain
+
+    embeds, Xe, lpe, gumbel, counts, sum_xT, prior = chain_inputs(
+        shape, seed, device)
+    K = shape["K"]
+    old = cuda_chain.fixedvar_chain(
+        embeds, Xe, lpe, gumbel, counts, sum_xT, prior.var, prior.var_0,
+        prior.mu_0, 1.0, alpha=1.0, K=K, use_argmax=True)
+    pj, pi = transcript_pairs_batch(old)
+    rng = np.random.RandomState(seed + 100)
+    big = (rng.rand(K, K) < 0.003) * rng.randint(1, 5, (K, K))
+    ok = (pj >= 0).cpu().numpy()
+    np.add.at(big, (pj.cpu().numpy()[ok], pi.cpu().numpy()[ok]), 1)
+    lm = (counts, torch.as_tensor(big, dtype=torch.int32, device=device),
+          pj, pi)
+    return (embeds, Xe, lpe, gumbel, counts, sum_xT), lm, prior
+
+
+def compare_bigram_chain(shape, name):
+    import torch
+    from segmentalist_torch.ops import cuda_chain
+
+    data, lm, prior = bigram_chain_inputs(shape, 4, DEVICE)
+    K = shape["K"]
+    consts = cuda_chain.bigram_constants(1.0, 1.0, 0.1, K)
+    prec = 1.0 / prior.var
+    prec0 = 1.0 / prior.var_0
+
+    def kernel():
+        return cuda_chain.bigram_fixedvar_chain(
+            *data, prior.var, prior.var_0, prior.mu_0, 0.8, *lm, alpha_a=1.0,
+            intrp_lambda=0.1, b_smooth=1.0, K=K)
+
+    def plain():
+        return cuda_chain.bigram_fixedvar_chain_plain(
+            *data, prec, prec0, prec0 * prior.mu_0, 0.8, *lm, consts, K, 1.0)
+
+    ks_k = kernel()
+    ks_p = plain()
+    # the same chains with the own old pairs kept in the table: how many
+    # draws the correction changes (a sign that it is exercised)
+    ks_keep = cuda_chain.bigram_fixedvar_chain(
+        *data, prior.var, prior.var_0, prior.mu_0, 0.8, lm[0], lm[1],
+        torch.full_like(lm[2], -1), lm[3], alpha_a=1.0, intrp_lambda=0.1,
+        b_smooth=1.0, K=K)
+    sync()
+    embeds = data[0]
+    valid = embeds >= 0
+    n_valid = int(valid.sum())
+    n_same = int(((ks_k == ks_p) & valid).sum())
+    check(bool((ks_k[~valid] == -1).all()), "K4 %s: pads not -1" % name)
+    log("K4 bigram_fixedvar_chain %s: identical ks %d/%d (without the "
+        "own-pair correction %d would differ)"
+        % (name, n_same, n_valid, int((ks_keep != ks_k).sum())))
+    check(n_same >= AGREE_MIN * n_valid, "K4 %s: ks agreement %d/%d"
+          % (name, n_same, n_valid))
+    out = {"max_abs_err": float((ks_k - ks_p).abs().max())}
+    out["ms"] = cuda_ms(kernel, 20)
+    out["plain_ms"] = cuda_ms(plain, 3)
+    log("K4 bigram_fixedvar_chain %s: kernel %.4f ms  plain %.4f ms"
+        % (name, out["ms"], out["plain_ms"]))
+    return out
+
+
 # ------------------------------------------------------------- phase 4
 
 def toy_reference():
@@ -350,29 +425,80 @@ def small_block_vs_cpu():
     check(bool(torch.isfinite(stats.sum_x).all()), "non-finite statistics")
 
 
+def small_bigram_block_vs_cpu():
+    """Three bigram block steps on the card (K1, K2, K4) and on the CPU
+    (plain versions), float32, from one initial state on shared numpy
+    noise: identical boundaries, assignments and LM tables."""
+    import torch
+    import segmentalist_torch as pt
+    from segmentalist_torch.utils.synth import synthetic_corpus
+
+    em, vi, du, lm, _ = synthetic_corpus(n_utterances=24, n_landmarks_max=12,
+                                         D=13, K_true=6, n_slices_max=6,
+                                         seed=4)
+    em = {k: v.astype(np.float32) for k, v in em.items()}
+    segs = {}
+    for dev in ("cpu", DEVICE):
+        segs[dev] = pt.BigramAcousticWordseg(
+            40, fixedvar_prior(13, np.float32, "cpu"), BIGRAM_LM, em, vi, du,
+            lm, p_boundary_init=0.5, beta_sent_boundary=-1, n_slices_max=6,
+            fb_type="unigram", batch_size=8, seed=4, device=dev)
+    rng = np.random.RandomState(5)
+    N_max, W_dp = segs["cpu"].utterances.N_max, segs["cpu"].W_dp
+    for block in np.arange(24).reshape(3, 8):
+        dp_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, W_dp))))
+        ch_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, 40))))
+        for dev, seg in segs.items():
+            as_t = lambda a: torch.as_tensor(  # noqa: E731
+                a, dtype=torch.float32, device=dev)
+            seg.block_step(block, 1.0, 1.0, dp_noise=as_t(dp_noise),
+                           chain_noise=as_t(ch_noise))
+    cpu, card = segs["cpu"], segs[DEVICE]
+    b_c, b_d = cpu.utterances.boundaries, card.utterances.boundaries
+    a_c = cpu.acoustic_model.assignments.numpy()
+    a_d = card.acoustic_model.assignments.cpu().numpy()
+    same_lm = (np.array_equal(cpu.lm.unigram_counts, card.lm.unigram_counts)
+               and np.array_equal(cpu.lm.bigram_counts,
+                                  card.lm.bigram_counts))
+    log("small bigram block steps, card vs CPU: identical boundary rows "
+        "%d/%d, identical assignments %d/%d, identical LM tables %s"
+        % (int((b_c == b_d).all(1).sum()), b_c.shape[0],
+           int((a_c == a_d).sum()), a_c.size, same_lm))
+    check(np.array_equal(b_c, b_d) and np.array_equal(a_c, a_d) and same_lm,
+          "card and CPU bigram block steps disagree")
+
+
 # ------------------------------------------------------------- phase 5
 
-def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
+def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False):
+    """One slice at bench scale (the `bench.py` corpus and config): the
+    unigram segmenter, or the bigram one (`bench.py`'s `bigram` row).
+    Returns the launches of each of its kernels in this run."""
     import torch
     import segmentalist_torch as pt
     from segmentalist_torch.ops import cuda_chain, cuda_dp, cuda_score
     from segmentalist_torch.utils.synth import (boundary_f_score,
                                                 synthetic_corpus)
 
+    name = "bigram" if bigram else "unigram_fixed"
     t0 = time.time()
     em, vi, du, lm, truth = synthetic_corpus(
         n_utterances=n_utterances, n_landmarks_max=20, D=13, K_true=50,
         n_slices_max=6, seed=0)
     em = {k: v.astype(np.float32) for k, v in em.items()}
-    seg = pt.UnigramAcousticWordseg(
-        pt.FBGMM, am_alpha=1.0, am_K=1000,
-        am_param_prior=fixedvar_prior(13, np.float32, "cpu"),
+    common = dict(
+        am_K=1000, am_param_prior=fixedvar_prior(13, np.float32, "cpu"),
         embedding_mats=em, vec_ids_dict=vi, durations_dict=du,
         landmarks_dict=lm, p_boundary_init=0.5, beta_sent_boundary=-1,
         n_slices_max=6, batch_size=125, seed=0, device=DEVICE)
+    if bigram:
+        seg = pt.BigramAcousticWordseg(lm_params=BIGRAM_LM,
+                                       fb_type="unigram", **common)
+    else:
+        seg = pt.UnigramAcousticWordseg(pt.FBGMM, am_alpha=1.0, **common)
     n_cand = int((seg.utterances.seg_ids >= 0).sum())
-    log("slice: %d utterances, %d candidate spans, setup %.1f s"
-        % (n_utterances, n_cand, time.time() - t0))
+    log("%s slice: %d utterances, %d candidate spans, setup %.1f s"
+        % (name, n_utterances, n_cand, time.time() - t0))
 
     def f1():
         pred = {u: seg.utterances.boundaries[i]
@@ -380,8 +506,8 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
         return boundary_f_score(pred, truth)[2]
 
     f1_0 = f1()
-    for mod in (cuda_score, cuda_dp, cuda_chain):
-        mod.launches = 0
+    cuda_score.launches = cuda_dp.launches = 0
+    cuda_chain.launches = cuda_chain.bigram_launches = 0
     records, sweep_ms = [], []
     for n in sweeps:  # bench.py's sequence: warm-up 1 + 8, timed 2 x 64
         sync()
@@ -389,21 +515,35 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
         records.append(seg.gibbs_sample(n))
         sync()
         sweep_ms.append((time.time() - t) / n * 1e3)
-    sweep_ms = sweep_ms[2:]
-    launches = {"K1": cuda_score.launches, "K2": cuda_dp.launches,
-                "K3": cuda_chain.launches}
+    launches = {"K1": cuda_score.launches, "K2": cuda_dp.launches}
+    if bigram:
+        launches["K4"] = cuda_chain.bigram_launches
+    else:
+        launches["K3"] = cuda_chain.launches
     log_marg = [v for r in records for v in r["log_marg"]]
     f1_end = f1()
-    log("slice: %d sweeps, ms/sweep %s (best %.3f), log_marg first %.6g "
-        "last %.6g, F1 sweep 0 %.4f -> end %.4f, launches %s"
-        % (len(log_marg), [round(v, 3) for v in sweep_ms], min(sweep_ms),
-           log_marg[0], log_marg[-1], f1_0, f1_end, launches))
+    log("%s slice: %d sweeps, ms/sweep per call %s (timed %s, best %.3f), "
+        "log_marg first %.6g last %.6g, F1 sweep 0 %.4f -> end %.4f, "
+        "launches %s" % (
+            name, len(log_marg), [round(v, 3) for v in sweep_ms],
+            [round(v, 3) for v in sweep_ms[2:]], min(sweep_ms[2:]),
+            log_marg[0], log_marg[-1], f1_0, f1_end, launches))
     check(len(log_marg) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
     check(all(math.isfinite(v) for v in log_marg), "non-finite log_marg")
     for k, n in launches.items():
-        check(n > 0, "kernel %s was not launched on the main path" % k)
-    check(f1_end >= F1_MIN, "final F1 %.4f < %.2f" % (f1_end, F1_MIN))
+        check(n > 0, "kernel %s was not launched on the %s path" % (k, name))
+    if bigram:
+        check(np.array_equal(seg.lm.unigram_counts,
+                             seg.acoustic_model.stats.counts.cpu().numpy()),
+              "LM unigram counts differ from the acoustic counts")
+    check(f1_end >= F1_MIN, "%s: final F1 %.4f < %.2f"
+          % (name, f1_end, F1_MIN))
     return launches
+
+
+def run_bigram_slice(**kwargs):
+    """The bigram fixed-variance slice (`bench.py`'s `bigram` row)."""
+    return run_slice(bigram=True, **kwargs)
 
 
 def main() -> int:
@@ -436,10 +576,13 @@ def main() -> int:
         results[("K1", name)] = compare_score(shape, name)
         results[("K2", name)] = compare_dp(shape, name)
         results[("K3", name)] = compare_chain(shape, name)
+        results[("K4", name)] = compare_bigram_chain(shape, name)
 
     toy_reference()
     small_block_vs_cpu()
-    launches = run_slice()
+    small_bigram_block_vs_cpu()
+    paths = {"unigram_fixed": run_slice(),
+             "bigram": run_bigram_slice()}
 
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
@@ -448,13 +591,17 @@ def main() -> int:
                "segmentalist_tpu/ops/pallas_dp.py:122"),
         "K3": ("fixedvar_chain", "segmentalist_torch/csrc/fixedvar_chain.cu",
                "segmentalist_tpu/ops/pallas_chain.py:327"),
+        "K4": ("bigram_fixedvar_chain",
+               "segmentalist_torch/csrc/fixedvar_chain.cu",
+               "segmentalist_tpu/ops/pallas_chain.py:571"),
     }
     kernels = []
     for k, (fn, src, tpu) in meta.items():
         fl, lo = results[(k, "flagship")], results[(k, "long")]
+        by_path = {p: n[k] for p, n in paths.items() if k in n}
         kernels.append({
             "name": fn, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[k],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(fl["max_abs_err"], lo["max_abs_err"]),
             "ms": fl["ms"], "plain_ms": fl["plain_ms"],
             "long_ms": lo["ms"], "long_plain_ms": lo["plain_ms"],

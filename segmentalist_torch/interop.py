@@ -10,20 +10,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.bigram_lm import BigramLMState
 from .ops.stats import SuffStats
 from .priors import FixedVarPrior
 
 STATE_KEYS = ("X", "counts", "sum_x", "sum_sq", "assignments", "boundaries",
               "var", "mu_0", "var_0")
+LM_KEYS = ("unigram_counts", "bigram_counts")
 
 
 def load_state(seg, state: dict):
-    """Replace the state of ``seg`` (a port ``UnigramAcousticWordseg``)
-    with ``state``: numpy arrays under ``STATE_KEYS`` -- data ``X`` [N, D],
-    statistics ``counts`` [K] / ``sum_x`` / ``sum_sq`` [K, D], the ``[N]``
-    assignments, the ``[U, N_max]`` boundaries and the fixed-variance prior
-    vectors [D]."""
-    missing = [k for k in STATE_KEYS if k not in state]
+    """Replace the state of ``seg`` (a port ``UnigramAcousticWordseg`` or
+    ``BigramAcousticWordseg``) with ``state``: numpy arrays under
+    ``STATE_KEYS`` -- data ``X`` [N, D], statistics ``counts`` [K] /
+    ``sum_x`` / ``sum_sq`` [K, D], the ``[N]`` assignments, the
+    ``[U, N_max]`` boundaries and the fixed-variance prior vectors [D] --
+    and, for a bigram segmenter, the LM tables under ``LM_KEYS``
+    (``unigram_counts`` [K], ``bigram_counts`` [K, K], the JAX segmenter's
+    ``lm.state``)."""
+    keys = STATE_KEYS + (LM_KEYS if hasattr(seg, "lm") else ())
+    missing = [k for k in keys if k not in state]
     if missing:
         raise KeyError("state lacks %s" % missing)
     am, dev = seg.acoustic_model, seg.device
@@ -43,4 +49,7 @@ def load_state(seg, state: dict):
     am.assignments = t("assignments", torch.int32)
     am.log_prior_vec = am.cov.log_prior_batch(am.prior, X)
     seg.utterances.boundaries_dev = t("boundaries", torch.bool)
+    if hasattr(seg, "lm"):
+        seg.lm.state = BigramLMState(t("unigram_counts", torch.int32),
+                                     t("bigram_counts", torch.int32))
     seg.refresh_candidates()

@@ -1,15 +1,20 @@
-"""Within-utterance fixed-variance assignment chain: kernel K3 and its plain
-version.
+"""Within-utterance fixed-variance assignment chains: kernels K3 and K4 and
+their plain versions.
 
-Counterpart of the fixed-variance part of
-``segmentalist_tpu/ops/pallas_chain.py`` (``fixedvar_chain`` with
-``stats_T=True``).  Each utterance's new segments are assigned in order,
-conditioning on the statistics the previous ones updated (reference
-``fbgmm.py:422-463`` via ``unigram_acoustic_wordseg.py:339-349``):
+Counterpart of the fixed-variance chains of
+``segmentalist_tpu/ops/pallas_chain.py`` (``fixedvar_chain`` and
+``bigram_fixedvar_chain``, both with ``stats_T=True``).  Each utterance's
+new segments are assigned in order, conditioning on the statistics the
+previous ones updated (reference ``fbgmm.py:422-463`` via
+``unigram_acoustic_wordseg.py:339-349``, and
+``bigram_acoustic_wordseg.py:332-384`` for the bigram weights):
 Gumbel-max (or argmax) over K, the first-empty birth rule, and an exact
-select of the re-derived column.  The plain version follows the kernel's
-math (``pallas_chain.py:240-307``) step for step, with the same operation
-order, so on shared noise both sample the same chains.
+select of the re-derived column.  K3 weighs the components with the
+Dirichlet term ``lms log(alpha/K + n_k)``, K4 with the smoothed bigram LM
+conditioned on the previous segment's draw.  The plain versions follow the
+kernels' math (``pallas_chain.py:240-307``, ``:463-555``) step for step,
+with the same operation order, so on shared noise they sample the same
+chains.
 """
 
 from __future__ import annotations
@@ -24,14 +29,15 @@ from .stats import canonicalize_new_component
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
-launches = 0  # kernel launches since the last reset
+launches = 0         # K3 launches since the last reset
+bigram_launches = 0  # K4 launches since the last reset
 
 
 def fixedvar_chain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, var,
                    var_0, mu_0, temp, alpha: float, K: int, lms: float = 1.0,
                    use_argmax: bool = False):
     """Sequential within-utterance assignment chains, batched over
-    utterances.
+    utterances (kernel K3).
 
     embeds [B, S] int32 segment embedding ids (-1 = pad); Xe [B, S, D] their
     vectors; log_prior_e [B, S] their prior log densities; gumbel [B, S, K]
@@ -52,6 +58,48 @@ def fixedvar_chain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, var,
     return fixedvar_chain_plain(*args)
 
 
+def bigram_constants(alpha_a: float, b_smooth: float, intrp_lambda: float,
+                     K: int) -> tuple:
+    """(a/K, a, b/K, b, lam, 1 - lam): the LM constants as the JAX kernel
+    forms them (``pallas_chain.py:443-446``), in double precision; the
+    kernel gets each rounded once to float32, exactly what a float32
+    tensor operation rounds the same Python float to."""
+    a, b, lam = float(alpha_a), float(b_smooth), float(intrp_lambda)
+    return (a / K, a, b / K, b, lam, 1.0 - lam)
+
+
+def bigram_fixedvar_chain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
+                          var, var_0, mu_0, temp, uni_lo, big_table, corr_j,
+                          corr_i, alpha_a: float, intrp_lambda: float,
+                          b_smooth: float, K: int, lms: float = 1.0):
+    """Bigram-conditioned assignment chains (kernel K4): the inputs of
+    :func:`fixedvar_chain` (always Gumbel-max) plus ``uni_lo`` [B, K] int32
+    leave-one-utterance-out unigram counts, ``big_table`` [K, K] int32 global
+    bigram counts and ``corr_j`` / ``corr_i`` [B, S] int32 the utterance's
+    own old (prev, cur) pairs, removed from the table rows on the fly.  The
+    LM weight of a segment is
+
+        lms * log(lam * uni_prob
+                  + (1 - lam) * (row_j - corr + b/K) / (c_j + b))
+
+    given the previous valid segment's draw j, and the unigram weight for
+    the first.  Every valid old pair must be counted in ``big_table`` or the
+    weight goes NaN (the JAX kernel's caveat, ``pallas_chain.py:383-385``).
+
+    Returns ks [B, S] int32 (-1 pads).
+    """
+    prec = 1.0 / var
+    prec0 = 1.0 / var_0
+    p0m0 = prec0 * mu_0
+    args = (embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0,
+            p0m0, float(temp), uni_lo, big_table, corr_j, corr_i,
+            bigram_constants(alpha_a, b_smooth, intrp_lambda, K), int(K),
+            float(lms))
+    if cuda_lib.use_kernel(Xe):
+        return _launch_bigram(*args)
+    return bigram_fixedvar_chain_plain(*args)
+
+
 def _derive(prec, prec0, p0m0, cnt, sx):
     prec_n = prec0 + cnt * prec
     return (p0m0 + prec * sx) / prec_n, prec_n * prec / (prec_n + prec)
@@ -67,11 +115,13 @@ def _sum_log_d(pp):
     return acc
 
 
-def fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
-                         prec, prec0, p0m0, temp, alpha, K, lms, use_argmax):
-    """Plain PyTorch version of K3, all utterances advancing one segment
-    per step; utterances past their last segment see ``embeds < 0`` and
-    change nothing."""
+def _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec,
+                 prec0, p0m0, temp, use_argmax, weights):
+    """The chain loop both plain versions share, all utterances advancing
+    one segment per step; utterances past their last segment see
+    ``embeds < 0`` and change nothing.  ``weights(cnt, j_prev)`` gives the
+    [B, K] mixture-weight term of a step from the running counts [B, K] and
+    the previous valid segment's draw [B] (-1 before the first)."""
     B, S = embeds.shape
     D = Xe.shape[-1]
     pc, p0c, pmc = prec[:, None], prec0[:, None], p0m0[:, None]  # [D, 1]
@@ -80,6 +130,7 @@ def fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
     mu, pp = _derive(pc, p0c, pmc, cnt[:, None, :], sx)
     lpp = _sum_log_d(pp)                                        # [B, K]
     ks = torch.full((B, S), -1, dtype=torch.int32, device=Xe.device)
+    j_prev = torch.full((B,), -1, dtype=torch.long, device=Xe.device)
     steps = torch.arange(1, S + 1, device=Xe.device)
     n_steps = int(torch.where(embeds >= 0, steps, 0).amax()) if S else 0
     c0 = -0.5 * D * _LOG_2PI
@@ -92,12 +143,13 @@ def fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
             dl = x[:, d, None] - mu[:, d, :]
             maha = maha + dl * dl * pp[:, d, :]
         post = (c0 + 0.5 * lpp) - 0.5 * maha
-        w = lms * torch.log(alpha / K + cnt)
-        logits = w + torch.where(cnt > 0, post, log_prior_e[:, s, None])
+        logits = weights(cnt, j_prev) + torch.where(
+            cnt > 0, post, log_prior_e[:, s, None])
         k_draw = (torch.argmax(logits, dim=-1) if use_argmax else
                   annealed_gumbel_max(logits, gumbel[:, s], temp))
         k_new = canonicalize_new_component(cnt, k_draw)
         ks[:, s] = torch.where(ok, k_new, -1).to(torch.int32)
+        j_prev = torch.where(ok, k_new, j_prev)
         b, k = rows[ok], k_new[ok]
         cnt[b, k] += 1.0
         sx[b, :, k] += x[ok]
@@ -109,9 +161,57 @@ def fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
     return ks
 
 
-def _launch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0,
-            p0m0, temp, alpha, K, lms, use_argmax):
-    global launches
+def fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
+                         prec, prec0, p0m0, temp, alpha, K, lms, use_argmax):
+    """Plain PyTorch version of K3."""
+    def weights(cnt, j_prev):
+        return lms * torch.log(alpha / K + cnt)
+
+    return _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
+                        prec, prec0, p0m0, temp, use_argmax, weights)
+
+
+def bigram_fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts,
+                                sum_xT, prec, prec0, p0m0, temp, uni_lo,
+                                big_table, corr_j, corr_i, consts, K, lms):
+    """Plain PyTorch version of K4 (``consts`` from
+    :func:`bigram_constants`): the LM weights in the kernel's operation
+    order, the rest as K3."""
+    a_K, a, b_K, b, lam, one_m_lam = consts
+    B, S = corr_j.shape
+    u = uni_lo.to(Xe.dtype)
+    uni_den = uni_lo.sum(-1, keepdim=True).to(Xe.dtype) + a   # [B, 1]
+    uni_w = lms * (torch.log(u + a_K) - torch.log(uni_den))
+    own = (corr_j >= 0) & (corr_i >= 0)
+
+    def weights(cnt, j_prev):
+        js = j_prev.clamp_min(0)
+        hit = own & (corr_j == js[:, None])                    # [B, S]
+        corr = torch.zeros((B, K + 1), dtype=torch.int32, device=u.device)
+        corr.scatter_add_(1, torch.where(hit, corr_i, K).long(),
+                          torch.ones_like(corr_i, dtype=torch.int32))
+        row = (big_table[js] - corr[:, :K]).to(Xe.dtype)
+        uni_j = u.gather(1, js[:, None])
+        p = lam * ((u + a_K) / uni_den) \
+            + (one_m_lam * (row + b_K)) / (uni_j + b)
+        return torch.where((j_prev >= 0)[:, None], lms * torch.log(p), uni_w)
+
+    return _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
+                        prec, prec0, p0m0, temp, False, weights)
+
+
+def _chain_scratch(B, D, K, dev):
+    """Per-utterance tables of the chain kernels: cnt, lpp [B, K] and
+    sum_x, mu, pp [B, D, K], float32."""
+    f32 = torch.float32
+    return (torch.empty((B, K), dtype=f32, device=dev),
+            *(torch.empty((B, D, K), dtype=f32, device=dev)
+              for _ in range(3)),
+            torch.empty((B, K), dtype=f32, device=dev))
+
+
+def _check_chain_inputs(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
+                        prec, prec0, p0m0, K):
     B, S = embeds.shape
     D = Xe.shape[-1]
     dev, f32 = Xe.device, torch.float32
@@ -124,10 +224,15 @@ def _launch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0,
     req(sum_xT, "sum_xT", f32, (B, D, K), dev)
     for name, t in (("prec", prec), ("prec0", prec0), ("p0m0", p0m0)):
         req(t, name, f32, (D,), dev)
-    cnt_s = torch.empty((B, K), dtype=f32, device=dev)
-    lpp_s = torch.empty((B, K), dtype=f32, device=dev)
-    sumx_s, mu_s, pp_s = (torch.empty((B, D, K), dtype=f32, device=dev)
-                          for _ in range(3))
+    return B, S, D, dev
+
+
+def _launch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0,
+            p0m0, temp, alpha, K, lms, use_argmax):
+    global launches
+    B, S, D, dev = _check_chain_inputs(embeds, Xe, log_prior_e, gumbel,
+                                       counts, sum_xT, prec, prec0, p0m0, K)
+    cnt_s, sumx_s, mu_s, pp_s, lpp_s = _chain_scratch(B, D, K, dev)
     ks = torch.empty((B, S), dtype=torch.int32, device=dev)
     p = cuda_lib.ptr
     err = cuda_lib.library().fixedvar_chain_launch(
@@ -137,4 +242,29 @@ def _launch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0,
         -0.5 * D * _LOG_2PI, int(use_argmax), cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "fixedvar_chain")
     launches += 1
+    return ks
+
+
+def _launch_bigram(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec,
+                   prec0, p0m0, temp, uni_lo, big_table, corr_j, corr_i,
+                   consts, K, lms):
+    global bigram_launches
+    B, S, D, dev = _check_chain_inputs(embeds, Xe, log_prior_e, gumbel,
+                                       counts, sum_xT, prec, prec0, p0m0, K)
+    req = cuda_lib.require
+    req(uni_lo, "uni_lo", torch.int32, (B, K), dev)
+    req(big_table, "big_table", torch.int32, (K, K), dev)
+    req(corr_j, "corr_j", torch.int32, (B, S), dev)
+    req(corr_i, "corr_i", torch.int32, (B, S), dev)
+    cnt_s, sumx_s, mu_s, pp_s, lpp_s = _chain_scratch(B, D, K, dev)
+    ks = torch.empty((B, S), dtype=torch.int32, device=dev)
+    p = cuda_lib.ptr
+    err = cuda_lib.library().bigram_fixedvar_chain_launch(
+        p(embeds), p(Xe), p(log_prior_e), p(gumbel), p(counts), p(sum_xT),
+        p(prec), p(prec0), p(p0m0), p(uni_lo), p(big_table), p(corr_j),
+        p(corr_i), p(cnt_s), p(sumx_s), p(mu_s), p(pp_s), p(lpp_s), p(ks),
+        B, S, D, K, *consts, lms, temp, -0.5 * D * _LOG_2PI,
+        cuda_lib.stream_of(Xe))
+    cuda_lib.check(err, "bigram_fixedvar_chain")
+    bigram_launches += 1
     return ks

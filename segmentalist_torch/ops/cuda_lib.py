@@ -48,6 +48,11 @@ _SIGNATURES = {
     # cnt_s, sumx_s, mu_s, pp_s, lpp_s, ks, B, S, D, K, alpha_over_K, lms,
     # temp, c0, use_argmax, stream
     "fixedvar_chain_launch": [_P] * 15 + [_I] * 4 + [_F] * 4 + [_I, _P],
+    # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0, p0m0,
+    # uni, big, corr_j, corr_i, cnt_s, sumx_s, mu_s, pp_s, lpp_s, ks,
+    # B, S, D, K, a_over_K, a, b_over_K, b, lam, one_minus_lam, lms, temp,
+    # c0, stream
+    "bigram_fixedvar_chain_launch": [_P] * 19 + [_I] * 4 + [_F] * 9 + [_P],
 }
 
 build_seconds = None  # wall time of the last nvcc build in this process

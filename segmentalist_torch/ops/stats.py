@@ -56,6 +56,23 @@ def empty_suff_stats(K_max: int, D: int, dtype=torch.float32,
     )
 
 
+def add_item(stats: SuffStats, x: torch.Tensor, k, weight=1) -> SuffStats:
+    """New statistics with data vector ``x`` [D] added to slot ``k``;
+    ``weight`` 0 makes it a no-op, -1 a removal (the reference's
+    ``del_item``).  One addend per element, so the result is exact."""
+    k = torch.as_tensor(k, device=x.device).long()
+    w = torch.as_tensor(weight, device=x.device)
+    counts, sum_x, sum_sq = (t.clone() for t in stats)
+    counts[k] += w.to(counts.dtype)
+    sum_x[k] += w.to(x.dtype) * x
+    sum_sq[k] += w.to(x.dtype) * item_sq(x)
+    return SuffStats(counts, sum_x, sum_sq)
+
+
+def del_item(stats: SuffStats, x: torch.Tensor, k, weight=1) -> SuffStats:
+    return add_item(stats, x, k, weight=-torch.as_tensor(weight))
+
+
 def num_active(stats: SuffStats) -> torch.Tensor:
     """Number of non-empty components -- the reference's dynamic ``K``."""
     return (stats.counts > 0).sum()

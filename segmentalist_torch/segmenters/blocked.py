@@ -1,0 +1,329 @@
+"""State and block-step stages shared by the blocked-Gibbs segmenters.
+
+The unigram and bigram segmenters hold the same corpus and acoustic-model
+state and resample a block of utterances through the same stages
+(``segmentalist_tpu/segmenters/unigram.py:785-1057`` and
+``bigram.py:953-1278``):
+
+  1. the block's current segments and their leave-one-utterance-out
+     statistics (:meth:`BlockedWordseg._leave_out`);
+  2. fused candidate scoring (kernel K1) and the boundary-resampling DP
+     (kernel K2) (:meth:`BlockedWordseg._resample_boundaries`);
+  3. the sequential assignment chain of the new segments -- the one stage
+     the segmenters do differently (K3 with Dirichlet weights, K4 with the
+     bigram LM);
+  4. cross-utterance decollision and the merge into the global state
+     (:meth:`BlockedWordseg._merge`).
+
+The segmenters differ only in the mixture weights they hand to stage 2, the
+chain of stage 3 and the bookkeeping around it.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..corpus import Utterances
+from ..device import resolve_device
+from ..models import components_fixedvar as cfv
+from ..ops.cuda_score import fixedvar_log_margs_T
+from ..ops.dp import segment_dp
+from ..ops.random import gumbel
+from .common import (
+    cand_tables,
+    counts_contrib,
+    decollide_new_components,
+    dp_window,
+    flat_contrib,
+    gather_block_segments,
+    leave_out_moments_T,
+    masked_candidate_scores,
+    merge_flat,
+    pad_utterance_order,
+    seed_assignments_to_vector,
+)
+
+logger = logging.getLogger(__name__)
+
+RECORD_KEYS = ("sample_time", "log_marg", "log_marg*length", "log_prob_z",
+               "log_prob_X_given_z", "anneal_temp", "components", "n_tokens")
+
+
+def process_embeddings(embedding_mats, vec_ids_dict):
+    """Flatten per-utterance embedding matrices into one [N, D] matrix and
+    re-index the per-utterance ``vec_ids`` to global rows (reference
+    ``process_embeddings``, unigram_acoustic_wordseg.py:571-646)."""
+    embeddings, vec_ids, labels = [], [], []
+    i_embed = 0
+    for utt in sorted(embedding_mats):
+        labels.append(utt)
+        mat = np.asarray(embedding_mats[utt])
+        local = np.asarray(vec_ids_dict[utt])
+        vec_ids.append(np.where(local >= 0, local + i_embed, -1))
+        embeddings.append(mat)
+        i_embed += mat.shape[0]
+    return np.concatenate(embeddings, axis=0), vec_ids, labels
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor; on CUDA through pinned memory, so the
+    copy is asynchronous and does not stall the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class Block(NamedTuple):
+    """One block of utterances at the start of its step."""
+
+    idx: torch.Tensor         # [B] utterance ids (padding clamped to 0)
+    valid: torch.Tensor       # [B] bool, False for padding
+    live: torch.Tensor        # [n] positions of the real utterances
+    lengths: torch.Tensor     # [B] landmarks (0 for padding)
+    seg_ids: torch.Tensor     # [B, N_max, W_store] candidate embedding ids
+    old_embeds: torch.Tensor  # [B, N_max] current segments' embedding ids
+    old_ks: torch.Tensor      # [B, N_max] their components (-1 pads)
+    Xe_old: torch.Tensor      # [B, N_max, D] their vectors
+    own_counts: torch.Tensor  # [B, K] int32 per-utterance counts of old_ks
+    lo_counts: torch.Tensor   # [B, K] int32 leave-one-utterance-out counts
+    sum_xT: torch.Tensor      # [B, D, K] leave-one-utterance-out sum_x
+
+
+class BlockedWordseg:
+    """Corpus and acoustic-model state of a blocked-Gibbs segmenter, and
+    the block-step stages its subclasses share.  A subclass calls
+    :meth:`_init_corpus`, builds its acoustic model, then calls
+    :meth:`_init_sampler`; it defines ``block_step`` and
+    ``sweep_metrics``."""
+
+    def _init_corpus(self, am_K, embedding_mats, vec_ids_dict,
+                     durations_dict, landmarks_dict, seed_boundaries_dict,
+                     seed_assignments_dict, n_slices_min, n_slices_max,
+                     min_duration, p_boundary_init, beta_sent_boundary, wip,
+                     time_power_term, init_am_assignments, seed,
+                     decollide_new, device):
+        """Build the corpus and the initial assignments; returns
+        ``(embeddings [N, D], assignments [N], am_K)``.
+
+        ``seed`` seeds the host RNG of the initialisation (the draws the JAX
+        package takes from numpy's global RNG, in the same order)."""
+        if seed_assignments_dict is not None and seed_boundaries_dict is None:
+            raise ValueError(
+                "seed_assignments_dict needs seed_boundaries_dict")
+        self.device = resolve_device(device)
+        self.n_slices_min = int(n_slices_min)
+        self.n_slices_max = int(n_slices_max)
+        self.beta_sent_boundary = float(beta_sent_boundary)
+        self.wip = float(wip)
+        self.time_power_term = float(time_power_term)
+        self.decollide_new = bool(decollide_new)
+
+        embeddings, vec_ids, labels = process_embeddings(embedding_mats,
+                                                         vec_ids_dict)
+        self.ids_to_utterance_labels = labels
+        N = embeddings.shape[0]
+        init_rng = np.random.RandomState(seed)
+        seed_boundaries = (None if seed_boundaries_dict is None else
+                           [seed_boundaries_dict[i] for i in labels])
+        self.utterances = Utterances(
+            [len(landmarks_dict[i]) for i in labels], vec_ids,
+            [durations_dict[i] for i in labels],
+            [landmarks_dict[i] for i in labels],
+            seed_boundaries=seed_boundaries, p_boundary_init=p_boundary_init,
+            n_slices_min=n_slices_min, n_slices_max=n_slices_max,
+            min_duration=min_duration, rng=init_rng, device=self.device,
+        )
+
+        assignments = -1 * np.ones(N, dtype=np.int64)
+        if seed_assignments_dict is not None:
+            self.seed_to_cluster, am_K = seed_assignments_to_vector(
+                self.utterances, labels, seed_assignments_dict, assignments,
+                am_K)
+        elif init_am_assignments == "rand":
+            all_embeds = self.utterances.all_segmented_embeds()
+            init_embeds = all_embeds[all_embeds >= 0]
+            assignments[init_embeds] = init_rng.randint(0, am_K,
+                                                        len(init_embeds))
+        else:
+            raise ValueError("invalid value for `init_am_assignments`: "
+                             + str(init_am_assignments))
+        return embeddings, assignments, am_K
+
+    def _init_sampler(self, batch_size: Optional[int], seed: int):
+        """Block size, the host RNG of the per-sweep utterance order, the
+        device generator of the sampling noise, and the DP-windowed
+        candidate tables."""
+        self.batch_size = (int(batch_size) if batch_size
+                           else min(64, self.utterances.D))
+        self._rng = np.random.RandomState(seed)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        utt = self.utterances
+        self.W_dp = (min(self.n_slices_max, utt.N_max)
+                     if self.n_slices_max > 0 else utt.N_max)
+        self._seg_ids_dp = dp_window(utt.seg_ids, self.W_dp)
+        self._seg_durs_dp = dp_window(utt.seg_durations, self.W_dp)
+        self.refresh_candidates()
+
+    # ------------------------------------------------------------------ API
+
+    def refresh_candidates(self):
+        """Rebuild the sweep-static candidate tensors ``X[seg_ids]`` and
+        ``log_prior_vec[seg_ids]`` (after replacing ``acoustic_model.X``)."""
+        am = self.acoustic_model
+        self._cand_X, self._cand_lp = cand_tables(
+            self._seg_ids_dp, am.X, am.log_prior_vec)
+
+    def calc_p_continue(self) -> float:
+        """Sentence-continue probability under the symmetric Beta prior
+        (reference ``calc_p_continue``,
+        unigram_acoustic_wordseg.py:513-531)."""
+        return float(torch.exp(self._log_p_continue(
+            self.acoustic_model.stats.counts)))
+
+    def _log_p_continue(self, counts: torch.Tensor) -> torch.Tensor:
+        """log of :meth:`calc_p_continue` as a device scalar (no host sync)."""
+        dtype = self.acoustic_model.X.dtype
+        if self.beta_sent_boundary == -1:
+            return torch.zeros((), dtype=dtype, device=self.device)
+        beta = self.beta_sent_boundary
+        n_tokens = counts.sum().to(dtype)
+        n_continue = n_tokens - (self.utterances.D - 1)
+        return torch.log((n_continue + beta / 2.0) / (n_tokens + beta))
+
+    def get_unsup_transcript_i(self, i: int):
+        """Component assignments of utterance i's current segments
+        (reference unigram_acoustic_wordseg.py:533-537)."""
+        embeds = np.asarray(self.utterances.get_segmented_embeds_i(i),
+                            dtype=np.int64)
+        return list(self.acoustic_model.assignments.cpu().numpy()[embeds])
+
+    def _sample_sweeps(self, temps, anneal_gibbs_am: bool,
+                       **step_kwargs) -> dict:
+        """Blocked Gibbs sweeps at temperatures ``temps``: every sweep visits
+        the utterances in a fresh host permutation, in blocks of
+        ``batch_size``.  Returns the reference's 8-key record dict."""
+        record = {k: [] for k in RECORD_KEYS}
+        for temp in temps:
+            t0 = time.time()
+            temp = float(temp)
+            assign_temp = temp if anneal_gibbs_am else 1.0
+            blocks = pad_utterance_order(
+                self._rng.permutation(self.utterances.D), self.batch_size)
+            log_prob = sum(self.block_step(blk, temp, assign_temp,
+                                           **step_kwargs) for blk in blocks)
+            m = self.sweep_metrics()
+            record["log_marg"].append(m["log_marg"])
+            record["log_marg*length"].append(float(log_prob))
+            record["log_prob_z"].append(m["log_prob_z"])
+            record["log_prob_X_given_z"].append(m["log_prob_X_given_z"])
+            record["anneal_temp"].append(temp)
+            record["components"].append(m["components"])
+            record["n_tokens"].append(m["n_assigned"])
+            record["sample_time"].append(time.time() - t0)
+            logger.info("iteration: %d, log_marg: %s",
+                        len(record["log_marg"]) - 1, record["log_marg"][-1])
+        return record
+
+    # ------------------------------------------------------- block stages
+
+    def _leave_out(self, idx_blk) -> Block:
+        """Stage 1: the block's current segments and leave-one-utterance-out
+        statistics.  ``idx_blk`` [B] host ints, -1 for padding."""
+        am, utt, dev = self.acoustic_model, self.utterances, self.device
+        X, K = am.X, am.K_max
+        idx_np = np.asarray(idx_blk, dtype=np.int64)
+        B = idx_np.shape[0]
+        live_np = np.nonzero(idx_np >= 0)[0]
+        packed = _to_device(np.concatenate([idx_np, live_np]), dev)
+        valid = packed[:B] >= 0
+        idx = packed[:B].clamp_min(0)
+        lengths = torch.where(valid, utt.lengths_dev[idx], 0)
+        seg_ids = utt.seg_ids[idx]
+        old_embeds, _ = gather_block_segments(utt.boundaries_dev[idx],
+                                              lengths, seg_ids)
+        old_ok = old_embeds >= 0
+        old_rows = old_embeds.clamp_min(0).long()
+        old_ks = torch.where(old_ok, am.assignments[old_rows], -1)
+        Xe_old = X[old_rows]
+        own_counts = counts_contrib(old_ks, old_ok, K)
+        sum_xT = leave_out_moments_T(am.stats, X, old_embeds, old_ks, K,
+                                     rows=Xe_old)
+        return Block(idx, valid, packed[B:], lengths, seg_ids, old_embeds,
+                     old_ks, Xe_old, own_counts,
+                     am.stats.counts[None] - own_counts, sum_xT)
+
+    def _resample_boundaries(self, blk: Block, w_b: torch.Tensor,
+                             anneal_temp: float, mode: str,
+                             dp_noise: Optional[torch.Tensor]):
+        """Stage 2: score every candidate span of the block with mixture
+        weights ``w_b`` [B, K] (kernel K1) and resample the boundaries
+        (kernel K2).  Returns (log_prob [B], new boundaries [B, N_max])."""
+        am = self.acoustic_model
+        B = blk.idx.shape[0]
+        N_max, W_dp = self.utterances.N_max, self.W_dp
+        muT, precT = cfv.predictive_params_T(am.prior, blk.lo_counts,
+                                             blk.sum_xT)
+        log_margs = fixedvar_log_margs_T(
+            self._cand_X[blk.idx], self._cand_lp[blk.idx], muT.contiguous(),
+            precT.contiguous(), w_b, blk.lo_counts,
+            valid_m=blk.lengths * W_dp).reshape(B, N_max, W_dp)
+        scores = masked_candidate_scores(
+            log_margs, self._seg_ids_dp[blk.idx], self._seg_durs_dp[blk.idx],
+            self.time_power_term, self.wip)
+        return segment_dp(
+            scores, blk.lengths, self._log_p_continue(am.stats.counts),
+            anneal_temp, n_slices_min=self.n_slices_min, n_slices_max=W_dp,
+            mode=mode, noise=dp_noise, generator=self._gen)
+
+    def _new_segments(self, blk: Block, new_bounds: torch.Tensor):
+        """The segments of ``new_bounds``: (embedding ids [B, N_max], their
+        vectors [B, N_max, D], their prior log densities [B, N_max])."""
+        am = self.acoustic_model
+        new_embeds, _ = gather_block_segments(new_bounds, blk.lengths,
+                                              blk.seg_ids)
+        rows = new_embeds.clamp_min(0).long()
+        return new_embeds, am.X[rows], am.log_prior_vec[rows]
+
+    def _chain_noise(self, chain_noise: Optional[torch.Tensor],
+                     B: int) -> torch.Tensor:
+        """The chain's [B, N_max, K] Gumbel noise, drawn when not given."""
+        if chain_noise is not None:
+            return chain_noise
+        am = self.acoustic_model
+        return gumbel((B, self.utterances.N_max, am.K_max), self._gen,
+                      self.device, am.X.dtype)
+
+    def _merge(self, blk: Block, new_bounds: torch.Tensor,
+               new_embeds: torch.Tensor, Xe_new: torch.Tensor,
+               new_ks: torch.Tensor) -> torch.Tensor:
+        """Stage 4: cross-utterance decollision of new components, then the
+        merge of statistics, boundaries and assignments into the global
+        state.  Returns the decollided ``new_ks``."""
+        am, utt = self.acoustic_model, self.utterances
+        X, K, stats = am.X, am.K_max, am.stats
+        valid = blk.valid
+        if self.decollide_new and valid.shape[0] > 1:
+            new_ks = decollide_new_components(
+                new_ks, (new_embeds >= 0) & valid[:, None], blk.lo_counts,
+                stats.counts)
+        old_flat = flat_contrib(X, blk.old_embeds, blk.old_ks, K, valid,
+                                rows=blk.Xe_old)
+        new_flat = flat_contrib(X, new_embeds, new_ks, K, valid, rows=Xe_new)
+        am.stats = merge_flat(stats, old_flat, new_flat)
+        utt.boundaries_dev[blk.idx[blk.live]] = new_bounds[blk.live]
+        pad, N = am._assign_pad, am.N
+        vm = valid[:, None]
+        clear = torch.where(vm & (blk.old_embeds >= 0), blk.old_embeds,
+                            N).reshape(-1).long()
+        pad.index_put_((clear,), pad.new_full(clear.shape, -1))
+        put = torch.where(vm & (new_embeds >= 0), new_embeds, N)
+        pad.index_put_((put.reshape(-1).long(),),
+                       new_ks.reshape(-1).to(pad.dtype))
+        pad[N] = -1
+        return new_ks

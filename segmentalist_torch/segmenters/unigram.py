@@ -23,68 +23,20 @@ the result is the same).
 
 from __future__ import annotations
 
-import logging
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..corpus import Utterances
-from ..device import resolve_device
-from ..models import components_fixedvar as cfv
 from ..models.fbgmm import FBGMM, log_weights
 from ..ops.cuda_chain import fixedvar_chain
-from ..ops.cuda_score import fixedvar_log_margs_T
-from ..ops.dp import segment_dp
-from ..ops.random import gumbel
 from ..utils.annealing import anneal_temperatures
-from .common import (
-    cand_tables,
-    counts_contrib,
-    decollide_new_components,
-    dp_window,
-    flat_contrib,
-    gather_block_segments,
-    leave_out_moments_T,
-    masked_candidate_scores,
-    merge_flat,
-    pad_utterance_order,
-    seed_assignments_to_vector,
-)
+from .blocked import RECORD_KEYS, BlockedWordseg
 
-logger = logging.getLogger(__name__)
-
-RECORD_KEYS = ("sample_time", "log_marg", "log_marg*length", "log_prob_z",
-               "log_prob_X_given_z", "anneal_temp", "components", "n_tokens")
+__all__ = ["RECORD_KEYS", "UnigramAcousticWordseg"]
 
 
-def process_embeddings(embedding_mats, vec_ids_dict):
-    """Flatten per-utterance embedding matrices into one [N, D] matrix and
-    re-index the per-utterance ``vec_ids`` to global rows (reference
-    ``process_embeddings``, unigram_acoustic_wordseg.py:571-646)."""
-    embeddings, vec_ids, labels = [], [], []
-    i_embed = 0
-    for utt in sorted(embedding_mats):
-        labels.append(utt)
-        mat = np.asarray(embedding_mats[utt])
-        local = np.asarray(vec_ids_dict[utt])
-        vec_ids.append(np.where(local >= 0, local + i_embed, -1))
-        embeddings.append(mat)
-        i_embed += mat.shape[0]
-    return np.concatenate(embeddings, axis=0), vec_ids, labels
-
-
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> device tensor; on CUDA through pinned memory, so the
-    copy is asynchronous and does not stall the stream."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
-class UnigramAcousticWordseg:
+class UnigramAcousticWordseg(BlockedWordseg):
     """Unigram word segmentation of speech using acoustic word embeddings.
 
     Constructor parameters mirror the JAX package (and the reference,
@@ -110,66 +62,23 @@ class UnigramAcousticWordseg:
                  init_am_assignments="rand", time_power_term=1.0,
                  batch_size: Optional[int] = None, seed: int = 0,
                  decollide_new: bool = True, device="cpu"):
-        if seed_assignments_dict is not None and seed_boundaries_dict is None:
-            raise ValueError(
-                "seed_assignments_dict needs seed_boundaries_dict")
-        self.device = resolve_device(device)
-        self.n_slices_min = int(n_slices_min)
-        self.n_slices_max = int(n_slices_max)
-        self.beta_sent_boundary = float(beta_sent_boundary)
-        self.wip = float(wip)
-        self.time_power_term = float(time_power_term)
-        self.decollide_new = bool(decollide_new)
         self.set_fb_type(fb_type)
-
-        embeddings, vec_ids, labels = process_embeddings(embedding_mats,
-                                                         vec_ids_dict)
-        self.ids_to_utterance_labels = labels
-        N = embeddings.shape[0]
-        init_rng = np.random.RandomState(seed)
-        seed_boundaries = (None if seed_boundaries_dict is None else
-                           [seed_boundaries_dict[i] for i in labels])
-        self.utterances = Utterances(
-            [len(landmarks_dict[i]) for i in labels], vec_ids,
-            [durations_dict[i] for i in labels],
-            [landmarks_dict[i] for i in labels],
-            seed_boundaries=seed_boundaries, p_boundary_init=p_boundary_init,
-            n_slices_min=n_slices_min, n_slices_max=n_slices_max,
-            min_duration=min_duration, rng=init_rng, device=self.device,
-        )
-
-        assignments = -1 * np.ones(N, dtype=np.int64)
-        if seed_assignments_dict is not None:
-            self.seed_to_cluster, am_K = seed_assignments_to_vector(
-                self.utterances, labels, seed_assignments_dict, assignments,
-                am_K)
-        elif init_am_assignments == "rand":
-            all_embeds = self.utterances.all_segmented_embeds()
-            init_embeds = all_embeds[all_embeds >= 0]
-            assignments[init_embeds] = init_rng.randint(0, am_K,
-                                                        len(init_embeds))
-        elif init_am_assignments == "one-by-one":
+        if (init_am_assignments == "one-by-one"
+                and seed_assignments_dict is None):
             raise NotImplementedError(
                 "init_am_assignments='one-by-one' needs FBGMM's sequential "
                 "Gibbs step, which segmentalist_torch does not port yet")
-        else:
-            raise ValueError("invalid value for `init_am_assignments`: "
-                             + str(init_am_assignments))
+        embeddings, assignments, am_K = self._init_corpus(
+            am_K, embedding_mats, vec_ids_dict, durations_dict,
+            landmarks_dict, seed_boundaries_dict, seed_assignments_dict,
+            n_slices_min, n_slices_max, min_duration, p_boundary_init,
+            beta_sent_boundary, wip, time_power_term, init_am_assignments,
+            seed, decollide_new, device)
         self.acoustic_model = FBGMM(
             torch.as_tensor(embeddings, device=self.device), am_param_prior,
             am_alpha, am_K, assignments, covariance_type=covariance_type,
             lms=lms, device=self.device)
-
-        self.batch_size = (int(batch_size) if batch_size
-                           else min(64, self.utterances.D))
-        self._rng = np.random.RandomState(seed)
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        utt = self.utterances
-        self.W_dp = (min(self.n_slices_max, utt.N_max)
-                     if self.n_slices_max > 0 else utt.N_max)
-        self._seg_ids_dp = dp_window(utt.seg_ids, self.W_dp)
-        self._seg_durs_dp = dp_window(utt.seg_durations, self.W_dp)
-        self.refresh_candidates()
+        self._init_sampler(batch_size, seed)
 
     # ------------------------------------------------------------------ API
 
@@ -178,37 +87,6 @@ class UnigramAcousticWordseg:
             raise ValueError("invalid `fb_type`: " + fb_type)
         self.fb_type = fb_type
         self._dp_mode = "sample" if fb_type == "standard" else "viterbi"
-
-    def refresh_candidates(self):
-        """Rebuild the sweep-static candidate tensors ``X[seg_ids]`` and
-        ``log_prior_vec[seg_ids]`` (after replacing ``acoustic_model.X``)."""
-        am = self.acoustic_model
-        self._cand_X, self._cand_lp = cand_tables(
-            self._seg_ids_dp, am.X, am.log_prior_vec)
-
-    def calc_p_continue(self) -> float:
-        """Sentence-continue probability under the symmetric Beta prior
-        (reference ``calc_p_continue``,
-        unigram_acoustic_wordseg.py:513-531)."""
-        return float(torch.exp(self._log_p_continue(
-            self.acoustic_model.stats.counts)))
-
-    def _log_p_continue(self, counts: torch.Tensor) -> torch.Tensor:
-        """log of :meth:`calc_p_continue` as a device scalar (no host sync)."""
-        dtype = self.acoustic_model.X.dtype
-        if self.beta_sent_boundary == -1:
-            return torch.zeros((), dtype=dtype, device=self.device)
-        beta = self.beta_sent_boundary
-        n_tokens = counts.sum().to(dtype)
-        n_continue = n_tokens - (self.utterances.D - 1)
-        return torch.log((n_continue + beta / 2.0) / (n_tokens + beta))
-
-    def get_unsup_transcript_i(self, i: int):
-        """Component assignments of utterance i's current segments
-        (reference unigram_acoustic_wordseg.py:533-537)."""
-        embeds = np.asarray(self.utterances.get_segmented_embeds_i(i),
-                            dtype=np.int64)
-        return list(self.acoustic_model.assignments.cpu().numpy()[embeds])
 
     def get_vec_embed_log_probs(self, vec_ids, durations) -> np.ndarray:
         """Duration-scaled candidate log marginals in the reference's packed
@@ -227,6 +105,9 @@ class UnigramAcousticWordseg:
         out[ok] = out[ok] * durations[ok] ** self.time_power_term
         return out + self.wip
 
+    def sweep_metrics(self) -> dict:
+        return self.acoustic_model.sweep_metrics()
+
     # ------------------------------------------------------------- sampling
 
     def gibbs_sample(self, n_iter: int, anneal_schedule=None,
@@ -241,28 +122,7 @@ class UnigramAcousticWordseg:
         temps = anneal_temperatures(n_iter, anneal_schedule,
                                     anneal_start_temp_inv,
                                     anneal_end_temp_inv, n_anneal_steps)
-        record = {k: [] for k in RECORD_KEYS}
-        am = self.acoustic_model
-        for i_iter in range(n_iter):
-            t0 = time.time()
-            temp = float(temps[i_iter])
-            assign_temp = temp if anneal_gibbs_am else 1.0
-            blocks = pad_utterance_order(
-                self._rng.permutation(self.utterances.D), self.batch_size)
-            log_prob = sum(self.block_step(blk, temp, assign_temp)
-                           for blk in blocks)
-            m = am.metrics_to_dict(am.sweep_metrics_device())
-            record["log_marg"].append(m["log_marg"])
-            record["log_marg*length"].append(float(log_prob))
-            record["log_prob_z"].append(m["log_prob_z"])
-            record["log_prob_X_given_z"].append(m["log_prob_X_given_z"])
-            record["anneal_temp"].append(temp)
-            record["components"].append(m["components"])
-            record["n_tokens"].append(m["n_assigned"])
-            record["sample_time"].append(time.time() - t0)
-            logger.info("iteration: %d, log_marg: %s", i_iter,
-                        record["log_marg"][-1])
-        return record
+        return self._sample_sweeps(temps, anneal_gibbs_am)
 
     def block_step(self, idx_blk, anneal_temp: float = 1.0,
                    assign_temp: float = 1.0,
@@ -276,80 +136,28 @@ class UnigramAcousticWordseg:
         assignment chain (drawn from the segmenter's generator when None).
         Returns the block's summed DP log probability (a device scalar).
         """
-        am, utt, dev = self.acoustic_model, self.utterances, self.device
+        am = self.acoustic_model
         X, K, prior = am.X, am.K_max, am.prior
-        N_max, W_dp = utt.N_max, self.W_dp
-        idx_np = np.asarray(idx_blk, dtype=np.int64)
-        B = idx_np.shape[0]
-        live_np = np.nonzero(idx_np >= 0)[0]
-        packed = _to_device(np.concatenate([idx_np, live_np]), dev)
-        valid = packed[:B] >= 0
-        idx = packed[:B].clamp_min(0)
-        live = packed[B:]
-        lengths_blk = torch.where(valid, utt.lengths_dev[idx], 0)
-        seg_ids_blk = utt.seg_ids[idx]
-        stats = am.stats
 
         # 1. current segments and leave-one-utterance-out statistics
-        old_embeds, _ = gather_block_segments(utt.boundaries_dev[idx],
-                                              lengths_blk, seg_ids_blk)
-        old_ok = old_embeds >= 0
-        old_rows = old_embeds.clamp_min(0).long()
-        old_ks = torch.where(old_ok, am.assignments[old_rows], -1)
-        Xe_old = X[old_rows]
-        lo_counts = stats.counts[None] - counts_contrib(old_ks, old_ok, K)
-        sum_xT = leave_out_moments_T(stats, X, old_embeds, old_ks, K,
-                                     rows=Xe_old)
+        blk = self._leave_out(idx_blk)
 
-        # 2. fused candidate scoring (kernel K1)
-        muT, precT = cfv.predictive_params_T(prior, lo_counts, sum_xT)
-        w_b = log_weights(lo_counts, am.alpha, K, am.lms,
+        # 2. fused candidate scoring (K1) and boundary resampling (K2)
+        w_b = log_weights(blk.lo_counts, am.alpha, K, am.lms,
                           include_denominator=True, dtype=X.dtype)
-        log_margs = fixedvar_log_margs_T(
-            self._cand_X[idx], self._cand_lp[idx], muT.contiguous(),
-            precT.contiguous(), w_b, lo_counts,
-            valid_m=lengths_blk * W_dp).reshape(B, N_max, W_dp)
-        scores = masked_candidate_scores(
-            log_margs, self._seg_ids_dp[idx], self._seg_durs_dp[idx],
-            self.time_power_term, self.wip)
+        log_prob, new_bounds = self._resample_boundaries(
+            blk, w_b, anneal_temp, self._dp_mode, dp_noise)
 
-        # 3. boundary resampling DP (kernel K2)
-        log_prob, new_bounds = segment_dp(
-            scores, lengths_blk, self._log_p_continue(stats.counts),
-            anneal_temp, n_slices_min=self.n_slices_min, n_slices_max=W_dp,
-            mode=self._dp_mode, noise=dp_noise, generator=self._gen)
-
-        # 4. sequential assignment of the new segments (kernel K3)
-        new_embeds, _ = gather_block_segments(new_bounds, lengths_blk,
-                                              seg_ids_blk)
-        new_rows = new_embeds.clamp_min(0).long()
-        Xe_new = X[new_rows]
-        if chain_noise is None:
-            chain_noise = gumbel((B, N_max, K), self._gen, dev, X.dtype)
+        # 3. sequential assignment of the new segments (kernel K3)
+        new_embeds, Xe_new, lpe_new = self._new_segments(blk, new_bounds)
         viterbi = self.fb_type == "viterbi"
         new_ks = fixedvar_chain(
-            new_embeds, Xe_new, am.log_prior_vec[new_rows], chain_noise,
-            lo_counts, sum_xT, prior.var, prior.var_0, prior.mu_0,
-            assign_temp, alpha=am.alpha, K=K,
-            lms=1.0 if viterbi else am.lms, use_argmax=viterbi)
+            new_embeds, Xe_new, lpe_new,
+            self._chain_noise(chain_noise, blk.idx.shape[0]), blk.lo_counts,
+            blk.sum_xT, prior.var, prior.var_0, prior.mu_0, assign_temp,
+            alpha=am.alpha, K=K, lms=1.0 if viterbi else am.lms,
+            use_argmax=viterbi)
 
-        # 4b. cross-utterance new-component decollision
-        if self.decollide_new and B > 1:
-            new_ks = decollide_new_components(
-                new_ks, (new_embeds >= 0) & valid[:, None], lo_counts,
-                stats.counts)
-
-        # 5. merge into the global state
-        old_flat = flat_contrib(X, old_embeds, old_ks, K, valid, rows=Xe_old)
-        new_flat = flat_contrib(X, new_embeds, new_ks, K, valid, rows=Xe_new)
-        am.stats = merge_flat(stats, old_flat, new_flat)
-        utt.boundaries_dev[idx[live]] = new_bounds[live]
-        pad, N = am._assign_pad, am.N
-        vm = valid[:, None]
-        clear = torch.where(vm & old_ok, old_embeds, N).reshape(-1).long()
-        pad.index_put_((clear,), pad.new_full(clear.shape, -1))
-        put = torch.where(vm & (new_embeds >= 0), new_embeds, N)
-        pad.index_put_((put.reshape(-1).long(),),
-                       new_ks.reshape(-1).to(pad.dtype))
-        pad[N] = -1
-        return torch.where(valid, log_prob, 0.0).sum()
+        # 4. decollision and the merge into the global state
+        self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks)
+        return torch.where(blk.valid, log_prob, 0.0).sum()

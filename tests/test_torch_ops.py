@@ -144,6 +144,27 @@ def test_suff_stats_from_assignments():
     assert e.counts.dtype == torch.int32 and e.sum_x.shape == (K, D)
 
 
+@pytest.mark.parametrize("weight", [1, 0, -1])
+def test_add_and_del_item(weight):
+    """add_item / del_item against the JAX package: the one slot changes,
+    exactly, and nothing else does."""
+    rng = np.random.RandomState(4)
+    counts, sum_x, sum_sq = _stats(rng)
+    x = rng.randn(D)
+    j0 = jstats.SuffStats(*(jnp.asarray(a) for a in (counts, sum_x, sum_sq)))
+    t0 = tstats.SuffStats(*(_t(a) for a in (counts, sum_x, sum_sq)))
+    for k in (0, 2, K - 1):
+        j = jstats.add_item(j0, jnp.asarray(x), k, weight=weight)
+        t = tstats.add_item(t0, _t(x), torch.tensor(k), weight=weight)
+        for a, b in zip(t, j):
+            npt.assert_array_equal(_n(a), np.asarray(b))
+        j = jstats.del_item(j0, jnp.asarray(x), k, weight=weight)
+        t = tstats.del_item(t0, _t(x), k, weight=weight)
+        for a, b in zip(t, j):
+            npt.assert_array_equal(_n(a), np.asarray(b))
+    npt.assert_array_equal(_n(t0.counts), counts)  # inputs are not mutated
+
+
 @pytest.mark.parametrize("full", [False, True])
 def test_first_empty_and_canonicalize(full):
     rng = np.random.RandomState(3)

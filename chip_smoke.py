@@ -11,17 +11,21 @@ check that does not hold:
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 must be off;
 2. build: compile the hand-written kernels from ``segmentalist_torch/csrc``;
-3. each kernel (K1-K4) against its plain PyTorch version on the card, in
-   float32, at the flagship shapes (B=125, N_max=20, W=6, K=1000, D=13)
-   and a long/wide case (N_max=120, D=130), with CUDA-event timings;
+3. each kernel (K1-K7, both compositions of K5) against its plain
+   PyTorch version on the card, in float32, at the flagship shapes
+   (B=125, N_max=20, W=6, K=1000, D=13) and a long/wide case (N_max=120,
+   D=130), with CUDA-event timings;
 4. small-input references: the reference-pinned candidate scores of the
-   one-utterance toy corpus, and block steps of the unigram and of the
-   bigram segmenter on the card against the same block steps on the CPU
-   (plain versions) on shared noise;
-5. the two slices at bench scale, on the 1000-utterance synthetic corpus,
-   137 sweeps each: the unigram fixed-variance segmenter (K1, K2, K3) and
-   the bigram fixed-variance segmenter (K1, K2, K4); for each, every
-   kernel's launch count in that run, ms/sweep, log_marg and boundary F1.
+   one-utterance toy corpus, and block steps on the card against the same
+   block steps on the CPU (plain versions) on shared noise, for the
+   unigram and bigram segmenters of both families (diag unigram in FFBS
+   and in Viterbi, which takes K5's exact composition);
+5. four paths at bench scale, on the 1000-utterance synthetic corpus, 137
+   sweeps each: the unigram and the bigram segmenter with fixed-variance
+   components (K1, K2, K3 / K4) and with diagonal-covariance components
+   (K5, K2, K6 / K7, the JAX package's `benchmarks/all_models.py` diag
+   rows); for each, every kernel's launch count in that run, ms/sweep,
+   log_marg and boundary F1.
 
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``.
@@ -44,7 +48,8 @@ FLAGSHIP = dict(B=125, N_max=20, W=6, K=1000, D=13)
 LONG = dict(B=125, N_max=120, W=6, K=1000, D=130)
 SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
 AGREE_MIN = 0.999       # share of identical boundaries / assignments
-F1_MIN = 0.67
+F1_MIN = 0.67           # fixed-variance paths (JAX on a TPU: 0.696)
+F1_MIN_DIAG = 0.72      # diag paths (JAX on a TPU: 0.750)
 BIGRAM_LM = {"type": "smooth", "intrp_lambda": 0.1, "a": 1.0, "b": 1.0}
 DEVICE = "cuda"
 
@@ -172,6 +177,95 @@ def chain_inputs(shape, seed, device):
             counts, sum_xT, prior)
 
 
+def diag_prior(D, dtype, device):
+    """The JAX package's diag prior (`benchmarks/all_models.py:127-129`):
+    NIW(m_0=0, k_0=0.05, v_0=D+3, S_0=0.05)."""
+    from segmentalist_torch import NIW
+
+    return NIW.create(np.zeros(D, dtype), 0.05, D + 3.0,
+                      np.full(D, 0.05, dtype), device=device)
+
+
+def diag_leave_out_stats(rng, B, K, D, device):
+    """K1's leave-out statistics with per-dimension sums of squares
+    (members scattered around their mean with about unit variance); empty
+    slots hold zero sums, as a sweep's do."""
+    import torch
+
+    counts, sum_xT, protos = leave_out_stats(rng, B, K, D, device)
+    c = counts.cpu().numpy()[:, None, :].astype(np.float64)
+    sx = sum_xT.cpu().numpy() * (c > 0)
+    sq = sx * sx / np.maximum(c, 1) \
+        + np.maximum(c - 1, 0) * (1.0 + 0.1 * np.abs(rng.randn(*sx.shape)))
+    as_t = lambda a: torch.as_tensor(  # noqa: E731
+        a, dtype=torch.float32, device=device).contiguous()
+    return counts, as_t(sx), as_t(sq), protos
+
+
+def diag_score_inputs(shape, seed, device):
+    """K5's inputs, with the tables `cuda_score.diag_log_margs_T` forms."""
+    import torch
+    from segmentalist_torch.models import components_diag as cdg
+    from segmentalist_torch.models.fbgmm import log_weights
+    from segmentalist_torch.ops import cuda_score
+
+    rng = np.random.RandomState(seed)
+    B, N_max, W, K, D = (shape[k] for k in ("B", "N_max", "W", "K", "D"))
+    M = N_max * W
+    counts, sum_xT, sum_sqT, protos = diag_leave_out_stats(rng, B, K, D,
+                                                           device)
+    prior = diag_prior(D, np.float32, device)
+    Xc = protos[rng.randint(0, K, (B, M))] + 0.3 * rng.randn(B, M, D)
+    Xc = torch.as_tensor(Xc, dtype=torch.float32, device=device)
+    muT, inv_varT, lpv, v = cdg.predictive_params_T(prior, counts, sum_xT,
+                                                    sum_sqT)
+    w = log_weights(counts, 1.0, K, 1.0, include_denominator=True,
+                    dtype=torch.float32)
+    valid_m = torch.as_tensor(rng.randint(2, N_max + 1, B) * W,
+                              dtype=torch.int32, device=device)
+    return (Xc, cdg.log_prior_batch(prior, Xc), muT.contiguous(),
+            *cuda_score.diag_score_tables(inv_varT, lpv, v, D), w, counts,
+            valid_m)
+
+
+def diag_chain_inputs(shape, seed, device):
+    """K6's inputs: `chain_inputs` with the diag statistics and prior."""
+    import torch
+    from segmentalist_torch.models import components_diag as cdg
+
+    rng = np.random.RandomState(seed)
+    B, S, K, D = shape["B"], shape["N_max"], shape["K"], shape["D"]
+    counts, sum_xT, sum_sqT, protos = diag_leave_out_stats(rng, B, K, D,
+                                                           device)
+    n_seg = rng.randint(1, S + 1, B)
+    ok = np.arange(S)[None, :] < n_seg[:, None]
+    embeds = np.where(ok, rng.randint(0, 10 ** 6, (B, S)), -1)
+    Xe = protos[rng.randint(0, K, (B, S))] + 0.3 * rng.randn(B, S, D)
+    Xe[rng.rand(B, S) < 0.1] = 5.0 * rng.randn(D)  # some far-off segments
+    gumbel = -np.log(-np.log(rng.uniform(1e-30, 1.0, (B, S, K))))
+    prior = diag_prior(D, np.float32, device)
+    Xe = torch.as_tensor(Xe, dtype=torch.float32, device=device)
+    data = (torch.as_tensor(embeds, dtype=torch.int32, device=device), Xe,
+            cdg.log_prior_batch(prior, Xe),
+            torch.as_tensor(gumbel, dtype=torch.float32, device=device),
+            counts, sum_xT, sum_sqT)
+    return data, prior
+
+
+def ks_agreement(kernel, name, ks_k, ks_p, embeds):
+    """Log and check the share of identical ks of a chain kernel and its
+    plain version; returns max |ks_k - ks_p|."""
+    valid = embeds >= 0
+    n_valid = int(valid.sum())
+    n_same = int(((ks_k == ks_p) & valid).sum())
+    check(bool((ks_k[~valid] == -1).all()), "%s %s: pads not -1"
+          % (kernel, name))
+    log("%s %s: identical ks %d/%d" % (kernel, name, n_same, n_valid))
+    check(n_same >= AGREE_MIN * n_valid, "%s %s: ks agreement %d/%d"
+          % (kernel, name, n_same, n_valid))
+    return float((ks_k - ks_p).abs().max())
+
+
 # ------------------------------------------------------------- phase 3
 
 def compare_score(shape, name):
@@ -261,19 +355,11 @@ def compare_chain(shape, name):
 
     out = {"max_abs_err": 0.0}
     for use_argmax in (False, True):
-        ks_k = kernel(use_argmax)
-        ks_p = plain(use_argmax)
+        ks_k, ks_p = kernel(use_argmax), plain(use_argmax)
         sync()
-        valid = embeds >= 0
-        n_valid = int(valid.sum())
-        n_same = int(((ks_k == ks_p) & valid).sum())
-        check(bool((ks_k[~valid] == -1).all()), "K3 %s: pads not -1" % name)
-        log("K3 fixedvar_chain %s use_argmax=%s: identical ks %d/%d"
-            % (name, use_argmax, n_same, n_valid))
-        check(n_same >= AGREE_MIN * n_valid, "K3 %s: ks agreement %d/%d"
-              % (name, n_same, n_valid))
-        out["max_abs_err"] = max(out["max_abs_err"],
-                                 float((ks_k - ks_p).abs().max()))
+        out["max_abs_err"] = max(out["max_abs_err"], ks_agreement(
+            "K3 fixedvar_chain use_argmax=%s" % use_argmax, name, ks_k, ks_p,
+            embeds))
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 3)
     log("K3 fixedvar_chain %s: kernel %.4f ms  plain %.4f ms"
@@ -287,8 +373,6 @@ def bigram_chain_inputs(shape, seed, device):
     K3's argmax chain on the same segments, so that K4's draws often follow
     an old pair and its correction is exercised; and a sparse global table
     that counts every old pair of every utterance."""
-    import torch
-    from segmentalist_torch.models.bigram_lm import transcript_pairs_batch
     from segmentalist_torch.ops import cuda_chain
 
     embeds, Xe, lpe, gumbel, counts, sum_xT, prior = chain_inputs(
@@ -297,14 +381,22 @@ def bigram_chain_inputs(shape, seed, device):
     old = cuda_chain.fixedvar_chain(
         embeds, Xe, lpe, gumbel, counts, sum_xT, prior.var, prior.var_0,
         prior.mu_0, 1.0, alpha=1.0, K=K, use_argmax=True)
+    lm = (counts, *old_pair_table(old, K, seed + 100, device))
+    return (embeds, Xe, lpe, gumbel, counts, sum_xT), lm, prior
+
+
+def old_pair_table(old, K, seed, device):
+    """(big [K, K] int32, corr_j, corr_i): the old transcripts' pairs and
+    a sparse global bigram table that counts every one of them."""
+    import torch
+    from segmentalist_torch.models.bigram_lm import transcript_pairs_batch
+
     pj, pi = transcript_pairs_batch(old)
-    rng = np.random.RandomState(seed + 100)
+    rng = np.random.RandomState(seed)
     big = (rng.rand(K, K) < 0.003) * rng.randint(1, 5, (K, K))
     ok = (pj >= 0).cpu().numpy()
     np.add.at(big, (pj.cpu().numpy()[ok], pi.cpu().numpy()[ok]), 1)
-    lm = (counts, torch.as_tensor(big, dtype=torch.int32, device=device),
-          pj, pi)
-    return (embeds, Xe, lpe, gumbel, counts, sum_xT), lm, prior
+    return torch.as_tensor(big, dtype=torch.int32, device=device), pj, pi
 
 
 def compare_bigram_chain(shape, name):
@@ -335,20 +427,117 @@ def compare_bigram_chain(shape, name):
         torch.full_like(lm[2], -1), lm[3], alpha_a=1.0, intrp_lambda=0.1,
         b_smooth=1.0, K=K)
     sync()
-    embeds = data[0]
-    valid = embeds >= 0
-    n_valid = int(valid.sum())
-    n_same = int(((ks_k == ks_p) & valid).sum())
-    check(bool((ks_k[~valid] == -1).all()), "K4 %s: pads not -1" % name)
-    log("K4 bigram_fixedvar_chain %s: identical ks %d/%d (without the "
-        "own-pair correction %d would differ)"
-        % (name, n_same, n_valid, int((ks_keep != ks_k).sum())))
-    check(n_same >= AGREE_MIN * n_valid, "K4 %s: ks agreement %d/%d"
-          % (name, n_same, n_valid))
-    out = {"max_abs_err": float((ks_k - ks_p).abs().max())}
+    log("K4 bigram_fixedvar_chain %s: without the own-pair correction %d ks "
+        "would differ" % (name, int((ks_keep != ks_k).sum())))
+    out = {"max_abs_err": ks_agreement("K4 bigram_fixedvar_chain", name,
+                                       ks_k, ks_p, data[0])}
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 3)
     log("K4 bigram_fixedvar_chain %s: kernel %.4f ms  plain %.4f ms"
+        % (name, out["ms"], out["plain_ms"]))
+    return out
+
+
+def compare_diag_score(shape, name):
+    """K5 in both compositions (grouped for FFBS, exact for Viterbi)."""
+    import torch
+    from segmentalist_torch.ops import cuda_score
+
+    args = diag_score_inputs(shape, 5, DEVICE)
+    out = {"max_abs_err": 0.0}
+    for exact in (False, True):
+        label = "K5 diag_scores %s exact=%s" % (name, exact)
+        got = cuda_score.diag_scores(*args, exact=exact)
+        ref = cuda_score.diag_scores_plain(*args, exact=exact)
+        sync()
+        fin = torch.isfinite(ref)
+        check(bool((torch.isfinite(got) == fin).all()),
+              "%s: -inf pattern differs from the plain version" % label)
+        err = (got - ref).abs()[fin]
+        rel = (err / ref.abs()[fin].clamp_min(1.0)).max().item()
+        check(rel <= SCORE_TOL, "%s: relative error %.3g > %g"
+              % (label, rel, SCORE_TOL))
+        pre = "exact_" if exact else ""
+        out[pre + "ms"] = cuda_ms(
+            lambda: cuda_score.diag_scores(*args, exact=exact), 50)
+        out[pre + "plain_ms"] = cuda_ms(
+            lambda: cuda_score.diag_scores_plain(*args, exact=exact), 5)
+        out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
+        log("%s: max|d|=%.3g max rel=%.3g  kernel %.4f ms  plain %.4f ms"
+            % (label, err.max().item(), rel, out[pre + "ms"],
+               out[pre + "plain_ms"]))
+    return out
+
+
+def compare_diag_chain(shape, name):
+    """K6 in sample and argmax mode."""
+    from segmentalist_torch.ops import cuda_diag_chain as cdc
+
+    data, prior = diag_chain_inputs(shape, 6, DEVICE)
+    K = shape["K"]
+    k0, v0 = float(prior.k_0), float(prior.v_0)
+    k0m0, snp0, _ = cdc.prior_terms(prior.m_0, k0, prior.S_0)
+
+    def kernel(use_argmax=False):
+        return cdc.diag_chain(*data, prior.m_0, k0, v0, prior.S_0, 0.8,
+                              alpha=1.0, K=K, use_argmax=use_argmax)
+
+    def plain(use_argmax=False):
+        return cdc.diag_chain_plain(*data, k0m0, snp0, k0, v0, 0.8, 1.0, K,
+                                    1.0, use_argmax)
+
+    out = {"max_abs_err": 0.0}
+    for use_argmax in (False, True):
+        ks_k, ks_p = kernel(use_argmax), plain(use_argmax)
+        sync()
+        out["max_abs_err"] = max(out["max_abs_err"], ks_agreement(
+            "K6 diag_chain use_argmax=%s" % use_argmax, name, ks_k, ks_p,
+            data[0]))
+    out["ms"] = cuda_ms(kernel, 20)
+    out["plain_ms"] = cuda_ms(plain, 2)
+    log("K6 diag_chain %s: kernel %.4f ms  plain %.4f ms"
+        % (name, out["ms"], out["plain_ms"]))
+    return out
+
+
+def compare_bigram_diag_chain(shape, name):
+    """K7, with LM tables built as `bigram_chain_inputs` builds them: the
+    old transcripts are K6's argmax chains on the same segments
+    (`old_pair_table`)."""
+    import torch
+    from segmentalist_torch.ops import cuda_chain
+    from segmentalist_torch.ops import cuda_diag_chain as cdc
+
+    data, prior = diag_chain_inputs(shape, 7, DEVICE)
+    K = shape["K"]
+    k0, v0 = float(prior.k_0), float(prior.v_0)
+    k0m0, snp0, _ = cdc.prior_terms(prior.m_0, k0, prior.S_0)
+    old = cdc.diag_chain(*data, prior.m_0, k0, v0, prior.S_0, 1.0,
+                         alpha=1.0, K=K, use_argmax=True)
+    big, pj, pi = old_pair_table(old, K, 107, DEVICE)
+    counts = data[4]
+    consts = cuda_chain.bigram_constants(1.0, 1.0, 0.1, K)
+
+    def kernel(corr_j=pj):
+        return cdc.bigram_diag_chain(
+            *data, prior.m_0, k0, v0, prior.S_0, 0.8, counts, big, corr_j,
+            pi, alpha_a=1.0, intrp_lambda=0.1, b_smooth=1.0, K=K)
+
+    def plain():
+        return cdc.bigram_diag_chain_plain(
+            *data, k0m0, snp0, k0, v0, 0.8, counts, big, pj, pi, consts, K,
+            1.0)
+
+    ks_k, ks_p = kernel(), plain()
+    ks_keep = kernel(torch.full_like(pj, -1))  # own old pairs kept
+    sync()
+    log("K7 bigram_diag_chain %s: without the own-pair correction %d ks "
+        "would differ" % (name, int((ks_keep != ks_k).sum())))
+    out = {"max_abs_err": ks_agreement("K7 bigram_diag_chain", name, ks_k,
+                                       ks_p, data[0])}
+    out["ms"] = cuda_ms(kernel, 20)
+    out["plain_ms"] = cuda_ms(plain, 2)
+    log("K7 bigram_diag_chain %s: kernel %.4f ms  plain %.4f ms"
         % (name, out["ms"], out["plain_ms"]))
     return out
 
@@ -383,113 +572,151 @@ def toy_reference():
     check(np.allclose(got, want, atol=1e-5), "toy reference scores differ")
 
 
-def small_block_vs_cpu():
+def block_steps_vs_cpu(name, build, exact=True):
     """Three block steps on the card (kernels) and on the CPU (plain
-    versions), float32, from one initial state on shared numpy noise."""
+    versions), float32, from one initial state on shared numpy noise.
+    ``build(corpus, device)`` makes the segmenter.  Boundaries and
+    assignments (and a bigram segmenter's LM tables) must be identical, or
+    with ``exact=False`` agree to ``AGREE_MIN``."""
     import torch
-    import segmentalist_torch as pt
     from segmentalist_torch.utils.synth import synthetic_corpus
 
     em, vi, du, lm, _ = synthetic_corpus(n_utterances=24, n_landmarks_max=12,
                                          D=13, K_true=6, n_slices_max=6,
                                          seed=4)
-    em = {k: v.astype(np.float32) for k, v in em.items()}
-    segs = {}
-    for dev in ("cpu", DEVICE):
-        segs[dev] = pt.UnigramAcousticWordseg(
-            pt.FBGMM, 1.0, 40, fixedvar_prior(13, np.float32, "cpu"), em, vi,
-            du, lm, p_boundary_init=0.5, beta_sent_boundary=2.0,
-            n_slices_max=6, batch_size=8, seed=4, device=dev)
+    corpus = ({k: v.astype(np.float32) for k, v in em.items()}, vi, du, lm)
+    segs = {dev: build(corpus, dev) for dev in ("cpu", DEVICE)}
     rng = np.random.RandomState(5)
-    N_max, W_dp = segs["cpu"].utterances.N_max, segs["cpu"].W_dp
-    for block in np.arange(24).reshape(3, 8):
-        dp_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, W_dp))))
-        ch_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, 40))))
-        for dev, seg in segs.items():
-            as_t = lambda a: torch.as_tensor(  # noqa: E731
-                a, dtype=torch.float32, device=dev)
-            seg.block_step(block, 1.0, 1.0, dp_noise=as_t(dp_noise),
-                           chain_noise=as_t(ch_noise))
-    b = {d: s.utterances.boundaries for d, s in segs.items()}
-    a = {d: s.acoustic_model.assignments.cpu().numpy()
-         for d, s in segs.items()}
-    same_b = int((b["cpu"] == b[DEVICE]).all(1).sum())
-    same_a = int((a["cpu"] == a[DEVICE]).sum())
-    log("small block steps, card vs CPU: identical boundary rows %d/%d, "
-        "identical assignments %d/%d" % (same_b, b["cpu"].shape[0], same_a,
-                                         a["cpu"].size))
-    check(same_b >= AGREE_MIN * b["cpu"].shape[0]
-          and same_a >= AGREE_MIN * a["cpu"].size,
-          "card and CPU block steps disagree")
-    stats = segs[DEVICE].acoustic_model.stats
-    check(bool(torch.isfinite(stats.sum_x).all()), "non-finite statistics")
-
-
-def small_bigram_block_vs_cpu():
-    """Three bigram block steps on the card (K1, K2, K4) and on the CPU
-    (plain versions), float32, from one initial state on shared numpy
-    noise: identical boundaries, assignments and LM tables."""
-    import torch
-    import segmentalist_torch as pt
-    from segmentalist_torch.utils.synth import synthetic_corpus
-
-    em, vi, du, lm, _ = synthetic_corpus(n_utterances=24, n_landmarks_max=12,
-                                         D=13, K_true=6, n_slices_max=6,
-                                         seed=4)
-    em = {k: v.astype(np.float32) for k, v in em.items()}
-    segs = {}
-    for dev in ("cpu", DEVICE):
-        segs[dev] = pt.BigramAcousticWordseg(
-            40, fixedvar_prior(13, np.float32, "cpu"), BIGRAM_LM, em, vi, du,
-            lm, p_boundary_init=0.5, beta_sent_boundary=-1, n_slices_max=6,
-            fb_type="unigram", batch_size=8, seed=4, device=dev)
-    rng = np.random.RandomState(5)
-    N_max, W_dp = segs["cpu"].utterances.N_max, segs["cpu"].W_dp
-    for block in np.arange(24).reshape(3, 8):
-        dp_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, W_dp))))
-        ch_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, 40))))
-        for dev, seg in segs.items():
-            as_t = lambda a: torch.as_tensor(  # noqa: E731
-                a, dtype=torch.float32, device=dev)
-            seg.block_step(block, 1.0, 1.0, dp_noise=as_t(dp_noise),
-                           chain_noise=as_t(ch_noise))
     cpu, card = segs["cpu"], segs[DEVICE]
+    N_max, W_dp = cpu.utterances.N_max, cpu.W_dp
+    K = cpu.acoustic_model.K_max
+    for block in np.arange(24).reshape(3, 8):
+        dp_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, W_dp))))
+        ch_noise = -np.log(-np.log(rng.uniform(1e-30, 1, (8, N_max, K))))
+        for dev, seg in segs.items():
+            as_t = lambda a: torch.as_tensor(  # noqa: E731
+                a, dtype=torch.float32, device=dev)
+            seg.block_step(block, 1.0, 1.0, dp_noise=as_t(dp_noise),
+                           chain_noise=as_t(ch_noise))
     b_c, b_d = cpu.utterances.boundaries, card.utterances.boundaries
     a_c = cpu.acoustic_model.assignments.numpy()
     a_d = card.acoustic_model.assignments.cpu().numpy()
-    same_lm = (np.array_equal(cpu.lm.unigram_counts, card.lm.unigram_counts)
-               and np.array_equal(cpu.lm.bigram_counts,
-                                  card.lm.bigram_counts))
-    log("small bigram block steps, card vs CPU: identical boundary rows "
-        "%d/%d, identical assignments %d/%d, identical LM tables %s"
-        % (int((b_c == b_d).all(1).sum()), b_c.shape[0],
-           int((a_c == a_d).sum()), a_c.size, same_lm))
-    check(np.array_equal(b_c, b_d) and np.array_equal(a_c, a_d) and same_lm,
-          "card and CPU bigram block steps disagree")
+    same_b, same_a = int((b_c == b_d).all(1).sum()), int((a_c == a_d).sum())
+    msg = ("%s block steps, card vs CPU: identical boundary rows %d/%d, "
+           "identical assignments %d/%d" % (name, same_b, b_c.shape[0],
+                                            same_a, a_c.size))
+    same = same_b == b_c.shape[0] and same_a == a_c.size
+    if hasattr(cpu, "lm"):
+        same_lm = (np.array_equal(cpu.lm.unigram_counts,
+                                  card.lm.unigram_counts)
+                   and np.array_equal(cpu.lm.bigram_counts,
+                                      card.lm.bigram_counts))
+        msg += ", identical LM tables %s" % same_lm
+        same = same and same_lm
+    log(msg)
+    if exact:
+        check(same, "card and CPU %s block steps disagree" % name)
+    else:
+        check(same_b >= AGREE_MIN * b_c.shape[0]
+              and same_a >= AGREE_MIN * a_c.size,
+              "card and CPU %s block steps disagree" % name)
+    stats = card.acoustic_model.stats
+    check(bool(torch.isfinite(stats.sum_x).all()
+               and torch.isfinite(stats.sum_sq).all()),
+          "%s: non-finite statistics" % name)
+
+
+def small_block_steps():
+    """The small card-vs-CPU block steps of both segmenters and both
+    families; the diag Viterbi steps must take K5's exact composition."""
+    import segmentalist_torch as pt
+    from segmentalist_torch.ops import cuda_score
+
+    def unigram(prior, **kw):
+        return lambda c, dev: pt.UnigramAcousticWordseg(
+            pt.FBGMM, 1.0, 40, prior, *c, p_boundary_init=0.5,
+            beta_sent_boundary=2.0, n_slices_max=6, batch_size=8, seed=4,
+            device=dev, **kw)
+
+    def bigram(prior, **kw):
+        return lambda c, dev: pt.BigramAcousticWordseg(
+            40, prior, BIGRAM_LM, *c, p_boundary_init=0.5,
+            beta_sent_boundary=-1, n_slices_max=6, fb_type="unigram",
+            batch_size=8, seed=4, device=dev, **kw)
+
+    fixed = fixedvar_prior(13, np.float32, "cpu")
+    diag = diag_prior(13, np.float32, "cpu")
+    block_steps_vs_cpu("small unigram", unigram(fixed), exact=False)
+    block_steps_vs_cpu("small bigram", bigram(fixed))
+    block_steps_vs_cpu("small unigram diag", unigram(
+        diag, covariance_type="diag"))
+    before = (cuda_score.diag_launches, cuda_score.diag_exact_launches)
+    block_steps_vs_cpu("small unigram diag viterbi", unigram(
+        diag, covariance_type="diag", fb_type="viterbi"))
+    check((cuda_score.diag_launches, cuda_score.diag_exact_launches)
+          == (before[0], before[1] + 3),
+          "the diag Viterbi block steps did not take K5's exact composition")
+    block_steps_vs_cpu("small bigram diag", bigram(
+        diag, covariance_type="diag"))
 
 
 # ------------------------------------------------------------- phase 5
 
-def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False):
-    """One slice at bench scale (the `bench.py` corpus and config): the
-    unigram segmenter, or the bigram one (`bench.py`'s `bigram` row).
-    Returns the launches of each of its kernels in this run."""
+def reset_launches():
+    from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
+                                        cuda_score)
+
+    cuda_score.launches = cuda_score.diag_launches = 0
+    cuda_score.diag_exact_launches = cuda_dp.launches = 0
+    cuda_chain.launches = cuda_chain.bigram_launches = 0
+    cuda_diag_chain.launches = cuda_diag_chain.bigram_launches = 0
+
+
+def read_launches():
+    """Each kernel's launches since `reset_launches` (K5: both
+    compositions)."""
+    from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
+                                        cuda_score)
+
+    return {"K1": cuda_score.launches,
+            "K2": cuda_dp.launches, "K3": cuda_chain.launches,
+            "K4": cuda_chain.bigram_launches,
+            "K5": cuda_score.diag_launches + cuda_score.diag_exact_launches,
+            "K6": cuda_diag_chain.launches,
+            "K7": cuda_diag_chain.bigram_launches}
+
+
+PATH_KERNELS = {"unigram_fixed": ("K1", "K2", "K3"),
+                "bigram": ("K1", "K2", "K4"),
+                "unigram_diag": ("K5", "K2", "K6"),
+                "bigram_diag": ("K5", "K2", "K7")}
+
+
+def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
+              cov="fixed"):
+    """One path at bench scale (the `bench.py` corpus and config): the
+    unigram segmenter, or the bigram one (`bench.py`'s `bigram` row), with
+    fixed-variance or diag components (the diag prior and keywords of
+    `benchmarks/all_models.py:124-168`).  Returns the launches of every
+    kernel in this run; those of the path's own kernels must be > 0."""
     import torch
     import segmentalist_torch as pt
-    from segmentalist_torch.ops import cuda_chain, cuda_dp, cuda_score
     from segmentalist_torch.utils.synth import (boundary_f_score,
                                                 synthetic_corpus)
 
-    name = "bigram" if bigram else "unigram_fixed"
+    name = ("bigram" if bigram else "unigram") + (
+        "_diag" if cov == "diag" else ("" if bigram else "_fixed"))
     t0 = time.time()
     em, vi, du, lm, truth = synthetic_corpus(
         n_utterances=n_utterances, n_landmarks_max=20, D=13, K_true=50,
         n_slices_max=6, seed=0)
     em = {k: v.astype(np.float32) for k, v in em.items()}
+    prior = (diag_prior if cov == "diag" else fixedvar_prior)(
+        13, np.float32, "cpu")
     common = dict(
-        am_K=1000, am_param_prior=fixedvar_prior(13, np.float32, "cpu"),
-        embedding_mats=em, vec_ids_dict=vi, durations_dict=du,
-        landmarks_dict=lm, p_boundary_init=0.5, beta_sent_boundary=-1,
+        am_K=1000, am_param_prior=prior, embedding_mats=em,
+        vec_ids_dict=vi, durations_dict=du, landmarks_dict=lm,
+        covariance_type=cov, p_boundary_init=0.5, beta_sent_boundary=-1,
         n_slices_max=6, batch_size=125, seed=0, device=DEVICE)
     if bigram:
         seg = pt.BigramAcousticWordseg(lm_params=BIGRAM_LM,
@@ -506,8 +733,7 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False):
         return boundary_f_score(pred, truth)[2]
 
     f1_0 = f1()
-    cuda_score.launches = cuda_dp.launches = 0
-    cuda_chain.launches = cuda_chain.bigram_launches = 0
+    reset_launches()
     records, sweep_ms = [], []
     for n in sweeps:  # bench.py's sequence: warm-up 1 + 8, timed 2 x 64
         sync()
@@ -515,11 +741,7 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False):
         records.append(seg.gibbs_sample(n))
         sync()
         sweep_ms.append((time.time() - t) / n * 1e3)
-    launches = {"K1": cuda_score.launches, "K2": cuda_dp.launches}
-    if bigram:
-        launches["K4"] = cuda_chain.bigram_launches
-    else:
-        launches["K3"] = cuda_chain.launches
+    launches = read_launches()
     log_marg = [v for r in records for v in r["log_marg"]]
     f1_end = f1()
     log("%s slice: %d sweeps, ms/sweep per call %s (timed %s, best %.3f), "
@@ -530,20 +752,17 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False):
             log_marg[0], log_marg[-1], f1_0, f1_end, launches))
     check(len(log_marg) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
     check(all(math.isfinite(v) for v in log_marg), "non-finite log_marg")
-    for k, n in launches.items():
-        check(n > 0, "kernel %s was not launched on the %s path" % (k, name))
+    for k in PATH_KERNELS[name]:
+        check(launches[k] > 0, "kernel %s was not launched on the %s path"
+              % (k, name))
     if bigram:
         check(np.array_equal(seg.lm.unigram_counts,
                              seg.acoustic_model.stats.counts.cpu().numpy()),
               "LM unigram counts differ from the acoustic counts")
-    check(f1_end >= F1_MIN, "%s: final F1 %.4f < %.2f"
-          % (name, f1_end, F1_MIN))
-    return launches
-
-
-def run_bigram_slice(**kwargs):
-    """The bigram fixed-variance slice (`bench.py`'s `bigram` row)."""
-    return run_slice(bigram=True, **kwargs)
+    f1_min = F1_MIN_DIAG if cov == "diag" else F1_MIN
+    check(f1_end >= f1_min, "%s: final F1 %.4f < %.2f"
+          % (name, f1_end, f1_min))
+    return {k: launches[k] for k in PATH_KERNELS[name]}
 
 
 def main() -> int:
@@ -571,18 +790,19 @@ def main() -> int:
     log("kernel library built/loaded in %.1f s (nvcc %s s)"
         % (time.time() - t0, cuda_lib.build_seconds))
 
-    results = {}
-    for name, shape in (("flagship", FLAGSHIP), ("long", LONG)):
-        results[("K1", name)] = compare_score(shape, name)
-        results[("K2", name)] = compare_dp(shape, name)
-        results[("K3", name)] = compare_chain(shape, name)
-        results[("K4", name)] = compare_bigram_chain(shape, name)
+    compare = {"K1": compare_score, "K2": compare_dp, "K3": compare_chain,
+               "K4": compare_bigram_chain, "K5": compare_diag_score,
+               "K6": compare_diag_chain, "K7": compare_bigram_diag_chain}
+    results = {(k, name): fn(shape, name)
+               for name, shape in (("flagship", FLAGSHIP), ("long", LONG))
+               for k, fn in compare.items()}
 
     toy_reference()
-    small_block_vs_cpu()
-    small_bigram_block_vs_cpu()
+    small_block_steps()
     paths = {"unigram_fixed": run_slice(),
-             "bigram": run_bigram_slice()}
+             "bigram": run_slice(bigram=True),
+             "unigram_diag": run_slice(cov="diag"),
+             "bigram_diag": run_slice(bigram=True, cov="diag")}
 
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
@@ -594,18 +814,30 @@ def main() -> int:
         "K4": ("bigram_fixedvar_chain",
                "segmentalist_torch/csrc/fixedvar_chain.cu",
                "segmentalist_tpu/ops/pallas_chain.py:571"),
+        "K5": ("diag_scores", "segmentalist_torch/csrc/diag_score.cu",
+               "segmentalist_tpu/ops/pallas_score.py:352"),
+        "K6": ("diag_chain", "segmentalist_torch/csrc/diag_chain.cu",
+               "segmentalist_tpu/ops/pallas_chain.py:825"),
+        "K7": ("bigram_diag_chain", "segmentalist_torch/csrc/diag_chain.cu",
+               "segmentalist_tpu/ops/pallas_chain.py:1284"),
     }
     kernels = []
     for k, (fn, src, tpu) in meta.items():
         fl, lo = results[(k, "flagship")], results[(k, "long")]
         by_path = {p: n[k] for p, n in paths.items() if k in n}
-        kernels.append({
+        entry = {
             "name": fn, "route": "cuda", "source": src, "replaces": tpu,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(fl["max_abs_err"], lo["max_abs_err"]),
             "ms": fl["ms"], "plain_ms": fl["plain_ms"],
             "long_ms": lo["ms"], "long_plain_ms": lo["plain_ms"],
-        })
+        }
+        if "exact_ms" in fl:  # K5's exact composition (diag Viterbi)
+            entry.update(exact_ms=fl["exact_ms"],
+                         exact_plain_ms=fl["exact_plain_ms"],
+                         exact_long_ms=lo["exact_ms"],
+                         exact_long_plain_ms=lo["exact_plain_ms"])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

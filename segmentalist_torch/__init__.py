@@ -1,12 +1,13 @@
 """segmentalist_torch: the PyTorch / CUDA port of segmentalist_tpu.
 
-Imports torch and numpy only.  It ports the fixed-variance unigram and
-bigram segmenters with hand-written Hopper kernels for candidate scoring,
-the DP forward filter and the two assignment chains (``ops/cuda_*.py``,
-``csrc/``).
+Imports torch and numpy only.  It ports the unigram and bigram segmenters
+with the fixed-variance and the diagonal-covariance component families,
+with hand-written Hopper kernels for candidate scoring, the DP forward
+filter and the assignment chains (``ops/cuda_*.py``, ``csrc/``).
 """
 
 from .corpus import Utterances
+from .models import components_diag, components_fixedvar
 from .models.bigram_lm import BigramSmoothLM
 from .models.fbgmm import FBGMM
 from .priors import NIW, FixedVarPrior
@@ -14,4 +15,5 @@ from .segmenters.bigram import BigramAcousticWordseg
 from .segmenters.unigram import UnigramAcousticWordseg
 
 __all__ = ["BigramAcousticWordseg", "BigramSmoothLM", "FBGMM",
-           "FixedVarPrior", "NIW", "UnigramAcousticWordseg", "Utterances"]
+           "FixedVarPrior", "NIW", "UnigramAcousticWordseg", "Utterances",
+           "components_diag", "components_fixedvar"]

@@ -16,16 +16,10 @@
 // with the mixture-weight term
 //
 //   K3: w[k] = lms log(alpha/K + n_k)
-//   K4: w[k] = j_prev < 0 ? lms (log(uni[k] + a/K) - log(n_uni + a))
-//              : lms log(lam (uni[k] + a/K) / (n_uni + a)
-//                        + (1 - lam) ((big[j_prev, k] - corr[k]) + b/K)
-//                          / (uni[j_prev] + b))
+//   K4: w[k] = the bigram-LM weight of bigram_lm.cuh, conditioned on the
+//              previous valid segment's draw j_prev
 //
-// where uni [B, K] are the leave-out unigram counts (n_uni their sum),
-// big [K, K] the global bigram table, corr[k] the number of the utterance's
-// own OLD pairs (j_prev, k) (the reference strips the utterance's LM counts
-// before sampling it), and j_prev the previous valid segment's draw
-// (pallas_chain.py:463-555).  Then column k_new of (counts, sum_x) takes
+// Then column k_new of (counts, sum_x) takes
 // the segment and (mu, pp, lpp) of that column are re-derived from the new
 // statistics: an exact select of derive(<statistics>), never an
 // add-of-difference (pallas_chain.py:291-307).  The argmax breaks ties to
@@ -53,23 +47,13 @@
 
 #include <cstdint>
 
+#include "bigram_lm.cuh"
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// Inputs and constants of the bigram-LM weights (K4).  The constants are
-// float32 values rounded once on the host, exactly those the plain version
-// uses (ops/cuda_chain.py).
-struct BigramLM {
-    const int *uni;     // [B, K] leave-out unigram counts
-    const int *big;     // [K, K] global bigram counts
-    const int *corr_j;  // [B, S] the utterance's old pairs: previous id
-    const int *corr_i;  // [B, S] the utterance's old pairs: current id
-    float a_over_K, a, b_over_K, b, lam, one_minus_lam;
-};
 
 // sum_d (x_d - mu[d, k])^2 pp[d, k], accumulated in ascending d (the plain
 // version's order).  The loads go out in batches of kLoadBatch, so a thread
@@ -190,13 +174,8 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(
     for (int s = 0; s < n_steps; ++s) {
         const int64_t row = (int64_t)b * S + s;
         for (int d = tid; d < D; d += blockDim.x) xs[d] = Xe[row * D + d];
-        if (kBigram && j_prev >= 0) {
-            // The current ids of the utterance's old pairs (j_prev, .).
-            for (int s2 = tid; s2 < S; s2 += blockDim.x) {
-                if (cj[s2] == j_prev && ci[s2] >= 0)
-                    succ[atomicAdd(&s_nsucc, 1)] = ci[s2];
-            }
-        }
+        if (kBigram && j_prev >= 0)
+            bigram_successors(cj, ci, S, j_prev, succ, &s_nsucc);
         const float lp = log_prior_e[row];
         const float *g = gumbel + row * K;
         __syncthreads();
@@ -219,23 +198,11 @@ __global__ void __launch_bounds__(kThreads, 1) chain_kernel(
                 fit = lp;
                 first_empty = min(first_empty, k);
             }
-            float wk;
-            if (kBigram) {
-                const float u = (float)uni[k];
-                if (j_prev >= 0) {
-                    int corr = 0;
-                    for (int m = 0; m < n_succ; ++m) corr += succ[m] == k;
-                    const float rowk = (float)(brow[k] - corr);
-                    const float p = lm.lam * ((u + lm.a_over_K) / uni_den)
-                                    + (lm.one_minus_lam * (rowk + lm.b_over_K))
-                                          / (uni_j + lm.b);
-                    wk = lms * logf(p);
-                } else {
-                    wk = lms * (logf(u + lm.a_over_K) - log_uni_den);
-                }
-            } else {
-                wk = lms * logf(alpha_over_K + c);
-            }
+            const float wk =
+                kBigram ? bigram_weight(lm, (float)uni[k], k, j_prev, brow,
+                                        succ, n_succ, uni_den, log_uni_den,
+                                        uni_j, lms)
+                        : lms * logf(alpha_over_K + c);
             const float logit = wk + fit;
             const float v = use_argmax ? logit
                             : (logit == NEG_INF ? NEG_INF : logit / temp + g[k]);

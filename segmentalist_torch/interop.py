@@ -12,10 +12,12 @@ import torch
 
 from .models.bigram_lm import BigramLMState
 from .ops.stats import SuffStats
-from .priors import FixedVarPrior
+from .priors import NIW, FixedVarPrior
 
-STATE_KEYS = ("X", "counts", "sum_x", "sum_sq", "assignments", "boundaries",
-              "var", "mu_0", "var_0")
+STATE_KEYS = ("X", "counts", "sum_x", "sum_sq", "assignments", "boundaries")
+PRIOR_KEYS = {"fixed": ("var", "mu_0", "var_0"),   # FixedVarPrior
+              "diag": ("m_0", "k_0", "v_0", "S_0")}  # NIW, S_0 a [D] vector
+PRIOR_TYPES = {"fixed": FixedVarPrior, "diag": NIW}
 LM_KEYS = ("unigram_counts", "bigram_counts")
 
 
@@ -23,12 +25,16 @@ def load_state(seg, state: dict):
     """Replace the state of ``seg`` (a port ``UnigramAcousticWordseg`` or
     ``BigramAcousticWordseg``) with ``state``: numpy arrays under
     ``STATE_KEYS`` -- data ``X`` [N, D], statistics ``counts`` [K] /
-    ``sum_x`` / ``sum_sq`` [K, D], the ``[N]`` assignments, the
-    ``[U, N_max]`` boundaries and the fixed-variance prior vectors [D] --
-    and, for a bigram segmenter, the LM tables under ``LM_KEYS``
-    (``unigram_counts`` [K], ``bigram_counts`` [K, K], the JAX segmenter's
-    ``lm.state``)."""
-    keys = STATE_KEYS + (LM_KEYS if hasattr(seg, "lm") else ())
+    ``sum_x`` / ``sum_sq`` [K, D], the ``[N]`` assignments and the
+    ``[U, N_max]`` boundaries -- the prior under the family's
+    ``PRIOR_KEYS`` (``var`` / ``mu_0`` / ``var_0`` [D] for "fixed"; ``m_0``
+    [D], scalars ``k_0`` / ``v_0`` and ``S_0`` [D] for "diag", as the JAX
+    ``NIW`` holds them) and, for a bigram segmenter, the LM tables under
+    ``LM_KEYS`` (``unigram_counts`` [K], ``bigram_counts`` [K, K], the JAX
+    segmenter's ``lm.state``)."""
+    cov = seg.acoustic_model.covariance_type
+    keys = (STATE_KEYS + PRIOR_KEYS[cov]
+            + (LM_KEYS if hasattr(seg, "lm") else ()))
     missing = [k for k in keys if k not in state]
     if missing:
         raise KeyError("state lacks %s" % missing)
@@ -41,8 +47,7 @@ def load_state(seg, state: dict):
     X = t("X")
     am.X = X
     am.N, am.D = X.shape
-    am.prior = FixedVarPrior(t("var", X.dtype), t("mu_0", X.dtype),
-                             t("var_0", X.dtype))
+    am.prior = PRIOR_TYPES[cov](*(t(k, X.dtype) for k in PRIOR_KEYS[cov]))
     am.stats = SuffStats(t("counts", torch.int32), t("sum_x", X.dtype),
                          t("sum_sq", X.dtype))
     am.K_max = int(am.stats.counts.shape[0])

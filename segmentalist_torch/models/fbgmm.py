@@ -4,8 +4,9 @@
 Holds the acoustic model state the segmenter composes: data ``X``, the
 sufficient statistics, the ``[N]`` assignment vector and the per-item prior
 log densities, all on one device, plus the record metrics of the
-reference's ``FBGMM`` (``fbgmm.py``).  Only the fixed-variance component
-family is ported so far; the FBGMM's own Gibbs sweeps are not.
+reference's ``FBGMM`` (``fbgmm.py``).  The component family follows
+``covariance_type`` ("fixed" or "diag"; "full" is not ported yet); the
+FBGMM's own Gibbs sweeps are not ported.
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ import torch
 
 from ..ops.random import logsumexp
 from ..ops.stats import SuffStats, num_active, suff_stats_from_assignments
-from ..priors import FixedVarPrior
-from . import components_fixedvar
+from ..priors import Prior
+from . import cov_module
 
 
 def log_weights(counts: torch.Tensor, alpha, K_max: int, lms=1.0,
@@ -76,14 +77,10 @@ class FBGMM:
     tensor without a host sync; ``assignments`` is the ``[N]`` view.
     """
 
-    def __init__(self, X, prior: FixedVarPrior, alpha, K, assignments,
+    def __init__(self, X, prior: Prior, alpha, K, assignments,
                  covariance_type="fixed", lms=1.0, device=None):
-        if covariance_type != "fixed":
-            raise NotImplementedError(
-                "segmentalist_torch ports the fixed-variance family only; "
-                "covariance_type=%r is not ported yet" % (covariance_type,))
+        self.cov = cov_module(covariance_type)
         self.covariance_type = covariance_type
-        self.cov = components_fixedvar
         X = torch.as_tensor(X, device=device)
         self.device = X.device
         self.prior = prior.to(device=self.device, dtype=X.dtype)

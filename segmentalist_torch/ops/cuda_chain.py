@@ -171,16 +171,17 @@ def fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
                         prec, prec0, p0m0, temp, use_argmax, weights)
 
 
-def bigram_fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts,
-                                sum_xT, prec, prec0, p0m0, temp, uni_lo,
-                                big_table, corr_j, corr_i, consts, K, lms):
-    """Plain PyTorch version of K4 (``consts`` from
-    :func:`bigram_constants`): the LM weights in the kernel's operation
-    order, the rest as K3."""
+def bigram_lm_weights(uni_lo, big_table, corr_j, corr_i, consts, K, lms,
+                      dtype):
+    """The bigram-LM weight term of the plain K4 and K7 chains (the
+    kernels' ``csrc/bigram_lm.cuh``), in the kernels' operation order
+    (``consts`` from :func:`bigram_constants`).  Returns ``weights(cnt,
+    j_prev)`` -> [B, K] for the previous valid segment's draw j_prev [B]
+    (-1 before the first: the unigram weights)."""
     a_K, a, b_K, b, lam, one_m_lam = consts
     B, S = corr_j.shape
-    u = uni_lo.to(Xe.dtype)
-    uni_den = uni_lo.sum(-1, keepdim=True).to(Xe.dtype) + a   # [B, 1]
+    u = uni_lo.to(dtype)
+    uni_den = uni_lo.sum(-1, keepdim=True).to(dtype) + a      # [B, 1]
     uni_w = lms * (torch.log(u + a_K) - torch.log(uni_den))
     own = (corr_j >= 0) & (corr_i >= 0)
 
@@ -190,12 +191,23 @@ def bigram_fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts,
         corr = torch.zeros((B, K + 1), dtype=torch.int32, device=u.device)
         corr.scatter_add_(1, torch.where(hit, corr_i, K).long(),
                           torch.ones_like(corr_i, dtype=torch.int32))
-        row = (big_table[js] - corr[:, :K]).to(Xe.dtype)
+        row = (big_table[js] - corr[:, :K]).to(dtype)
         uni_j = u.gather(1, js[:, None])
         p = lam * ((u + a_K) / uni_den) \
             + (one_m_lam * (row + b_K)) / (uni_j + b)
         return torch.where((j_prev >= 0)[:, None], lms * torch.log(p), uni_w)
 
+    return weights
+
+
+def bigram_fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts,
+                                sum_xT, prec, prec0, p0m0, temp, uni_lo,
+                                big_table, corr_j, corr_i, consts, K, lms):
+    """Plain PyTorch version of K4 (``consts`` from
+    :func:`bigram_constants`): the LM weights of :func:`bigram_lm_weights`,
+    the rest as K3."""
+    weights = bigram_lm_weights(uni_lo, big_table, corr_j, corr_i, consts,
+                                K, lms, Xe.dtype)
     return _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
                         prec, prec0, p0m0, temp, False, weights)
 

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 All sources under ``segmentalist_torch/csrc/`` compile with ``nvcc`` into one
-shared library with a plain C interface, loaded with ctypes.  The build runs
-at first use into the git-ignored ``segmentalist_torch/_build/``, named by a
+shared library with a plain C interface, loaded with ctypes: one ``nvcc -c``
+per ``.cu`` file, all started together, then one link.  The build runs at
+first use into the git-ignored ``segmentalist_torch/_build/``, named by a
 hash of the sources and flags, so a fresh checkout builds everything on its
 first call and later calls reuse the library.
 
@@ -32,7 +33,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,9 @@ _SIGNATURES = {
     # Xc, prior_c, muT, precT, log_prod, w, counts, valid_m, out,
     # B, M, D, K, c0, stream
     "fixedvar_scores_launch": [_P] * 9 + [_I] * 4 + [_F, _P],
+    # Xc, prior_c, muT, ivvT, const, vh, w, counts, valid_m, out,
+    # B, M, D, K, exact, stream
+    "diag_scores_launch": [_P] * 10 + [_I] * 5 + [_P],
     # rev, lengths, lpc, out, B, N, W, use_max, stream
     "forward_alphas_launch": [_P] * 4 + [_I] * 4 + [_P],
     # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0, p0m0,
@@ -53,6 +57,17 @@ _SIGNATURES = {
     # B, S, D, K, a_over_K, a, b_over_K, b, lam, one_minus_lam, lms, temp,
     # c0, stream
     "bigram_fixedvar_chain_launch": [_P] * 19 + [_I] * 4 + [_F] * 9 + [_P],
+    # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0, snp0,
+    # k0, v0, cnt_s, sx_s, ssq_s, mu_s, var_s, lpv_s, gr_s, ks, B, S, D, K,
+    # alpha_over_K, lms, temp, half_log_pi, use_argmax, stream
+    "diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 8 + [_I] * 4
+                         + [_F] * 4 + [_I, _P],
+    # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0, snp0,
+    # k0, v0, uni, big, corr_j, corr_i, cnt_s, sx_s, ssq_s, mu_s, var_s,
+    # lpv_s, gr_s, ks, B, S, D, K, a_over_K, a, b_over_K, b, lam,
+    # one_minus_lam, lms, temp, half_log_pi, stream
+    "bigram_diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 12 + [_I] * 4
+                                + [_F] * 9 + [_P],
 }
 
 build_seconds = None  # wall time of the last nvcc build in this process
@@ -84,12 +99,11 @@ def library() -> ctypes.CDLL:
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = "%s.%d.tmp" % (so, os.getpid())
-        cu = [p for p in sources() if p.endswith(".cu")]
         t0 = time.time()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stderr)
+        objs = _compile_all(tmp)
+        _run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
+        for o in objs:
+            os.remove(o)
         build_seconds = time.time() - t0
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
@@ -98,6 +112,31 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + proc.stderr)
+
+
+def _compile_all(prefix: str) -> list:
+    """Compile every ``.cu`` source to an object, all in parallel; returns
+    the object paths (removed again if any compile fails)."""
+    cu = [p for p in sources() if p.endswith(".cu")]
+    objs = ["%s.%s.o" % (prefix, os.path.basename(p)[:-3]) for p in cu]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, p],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for p, o in zip(cu, objs)]
+    stderr = [proc.communicate()[1] for proc in procs]
+    failed = ["%s:\n%s" % (os.path.basename(p), err)
+              for p, proc, err in zip(cu, procs, stderr) if proc.returncode]
+    if failed:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return objs
 
 
 def check(err: int, name: str):

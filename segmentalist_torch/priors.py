@@ -47,6 +47,9 @@ class NIW(NamedTuple):
             S_0=_tensor(S_0, m_0.dtype, m_0.device),
         )
 
+    def to(self, device=None, dtype=None) -> "NIW":
+        return NIW(*(t.to(device=device, dtype=dtype) for t in self))
+
 
 class FixedVarPrior(NamedTuple):
     """Fixed diagonal-covariance Gaussian prior: ``var`` [D] observation

@@ -1,4 +1,5 @@
-"""Bigram acoustic word segmentation, fixed-variance components.
+"""Bigram acoustic word segmentation, fixed-variance or diagonal-covariance
+components.
 
 Counterpart of ``segmentalist_tpu/segmenters/bigram.py`` (reference
 ``BigramAcousticWordseg``, ``bigram_acoustic_wordseg.py:32-722``): boundary
@@ -13,8 +14,9 @@ segment's component through the smoothed bigram LM
 One block step (:meth:`BigramAcousticWordseg.block_step`) follows the JAX
 package's ``_make_block_step`` (``bigram.py:953-1278``) stage by stage,
 sharing every stage but the chain with the unigram segmenter
-(``segmenters/blocked.py``): the scorer (K1) takes the LM's leave-out
-unigram weights, the chain is kernel K4, and the LM count tables take the
+(``segmenters/blocked.py``): the scorer (K1, or K5 for the diag family)
+takes the LM's leave-out unigram weights, the chain is kernel K4 (K7 for
+diag), and the LM count tables take the
 block's signed count delta after the acoustic merge.  The LM is read
 before the merge, so its tables count every old pair the chain removes.
 """
@@ -26,7 +28,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models import components_fixedvar as cfv
 from ..models.bigram_fbgmm import BigramFBGMM
 from ..models.bigram_lm import (
     BigramSmoothLM,
@@ -38,8 +39,10 @@ from ..models.bigram_lm import (
     prob_vec_given_j,
     transcript_pairs_batch,
 )
+from ..models import cov_module
 from ..models.fbgmm import log_weights
 from ..ops.cuda_chain import bigram_fixedvar_chain
+from ..ops.cuda_diag_chain import bigram_diag_chain
 from ..ops.random import annealed_gumbel_max, gumbel, logsumexp
 from ..ops.stats import add_item, canonicalize_new_component, num_active
 from ..utils.annealing import anneal_temperatures
@@ -100,6 +103,7 @@ class BigramAcousticWordseg(BlockedWordseg):
     ``bigram_acoustic_wordseg.py:129-256``, plus ``device``).
 
     ``lm_params``: ``{"type": "smooth", "intrp_lambda", "a", "b"}``.
+    ``covariance_type``: "fixed" or "diag" ("full" raises: ROADMAP M11).
     ``seed`` seeds the initialisation, the per-sweep utterance order and
     the sampling noise, as in :class:`UnigramAcousticWordseg`.
     """
@@ -113,12 +117,7 @@ class BigramAcousticWordseg(BlockedWordseg):
                  init_am_assignments="rand", time_power_term=1.0,
                  batch_size: Optional[int] = None, seed: int = 0,
                  decollide_new: bool = True, device="cpu"):
-        if covariance_type != "fixed":
-            raise NotImplementedError(
-                "segmentalist_torch's bigram segmenter ports the fixed-variance "
-                "family only; covariance_type=%r waits for ROADMAP M10 "
-                "(diag, kernels K5-K7) / M11 (full, K8-K9)"
-                % (covariance_type,))
+        cov_module(covariance_type)  # "full" raises before any set-up
         if lm_params["type"] != "smooth":
             raise ValueError("invalid LM type: %r" % (lm_params["type"],))
         self.lms = float(lms)
@@ -182,7 +181,7 @@ class BigramAcousticWordseg(BlockedWordseg):
         am = self.acoustic_model
         lpz, lpx, k_act, n_assigned = torch.stack([
             v.to(torch.float64) for v in (
-                self._log_prob_z(), cfv.log_marg(am.prior, am.stats),
+                self._log_prob_z(), am.cov.log_marg(am.prior, am.stats),
                 num_active(am.stats), (am.assignments >= 0).sum())
         ]).tolist()
         return {"log_prob_z": lpz, "log_prob_X_given_z": lpx,
@@ -199,8 +198,8 @@ class BigramAcousticWordseg(BlockedWordseg):
         unigram weights (reference ``log_marg_i_embed_unigram``,
         bigram_acoustic_wordseg.py:314-329)."""
         am = self.acoustic_model
-        params = cfv.predictive_params(am.prior, am.stats)
-        post = cfv.log_post_pred(params, am.X[i_embed])
+        params = am.cov.predictive_params(am.prior, am.stats)
+        post = am.cov.log_post_pred(params, am.X[i_embed])
         logits = self._unigram_lm_weights() + torch.where(
             am.stats.counts > 0, post, am.log_prior_vec[i_embed])
         return float(logsumexp(logits))
@@ -219,8 +218,8 @@ class BigramAcousticWordseg(BlockedWordseg):
             am = self.acoustic_model
             ids = torch.as_tensor(vec_ids[valid].astype(np.int64),
                                   device=self.device)
-            params = cfv.predictive_params(am.prior, am.stats)
-            post = cfv.log_post_pred_batch(params, am.X[ids])
+            params = am.cov.predictive_params(am.prior, am.stats)
+            post = am.cov.log_post_pred_batch(params, am.X[ids])
             logits = self._unigram_lm_weights()[None, :] + torch.where(
                 (am.stats.counts > 0)[None, :], post,
                 am.log_prior_vec[ids][:, None])
@@ -263,8 +262,8 @@ class BigramAcousticWordseg(BlockedWordseg):
                 lm.b, lm.K, dtype))
         else:
             w = self._unigram_lm_weights()
-        params = cfv.predictive_params(am.prior, am.stats)
-        post = cfv.log_post_pred(params, am.X[i_embed])
+        params = am.cov.predictive_params(am.prior, am.stats)
+        post = am.cov.log_post_pred(params, am.X[i_embed])
         logits = w + torch.where(am.stats.counts > 0, post,
                                  am.log_prior_vec[i_embed])
         if noise is None:
@@ -334,7 +333,7 @@ class BigramAcousticWordseg(BlockedWordseg):
         pairs_old = transcript_pairs_batch(blk.old_ks)
         uni_lo = lm.state.unigram_counts[None] - blk.own_counts
 
-        # 2. scoring with the LM's unigram weights (K1), boundaries (K2)
+        # 2. scoring with the LM's unigram weights (K1 / K5), boundaries (K2)
         if assignments_only:
             log_prob = torch.zeros(blk.idx.shape[0], dtype=X.dtype,
                                    device=self.device)
@@ -345,14 +344,22 @@ class BigramAcousticWordseg(BlockedWordseg):
             log_prob, new_bounds = self._resample_boundaries(
                 blk, w_b, anneal_temp, "sample", dp_noise)
 
-        # 3. bigram-conditioned assignment chains (kernel K4)
+        # 3. bigram-conditioned assignment chains (kernel K4 / K7)
         new_embeds, Xe_new, lpe_new = self._new_segments(blk, new_bounds)
-        new_ks = bigram_fixedvar_chain(
-            new_embeds, Xe_new, lpe_new,
-            self._chain_noise(chain_noise, blk.idx.shape[0]), blk.lo_counts,
-            blk.sum_xT, prior.var, prior.var_0, prior.mu_0, assign_temp,
-            uni_lo, lm.state.bigram_counts, *pairs_old, alpha_a=lm.a,
-            intrp_lambda=lm.intrp_lambda, b_smooth=lm.b, K=K, lms=self.lms)
+        data = (new_embeds, Xe_new, lpe_new,
+                self._chain_noise(chain_noise, blk.idx.shape[0]),
+                blk.lo_counts, blk.sum_xT)
+        lm_args = (uni_lo, lm.state.bigram_counts, *pairs_old)
+        opts = dict(alpha_a=lm.a, intrp_lambda=lm.intrp_lambda,
+                    b_smooth=lm.b, K=K, lms=self.lms)
+        if self._diag:
+            new_ks = bigram_diag_chain(
+                *data, blk.sum_sqT, prior.m_0, *self._k0_v0, prior.S_0,
+                assign_temp, *lm_args, **opts)
+        else:
+            new_ks = bigram_fixedvar_chain(
+                *data, prior.var, prior.var_0, prior.mu_0, assign_temp,
+                *lm_args, **opts)
 
         # 4. decollision, the acoustic merge, then the LM count delta
         new_ks = self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks)

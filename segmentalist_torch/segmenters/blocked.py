@@ -7,11 +7,12 @@ state and resample a block of utterances through the same stages
 
   1. the block's current segments and their leave-one-utterance-out
      statistics (:meth:`BlockedWordseg._leave_out`);
-  2. fused candidate scoring (kernel K1) and the boundary-resampling DP
+  2. fused candidate scoring (kernel K1 for the fixed-variance family, K5
+     for the diagonal-covariance one) and the boundary-resampling DP
      (kernel K2) (:meth:`BlockedWordseg._resample_boundaries`);
   3. the sequential assignment chain of the new segments -- the one stage
-     the segmenters do differently (K3 with Dirichlet weights, K4 with the
-     bigram LM);
+     the segmenters do differently (K3 / K6 with Dirichlet weights, K4 / K7
+     with the bigram LM);
   4. cross-utterance decollision and the merge into the global state
      (:meth:`BlockedWordseg._merge`).
 
@@ -30,8 +31,7 @@ import torch
 
 from ..corpus import Utterances
 from ..device import resolve_device
-from ..models import components_fixedvar as cfv
-from ..ops.cuda_score import fixedvar_log_margs_T
+from ..ops.cuda_score import diag_log_margs_T, fixedvar_log_margs_T
 from ..ops.dp import segment_dp
 from ..ops.random import gumbel
 from .common import (
@@ -93,6 +93,7 @@ class Block(NamedTuple):
     own_counts: torch.Tensor  # [B, K] int32 per-utterance counts of old_ks
     lo_counts: torch.Tensor   # [B, K] int32 leave-one-utterance-out counts
     sum_xT: torch.Tensor      # [B, D, K] leave-one-utterance-out sum_x
+    sum_sqT: Optional[torch.Tensor]  # [B, D, K] ... sum_sq (diag only)
 
 
 class BlockedWordseg:
@@ -174,10 +175,16 @@ class BlockedWordseg:
 
     def refresh_candidates(self):
         """Rebuild the sweep-static candidate tensors ``X[seg_ids]`` and
-        ``log_prior_vec[seg_ids]`` (after replacing ``acoustic_model.X``)."""
+        ``log_prior_vec[seg_ids]``, and the host copies of the diag prior's
+        scalars (after replacing ``acoustic_model.X`` or its prior)."""
         am = self.acoustic_model
         self._cand_X, self._cand_lp = cand_tables(
             self._seg_ids_dp, am.X, am.log_prior_vec)
+        self._diag = am.covariance_type == "diag"
+        # The chain kernels take k_0 and v_0 as host floats: fetched once
+        # here, not in every block step.
+        self._k0_v0 = ((float(am.prior.k_0), float(am.prior.v_0))
+                       if self._diag else None)
 
     def calc_p_continue(self) -> float:
         """Sentence-continue probability under the symmetric Beta prior
@@ -252,27 +259,42 @@ class BlockedWordseg:
         old_ks = torch.where(old_ok, am.assignments[old_rows], -1)
         Xe_old = X[old_rows]
         own_counts = counts_contrib(old_ks, old_ok, K)
-        sum_xT = leave_out_moments_T(am.stats, X, old_embeds, old_ks, K,
-                                     rows=Xe_old)
+        moments = leave_out_moments_T(am.stats, X, old_embeds, old_ks, K,
+                                      rows=Xe_old, with_sq=self._diag)
+        sum_xT, sum_sqT = moments if self._diag else (moments, None)
         return Block(idx, valid, packed[B:], lengths, seg_ids, old_embeds,
                      old_ks, Xe_old, own_counts,
-                     am.stats.counts[None] - own_counts, sum_xT)
+                     am.stats.counts[None] - own_counts, sum_xT, sum_sqT)
 
     def _resample_boundaries(self, blk: Block, w_b: torch.Tensor,
                              anneal_temp: float, mode: str,
                              dp_noise: Optional[torch.Tensor]):
         """Stage 2: score every candidate span of the block with mixture
-        weights ``w_b`` [B, K] (kernel K1) and resample the boundaries
-        (kernel K2).  Returns (log_prob [B], new boundaries [B, N_max])."""
+        weights ``w_b`` [B, K] (kernel K1, or K5 for the diag family) and
+        resample the boundaries (kernel K2).  Returns (log_prob [B], new
+        boundaries [B, N_max]).
+
+        The diag Viterbi DP takes K5's exact per-dimension composition: a
+        deterministic argmax must not see the grouped form's rounding
+        (the JAX driver's gate, ``unigram.py:863-871``)."""
         am = self.acoustic_model
         B = blk.idx.shape[0]
         N_max, W_dp = self.utterances.N_max, self.W_dp
-        muT, precT = cfv.predictive_params_T(am.prior, blk.lo_counts,
-                                             blk.sum_xT)
-        log_margs = fixedvar_log_margs_T(
-            self._cand_X[blk.idx], self._cand_lp[blk.idx], muT.contiguous(),
-            precT.contiguous(), w_b, blk.lo_counts,
-            valid_m=blk.lengths * W_dp).reshape(B, N_max, W_dp)
+        Xc, prior_c = self._cand_X[blk.idx], self._cand_lp[blk.idx]
+        valid_m = blk.lengths * W_dp
+        if self._diag:
+            muT, inv_varT, lpv, v = am.cov.predictive_params_T(
+                am.prior, blk.lo_counts, blk.sum_xT, blk.sum_sqT)
+            log_margs = diag_log_margs_T(
+                Xc, prior_c, muT, inv_varT, lpv, v, w_b, blk.lo_counts,
+                valid_m=valid_m, exact=mode == "viterbi")
+        else:
+            muT, precT = am.cov.predictive_params_T(am.prior, blk.lo_counts,
+                                                    blk.sum_xT)
+            log_margs = fixedvar_log_margs_T(
+                Xc, prior_c, muT.contiguous(), precT.contiguous(), w_b,
+                blk.lo_counts, valid_m=valid_m)
+        log_margs = log_margs.reshape(B, N_max, W_dp)
         scores = masked_candidate_scores(
             log_margs, self._seg_ids_dp[blk.idx], self._seg_durs_dp[blk.idx],
             self.time_power_term, self.wip)

@@ -1,5 +1,5 @@
 """Shared machinery of the blocked-Gibbs segmentation sweeps (fixed-variance
-path).
+and diagonal-covariance paths).
 
 Counterpart of ``segmentalist_tpu/segmenters/common.py``.  A block of B
 utterances is resampled against the block-start state:
@@ -89,15 +89,22 @@ def counts_contrib(ks: torch.Tensor, valid_mask: torch.Tensor,
 
 def leave_out_moments_T(stats: SuffStats, X: torch.Tensor,
                         embeds: torch.Tensor, ks: torch.Tensor, K_max: int,
-                        rows: torch.Tensor | None = None) -> torch.Tensor:
+                        rows: torch.Tensor | None = None,
+                        with_sq: bool = False):
     """Leave-one-utterance-out ``sum_x`` in feature-major layout [B, D, K]:
     ``stats.sum_x.T - x^T @ one_hot(ks)`` per utterance, one batched matrix
-    product (one fixed addition order)."""
+    product (one fixed addition order).  With ``with_sq`` (the diag family)
+    returns ``(sum_xT, sum_sqT)``, ``sum_sqT = stats.sum_sq.T - (x x)^T @
+    one_hot(ks)`` the same way."""
     valid = (embeds >= 0) & (ks >= 0)
     x = X[embeds.clamp_min(0).long()] if rows is None else rows
     x = torch.where(valid[..., None], x, 0.0)
     oh = one_hot_rows(torch.where(valid, ks, -1), K_max, x.dtype)  # [B, S, K]
-    return (stats.sum_x.T[None] - x.transpose(1, 2) @ oh).contiguous()
+    sum_xT = (stats.sum_x.T[None] - x.transpose(1, 2) @ oh).contiguous()
+    if not with_sq:
+        return sum_xT
+    sum_sqT = stats.sum_sq.T[None] - item_sq(x).transpose(1, 2) @ oh
+    return sum_xT, sum_sqT.contiguous()
 
 
 def flat_contrib(X: torch.Tensor, embeds: torch.Tensor, ks: torch.Tensor,

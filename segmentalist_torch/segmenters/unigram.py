@@ -1,4 +1,5 @@
-"""Unigram acoustic word segmentation, fixed-variance components.
+"""Unigram acoustic word segmentation, fixed-variance or diagonal-covariance
+components.
 
 Counterpart of ``segmentalist_tpu/segmenters/unigram.py`` (reference
 ``UnigramAcousticWordseg``, ``unigram_acoustic_wordseg.py:27-564``):
@@ -10,8 +11,9 @@ blocked Gibbs sampling that alternates, per block of utterances,
 
 One block step (:meth:`UnigramAcousticWordseg.block_step`) follows the JAX
 package's ``_make_block_step`` (``unigram.py:785-1057``) stage by stage and
-runs the three hand-written kernels on a CUDA device: the fused scorer
-(K1), the DP forward filter (K2) and the assignment chain (K3).  All state
+runs three hand-written kernels on a CUDA device: the fused scorer (K1, or
+K5 for ``covariance_type="diag"``), the DP forward filter (K2) and the
+assignment chain (K3, or K6 for diag).  All state
 lives on the segmenter's ``device``; sampling noise comes from a
 ``torch.Generator`` seeded from ``seed``, or is injected by the caller.
 
@@ -30,6 +32,7 @@ import torch
 
 from ..models.fbgmm import FBGMM, log_weights
 from ..ops.cuda_chain import fixedvar_chain
+from ..ops.cuda_diag_chain import diag_chain
 from ..utils.annealing import anneal_temperatures
 from .blocked import RECORD_KEYS, BlockedWordseg
 
@@ -41,7 +44,9 @@ class UnigramAcousticWordseg(BlockedWordseg):
 
     Constructor parameters mirror the JAX package (and the reference,
     ``unigram_acoustic_wordseg.py:118-125``); ``am_class`` is accepted for
-    signature parity and the fixed-variance FBGMM is always used.
+    signature parity and the port's FBGMM is always used.
+
+    covariance_type : "fixed" or "diag" ("full" raises: ROADMAP M11).
 
     batch_size : utterances resampled per blocked-Gibbs step (default
         ``min(64, U)``).
@@ -142,21 +147,27 @@ class UnigramAcousticWordseg(BlockedWordseg):
         # 1. current segments and leave-one-utterance-out statistics
         blk = self._leave_out(idx_blk)
 
-        # 2. fused candidate scoring (K1) and boundary resampling (K2)
+        # 2. fused candidate scoring (K1 / K5) and boundary resampling (K2)
         w_b = log_weights(blk.lo_counts, am.alpha, K, am.lms,
                           include_denominator=True, dtype=X.dtype)
         log_prob, new_bounds = self._resample_boundaries(
             blk, w_b, anneal_temp, self._dp_mode, dp_noise)
 
-        # 3. sequential assignment of the new segments (kernel K3)
+        # 3. sequential assignment of the new segments (kernel K3 / K6);
+        # Viterbi takes the argmax without the lms scaling (fbgmm.py:475)
         new_embeds, Xe_new, lpe_new = self._new_segments(blk, new_bounds)
         viterbi = self.fb_type == "viterbi"
-        new_ks = fixedvar_chain(
-            new_embeds, Xe_new, lpe_new,
-            self._chain_noise(chain_noise, blk.idx.shape[0]), blk.lo_counts,
-            blk.sum_xT, prior.var, prior.var_0, prior.mu_0, assign_temp,
-            alpha=am.alpha, K=K, lms=1.0 if viterbi else am.lms,
-            use_argmax=viterbi)
+        data = (new_embeds, Xe_new, lpe_new,
+                self._chain_noise(chain_noise, blk.idx.shape[0]),
+                blk.lo_counts, blk.sum_xT)
+        opts = dict(alpha=am.alpha, K=K, lms=1.0 if viterbi else am.lms,
+                    use_argmax=viterbi)
+        if self._diag:
+            new_ks = diag_chain(*data, blk.sum_sqT, prior.m_0,
+                                *self._k0_v0, prior.S_0, assign_temp, **opts)
+        else:
+            new_ks = fixedvar_chain(*data, prior.var, prior.var_0,
+                                    prior.mu_0, assign_temp, **opts)
 
         # 4. decollision and the merge into the global state
         self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks)

@@ -11,21 +11,26 @@ check that does not hold:
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 must be off;
 2. build: compile the hand-written kernels from ``segmentalist_torch/csrc``;
-3. each kernel (K1-K7, both compositions of K5) against its plain
-   PyTorch version on the card, in float32, at the flagship shapes
-   (B=125, N_max=20, W=6, K=1000, D=13) and a long/wide case (N_max=120,
-   D=130), with CUDA-event timings;
+3. each kernel (K1-K9, both compositions of K5, both modes of K9) against
+   its plain PyTorch version on the card, in float32, at the flagship
+   shapes (B=125, N_max=20, W=6, K=1000, D=13) and a long/wide case
+   (N_max=120, D=130), with CUDA-event timings and each kernel's bound
+   (the larger of its bytes over the memory rate and its flops over the
+   float32 peak, counted from the inputs); K8 and the reference's
+   expanded Mahalanobis form in float32 against float64; K9's bigram
+   mode on a crafted case where the own-pair correction decides draws;
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
-   unigram and bigram segmenters of both families (diag unigram in FFBS
-   and in Viterbi, which takes K5's exact composition);
-5. four paths at bench scale, on the 1000-utterance synthetic corpus, 137
+   unigram and bigram segmenters of the three families (diag and full
+   unigram also in Viterbi, diag's taking K5's exact composition);
+5. six paths at bench scale, on the 1000-utterance synthetic corpus, 137
    sweeps each: the unigram and the bigram segmenter with fixed-variance
-   components (K1, K2, K3 / K4) and with diagonal-covariance components
-   (K5, K2, K6 / K7, the JAX package's `benchmarks/all_models.py` diag
-   rows); for each, every kernel's launch count in that run, ms/sweep,
-   log_marg and boundary F1.
+   components (K1, K2, K3 / K4), diagonal-covariance components (K5, K2,
+   K6 / K7) and full-covariance components (K8, K2, K9; the JAX package's
+   `bench.py` unigram_full and `benchmarks/all_models.py` rows); for each,
+   every kernel's launch count in that run, ms/sweep, log_marg and
+   boundary F1.
 
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``.
@@ -50,7 +55,7 @@ SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
 AGREE_MIN = 0.999       # share of identical boundaries / assignments
 F1_MIN = 0.67           # fixed-variance paths (JAX on a TPU: 0.696)
 F1_MIN_DIAG = 0.72      # diag paths (JAX on a TPU: 0.750)
-BIGRAM_LM = {"type": "smooth", "intrp_lambda": 0.1, "a": 1.0, "b": 1.0}
+F1_MIN_FULL = 0.72      # full-covariance paths (JAX on a TPU: 0.751)
 DEVICE = "cuda"
 
 
@@ -93,14 +98,6 @@ def cuda_ms(fn, reps):
 
 # ----------------------------------------------------------------- inputs
 
-def fixedvar_prior(D, dtype, device):
-    from segmentalist_torch import FixedVarPrior
-
-    return FixedVarPrior.create(
-        np.full(D, 0.05, dtype), np.zeros(D, dtype), np.ones(D, dtype),
-        device=device)
-
-
 def leave_out_stats(rng, B, K, D, device):
     """Per-utterance leave-out counts / feature-major sums like a sweep's:
     ~40% empty slots, occupied slots centred on random prototypes."""
@@ -119,12 +116,13 @@ def score_inputs(shape, seed, device):
     import torch
     from segmentalist_torch.models import components_fixedvar as cfv
     from segmentalist_torch.models.fbgmm import log_weights
+    from segmentalist_torch.utils.profiling import bench_prior
 
     rng = np.random.RandomState(seed)
     B, N_max, W, K, D = (shape[k] for k in ("B", "N_max", "W", "K", "D"))
     M = N_max * W
     counts, sum_xT, protos = leave_out_stats(rng, B, K, D, device)
-    prior = fixedvar_prior(D, np.float32, device)
+    prior = bench_prior("fixed", D, device)
     Xc = protos[rng.randint(0, K, (B, M))] + 0.3 * rng.randn(B, M, D)
     Xc = torch.as_tensor(Xc, dtype=torch.float32, device=device)
     prior_c = cfv.log_prior_batch(prior, Xc)
@@ -159,6 +157,7 @@ def dp_inputs(shape, seed, device):
 def chain_inputs(shape, seed, device):
     import torch
     from segmentalist_torch.models import components_fixedvar as cfv
+    from segmentalist_torch.utils.profiling import bench_prior
 
     rng = np.random.RandomState(seed)
     B, S, K, D = shape["B"], shape["N_max"], shape["K"], shape["D"]
@@ -169,21 +168,12 @@ def chain_inputs(shape, seed, device):
     Xe = protos[rng.randint(0, K, (B, S))] + 0.3 * rng.randn(B, S, D)
     Xe[rng.rand(B, S) < 0.1] = 5.0 * rng.randn(D)  # some far-off segments
     gumbel = -np.log(-np.log(rng.uniform(1e-30, 1.0, (B, S, K))))
-    prior = fixedvar_prior(D, np.float32, device)
+    prior = bench_prior("fixed", D, device)
     Xe = torch.as_tensor(Xe, dtype=torch.float32, device=device)
     return (torch.as_tensor(embeds, dtype=torch.int32, device=device), Xe,
             cfv.log_prior_batch(prior, Xe),
             torch.as_tensor(gumbel, dtype=torch.float32, device=device),
             counts, sum_xT, prior)
-
-
-def diag_prior(D, dtype, device):
-    """The JAX package's diag prior (`benchmarks/all_models.py:127-129`):
-    NIW(m_0=0, k_0=0.05, v_0=D+3, S_0=0.05)."""
-    from segmentalist_torch import NIW
-
-    return NIW.create(np.zeros(D, dtype), 0.05, D + 3.0,
-                      np.full(D, 0.05, dtype), device=device)
 
 
 def diag_leave_out_stats(rng, B, K, D, device):
@@ -208,13 +198,14 @@ def diag_score_inputs(shape, seed, device):
     from segmentalist_torch.models import components_diag as cdg
     from segmentalist_torch.models.fbgmm import log_weights
     from segmentalist_torch.ops import cuda_score
+    from segmentalist_torch.utils.profiling import bench_prior
 
     rng = np.random.RandomState(seed)
     B, N_max, W, K, D = (shape[k] for k in ("B", "N_max", "W", "K", "D"))
     M = N_max * W
     counts, sum_xT, sum_sqT, protos = diag_leave_out_stats(rng, B, K, D,
                                                            device)
-    prior = diag_prior(D, np.float32, device)
+    prior = bench_prior("diag", D, device)
     Xc = protos[rng.randint(0, K, (B, M))] + 0.3 * rng.randn(B, M, D)
     Xc = torch.as_tensor(Xc, dtype=torch.float32, device=device)
     muT, inv_varT, lpv, v = cdg.predictive_params_T(prior, counts, sum_xT,
@@ -232,6 +223,7 @@ def diag_chain_inputs(shape, seed, device):
     """K6's inputs: `chain_inputs` with the diag statistics and prior."""
     import torch
     from segmentalist_torch.models import components_diag as cdg
+    from segmentalist_torch.utils.profiling import bench_prior
 
     rng = np.random.RandomState(seed)
     B, S, K, D = shape["B"], shape["N_max"], shape["K"], shape["D"]
@@ -243,7 +235,7 @@ def diag_chain_inputs(shape, seed, device):
     Xe = protos[rng.randint(0, K, (B, S))] + 0.3 * rng.randn(B, S, D)
     Xe[rng.rand(B, S) < 0.1] = 5.0 * rng.randn(D)  # some far-off segments
     gumbel = -np.log(-np.log(rng.uniform(1e-30, 1.0, (B, S, K))))
-    prior = diag_prior(D, np.float32, device)
+    prior = bench_prior("diag", D, device)
     Xe = torch.as_tensor(Xe, dtype=torch.float32, device=device)
     data = (torch.as_tensor(embeds, dtype=torch.int32, device=device), Xe,
             cdg.log_prior_batch(prior, Xe),
@@ -289,9 +281,13 @@ def compare_score(shape, name):
           % (name, rel, SCORE_TOL))
     ms = cuda_ms(lambda: cuda_score.fixedvar_scores(*args), 50)
     plain_ms = cuda_ms(lambda: cuda_score.fixedvar_scores_plain(*args), 20)
+    out = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+               **score_bound(args, 4 * Xc.shape[-1] + 5))
     log("K1 fixedvar_scores %s: max|d|=%.3g max rel=%.3g  kernel %.4f ms  "
-        "plain %.4f ms" % (name, max_abs, rel, ms, plain_ms))
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        "plain %.4f ms  bound %.4f ms (%s)" % (
+            name, max_abs, rel, ms, plain_ms, out["bound_ms"],
+            out["bound_by"]))
+    return out
 
 
 def compare_dp(shape, name):
@@ -327,8 +323,12 @@ def compare_dp(shape, name):
                         50)
     out["plain_ms"] = cuda_ms(
         lambda: cuda_dp.forward_alphas_plain(rev, lengths, lpc), 10)
-    log("K2 forward_alphas %s: kernel %.4f ms  plain %.4f ms"
-        % (name, out["ms"], out["plain_ms"]))
+    B, N, W = rev.shape
+    out.update(bound(nbytes(rev, lengths) + B * (N + W) * 4,
+                     int(lengths.sum()) * (4 * W + 2)))
+    log("K2 forward_alphas %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms "
+        "(%s)" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
+                  out["bound_by"]))
     return out
 
 
@@ -362,8 +362,10 @@ def compare_chain(shape, name):
             embeds))
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 3)
-    log("K3 fixedvar_chain %s: kernel %.4f ms  plain %.4f ms"
-        % (name, out["ms"], out["plain_ms"]))
+    out.update(chain_bound(data, 4 * Xe.shape[-1] + 8))
+    log("K3 fixedvar_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms "
+        "(%s)" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
+                  out["bound_by"]))
     return out
 
 
@@ -433,8 +435,10 @@ def compare_bigram_chain(shape, name):
                                        ks_k, ks_p, data[0])}
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 3)
-    log("K4 bigram_fixedvar_chain %s: kernel %.4f ms  plain %.4f ms"
-        % (name, out["ms"], out["plain_ms"]))
+    out.update(chain_bound(data, 4 * data[1].shape[-1] + 18, lm))
+    log("K4 bigram_fixedvar_chain %s: kernel %.4f ms  plain %.4f ms  bound "
+        "%.4f ms (%s)" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
+                          out["bound_by"]))
     return out
 
 
@@ -466,6 +470,10 @@ def compare_diag_score(shape, name):
         log("%s: max|d|=%.3g max rel=%.3g  kernel %.4f ms  plain %.4f ms"
             % (label, err.max().item(), rel, out[pre + "ms"],
                out[pre + "plain_ms"]))
+    D = args[0].shape[-1]
+    out.update(score_bound(args, 5 * D + (D + 3) // 4 + 4))
+    log("K5 diag_scores %s: bound %.4f ms (%s)"
+        % (name, out["bound_ms"], out["bound_by"]))
     return out
 
 
@@ -495,8 +503,10 @@ def compare_diag_chain(shape, name):
             data[0]))
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 2)
-    log("K6 diag_chain %s: kernel %.4f ms  plain %.4f ms"
-        % (name, out["ms"], out["plain_ms"]))
+    out.update(chain_bound(data, 6 * data[1].shape[-1] + 12))
+    log("K6 diag_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)"
+        % (name, out["ms"], out["plain_ms"], out["bound_ms"],
+           out["bound_by"]))
     return out
 
 
@@ -537,9 +547,363 @@ def compare_bigram_diag_chain(shape, name):
                                        ks_p, data[0])}
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 2)
-    log("K7 bigram_diag_chain %s: kernel %.4f ms  plain %.4f ms"
-        % (name, out["ms"], out["plain_ms"]))
+    out.update(chain_bound(data, 6 * data[1].shape[-1] + 22,
+                           (counts, big, pj, pi)))
+    log("K7 bigram_diag_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f "
+        "ms (%s)" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
+                     out["bound_by"]))
     return out
+
+
+def fullcov_block(shape, seed, device):
+    """A full-covariance block like a sweep's: a corpus of member vectors
+    around K prototypes (~40% of the slots empty), its global statistics,
+    and per utterance 1..N_max old segments drawn from the members (the
+    touched leave-outs), the K8 / K9 inputs the block step forms from them,
+    candidates and new segments near random prototypes (10% of the new
+    ones far off)."""
+    import torch
+    from segmentalist_torch.models import components_full as cf
+    from segmentalist_torch.models.fbgmm import log_weights
+    from segmentalist_torch.ops.stats import suff_stats_from_assignments
+    from segmentalist_torch.segmenters.common import counts_contrib
+    from segmentalist_torch.segmenters import fullcov
+    from segmentalist_torch.utils.profiling import bench_prior
+
+    rng = np.random.RandomState(seed)
+    B, N_max, W, K, D = (shape[k] for k in ("B", "N_max", "W", "K", "D"))
+    M, S = N_max * W, N_max
+    protos = rng.randn(K, D) * 3.0
+    sizes = rng.randint(1, 60, K) * (rng.rand(K) > 0.4)
+    assign = np.repeat(np.arange(K), sizes)
+    X = protos[assign] + 0.5 * rng.randn(assign.size, D)
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        a, dtype=dt, device=device)
+    X, assign_t = as_t(X), as_t(assign, torch.int32)
+    prior = bench_prior("full", D, device)
+    stats = suff_stats_from_assignments(X, assign_t, K, full_cov=True)
+    n_old = rng.randint(1, S + 1, B)
+    old = np.full((B, S), -1)
+    for b in range(B):
+        old[b, :n_old[b]] = rng.choice(assign.size, n_old[b], replace=False)
+    old_embeds = as_t(old, torch.int32)
+    old_ks = torch.where(old_embeds >= 0,
+                         assign_t[old_embeds.clamp_min(0).long()], -1)
+    lo_counts = stats.counts[None] - counts_contrib(old_ks, old_embeds >= 0,
+                                                    K)
+    params_g = cf.predictive_params(prior, stats)
+    touched = fullcov.touched_leave_out(prior, stats, X, old_embeds, old_ks)
+    Xc = as_t(protos[rng.randint(0, K, (B, M))] + 0.3 * rng.randn(B, M, D))
+    valid_m = as_t(rng.randint(2, N_max + 1, B) * W, torch.int32)
+    score = (Xc, cf.log_prior_batch(prior, Xc),
+             *fullcov.fullcov_score_inputs(params_g, touched),
+             log_weights(lo_counts, 1.0, K, 1.0, include_denominator=True,
+                         dtype=torch.float32), lo_counts, valid_m)
+    n_seg = rng.randint(1, S + 1, B)
+    ok = np.arange(S)[None, :] < n_seg[:, None]
+    embeds = np.where(ok, rng.randint(0, 10 ** 6, (B, S)), -1)
+    Xe = protos[rng.randint(0, K, (B, S))] + 0.3 * rng.randn(B, S, D)
+    Xe[rng.rand(B, S) < 0.1] = 5.0 * rng.randn(D)  # some far-off segments
+    Xe = as_t(Xe)
+    base = cf.log_post_pred_batch(params_g, Xe.reshape(B * S, D)).reshape(
+        B, S, K)
+    gumbel = as_t(-np.log(-np.log(rng.uniform(1e-30, 1.0, (B, S, K)))))
+    chain = (as_t(embeds, torch.int32), Xe, cf.log_prior_batch(prior, Xe),
+             gumbel, base, lo_counts,
+             *fullcov.chain_inputs(prior, params_g, stats.counts, touched),
+             float(prior.k_0), float(prior.v_0))
+    return dict(score=score, chain=chain, params_g=params_g,
+                touched=touched)
+
+
+def expanded_form32(args, params_g, touched):
+    """K8's function through the reference's expanded Mahalanobis form,
+    x^T A x - 2 x . A mu + mu . A mu, in float32: the XLA composition
+    `log_post_pred_batch` + `corrected_candidate_post`, for the measurement
+    of that form's rounding."""
+    import torch
+    from segmentalist_torch.models import components_full as cf
+    from segmentalist_torch.ops.random import NEG_INF, logsumexp
+    from segmentalist_torch.segmenters import fullcov
+
+    Xc, prior_c, _, _, _, w, counts, valid_m = args
+    B, M, D = Xc.shape
+    post = cf.log_post_pred_batch(params_g, Xc.reshape(B * M, D))
+    post = fullcov.corrected_candidate_post(post.reshape(B, M, -1), Xc,
+                                            touched, w.shape[1])
+    logits = w[:, None] + torch.where((counts > 0)[:, None], post,
+                                      prior_c[..., None])
+    live = torch.arange(M, device=Xc.device)[None, :] < valid_m[:, None]
+    return torch.where(live, logsumexp(logits, dim=-1), NEG_INF)
+
+
+def rel_err(got, ref, what):
+    """Max |got - ref| / max(1, |ref|) over ref's finite entries, which must
+    be got's; and max |got - ref|."""
+    import torch
+
+    fin = torch.isfinite(ref)
+    check(bool((torch.isfinite(got) == fin).all()),
+          "%s: -inf pattern differs" % what)
+    err = (got.double() - ref.double()).abs()[fin]
+    return ((err / ref.double().abs()[fin].clamp_min(1.0)).max().item(),
+            err.max().item())
+
+
+def compare_fullcov_score(shape, name):
+    """K8 against its plain version, and against float64 (every input
+    widened) beside the reference's expanded form in float32."""
+    import torch
+    from segmentalist_torch.ops import cuda_fullcov_score as cfs
+
+    blk = fullcov_block(shape, 8, DEVICE)
+    args = blk["score"]
+    got = cfs.fullcov_log_margs(*args[:-1], valid_m=args[-1])
+    ref = cfs.fullcov_scores_plain(*args[:-1], valid_m=args[-1])
+    sync()
+    rel, max_abs = rel_err(got, ref, "K8 %s" % name)
+    check(rel <= SCORE_TOL, "K8 %s: relative error %.3g > %g"
+          % (name, rel, SCORE_TOL))
+    out = {"max_abs_err": max_abs}
+    f64 = lambda a: (a.double() if torch.is_tensor(a)  # noqa: E731
+                     and a.is_floating_point() else a)
+    a64 = [tuple(f64(x) for x in a) if isinstance(a, tuple) else f64(a)
+           for a in args]
+    ref64 = cfs.fullcov_scores_plain(*a64[:-1], valid_m=a64[-1])
+    del a64
+    expanded = expanded_form32(args, blk["params_g"], blk["touched"])
+    out["f64_rel_err"] = rel_err(got, ref64, "K8 vs f64")[0]
+    out["expanded32_rel_err"] = rel_err(expanded, ref64, "f32 vs f64")[0]
+    del expanded
+    log("K8 %s against float64: kernel (whitened form, float32) max rel "
+        "%.3g; float32 expanded form %.3g" % (
+            name, out["f64_rel_err"], out["expanded32_rel_err"]))
+    out["ms"] = cuda_ms(lambda: cfs.fullcov_log_margs(
+        *args[:-1], valid_m=args[-1]), 20)
+    out["plain_ms"] = cuda_ms(lambda: cfs.fullcov_scores_plain(
+        *args[:-1], valid_m=args[-1]), 3)
+    out.update(fullcov_score_bound(args))
+    log("K8 fullcov_scores %s: max|d|=%.3g max rel=%.3g  kernel %.4f ms  "
+        "plain %.4f ms  bound %.4f ms (%s)" % (
+            name, max_abs, rel, out["ms"], out["plain_ms"], out["bound_ms"],
+            out["bound_by"]))
+    return out
+
+
+def compare_fullcov_chain(shape, name):
+    """K9 in sample and argmax mode and in its bigram mode (LM tables as
+    `bigram_chain_inputs` builds them: the old transcripts are K9's argmax
+    chains on the same segments), against its plain versions."""
+    import torch
+    from segmentalist_torch.ops import cuda_chain
+    from segmentalist_torch.ops import cuda_fullcov_chain as cfc
+
+    data = fullcov_block(shape, 9, DEVICE)["chain"]
+    K = shape["K"]
+    embeds = data[0]
+    temp = 0.8
+
+    def kernel(use_argmax=False):
+        return cfc.fullcov_chain(*data, temp, alpha=1.0, K=K,
+                                 use_argmax=use_argmax)
+
+    def plain(use_argmax=False):
+        return cfc.fullcov_chain_plain(*data, temp, 1.0, K, 1.0, use_argmax)
+
+    out = {"max_abs_err": 0.0}
+    for use_argmax in (False, True):
+        ks_k, ks_p = kernel(use_argmax), plain(use_argmax)
+        sync()
+        out["max_abs_err"] = max(out["max_abs_err"], ks_agreement(
+            "K9 fullcov_chain use_argmax=%s" % use_argmax, name, ks_k, ks_p,
+            embeds))
+    counts = data[5]
+    big, pj, pi = old_pair_table(kernel(True), K, 109, DEVICE)
+    consts = cuda_chain.bigram_constants(1.0, 1.0, 0.1, K)
+
+    def kernel_bigram(corr_j=pj):
+        return cfc.bigram_fullcov_chain(
+            *data, temp, counts, big, corr_j, pi, alpha_a=1.0,
+            intrp_lambda=0.1, b_smooth=1.0, K=K)
+
+    ks_k = kernel_bigram()
+    ks_p = cfc.bigram_fullcov_chain_plain(*data, temp, counts, big, pj, pi,
+                                          consts, K, 1.0)
+    ks_keep = kernel_bigram(torch.full_like(pj, -1))  # own old pairs kept
+    sync()
+    log("K9 bigram_fullcov_chain %s: without the own-pair correction %d ks "
+        "would differ" % (name, int((ks_keep != ks_k).sum())))
+    out["max_abs_err"] = max(out["max_abs_err"], ks_agreement(
+        "K9 bigram_fullcov_chain", name, ks_k, ks_p, embeds))
+    out["ms"] = cuda_ms(kernel, 20)
+    out["bigram_ms"] = cuda_ms(kernel_bigram, 20)
+    out["plain_ms"] = cuda_ms(plain, 2)
+    out.update(fullcov_chain_bound(data, kernel(), K))
+    log("K9 fullcov_chain %s: kernel %.4f ms (bigram %.4f)  plain %.4f ms  "
+        "bound %.4f ms (%s)" % (name, out["ms"], out["bigram_ms"],
+                                out["plain_ms"], out["bound_ms"],
+                                out["bound_by"]))
+    return out
+
+
+def crafted_fullcov_own_pairs():
+    """K9's bigram mode where the own-pair correction decides the draws:
+    flat acoustics (one shared x, untouched components of equal global
+    factors), each utterance's old transcript alternating (j_b, i_b), a
+    table of exactly those pairs and unigram counts that push the first
+    draw onto j_b.  The kernel equals its plain version, which differs from
+    chains that keep the own pairs."""
+    import torch
+    from segmentalist_torch.ops import cuda_chain
+    from segmentalist_torch.ops import cuda_fullcov_chain as cfc
+    from segmentalist_torch.models.bigram_lm import transcript_pairs_batch
+
+    B, S, D, K = 64, 12, 13, 200
+    j_b, i_b = np.arange(B) % K, (np.arange(B) + 3) % K
+    old = np.where(np.arange(S)[None, :] % 2 == 0, j_b[:, None],
+                   i_b[:, None]).astype(np.int32)
+    pj, pi = transcript_pairs_batch(torch.as_tensor(old, device=DEVICE))
+    big = np.zeros((K, K), np.int32)
+    ok = (pj >= 0).cpu().numpy()
+    np.add.at(big, (pj.cpu().numpy()[ok], pi.cpu().numpy()[ok]), 1)
+    uni = np.ones((B, K), np.int32)
+    uni[np.arange(B), j_b] = 50
+    f32, i32 = torch.float32, torch.int32
+    z = lambda *s: torch.zeros(s, dtype=f32, device=DEVICE)  # noqa: E731
+    eye = torch.eye(D, device=DEVICE)
+    rng = np.random.RandomState(8)
+    data = (torch.arange(B * S, dtype=i32, device=DEVICE).reshape(B, S),
+            z(B, S, D), z(B, S),
+            torch.as_tensor(-np.log(-np.log(rng.uniform(1e-30, 1, (B, S, K)))),
+                            dtype=f32, device=DEVICE),
+            z(B, S, K), torch.ones((B, K), dtype=i32, device=DEVICE),
+            z(B, 1, D), eye.expand(B, 1, D, D).contiguous(), z(B, 1),
+            torch.full((B, 1), -1, dtype=i32, device=DEVICE), z(K, D),
+            eye.expand(K, D, D).contiguous(), z(K), 0.05, 16.0)
+    lm = [torch.as_tensor(uni, device=DEVICE),
+          torch.as_tensor(big, device=DEVICE)]
+    consts = cuda_chain.bigram_constants(1.0, 1.0, 0.0, K)
+
+    def run(corr_j):
+        return cfc.bigram_fullcov_chain(*data, 1.0, *lm, corr_j, pi,
+                                        alpha_a=1.0, intrp_lambda=0.0,
+                                        b_smooth=1.0, K=K, lms=2.0)
+
+    got = run(pj)
+    want = cfc.bigram_fullcov_chain_plain(*data, 1.0, *lm, pj, pi, consts, K,
+                                          2.0)
+    keep = run(torch.full_like(pj, -1))
+    sync()
+    n_diff = int((keep != got).sum())
+    log("K9 crafted own-pair case: identical ks %s, own-pair correction "
+        "changes %d of %d draws" % (bool(torch.equal(got, want)), n_diff,
+                                     B * S))
+    check(torch.equal(got, want), "K9 crafted own-pair case: kernel and "
+          "plain version disagree")
+    check(n_diff > 0, "K9 crafted own-pair case: the correction decides "
+          "no draw")
+
+
+# ------------------------------------------------------------- bounds
+
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_FP32 = 67e12     # float32 outside the tensor cores, flop/s
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 peak."""
+    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+    return {"bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def live_rows(valid_m, M):
+    return int(valid_m.clamp(0, M).sum())
+
+
+def chain_steps(embeds):
+    """Per utterance the chain's step count (one past its last segment)."""
+    import torch
+
+    S = embeds.shape[1]
+    steps = torch.arange(1, S + 1, device=embeds.device)
+    return torch.where(embeds >= 0, steps, 0).amax(1)
+
+
+def score_bound(args, per_term):
+    """K1 / K5: every input once, the output once; per live row
+    ``per_term`` flops for each active component and 4 for each
+    component's share of the logsumexp."""
+    Xc, counts, valid_m = args[0], args[-2], args[-1]
+    M = Xc.shape[1]
+    vm = valid_m.clamp(0, M).float()
+    n_ops = (float(((counts > 0).sum(1).float() * vm).sum()) * per_term
+             + live_rows(valid_m, M) * counts.shape[1] * 4)
+    return bound(nbytes(*args) + Xc.shape[0] * M * 4, n_ops)
+
+
+def chain_bound(data, per_k, lm=()):
+    """K3 / K4 / K6 / K7: the noise rows of the steps that run, the other
+    inputs once, ks once; ``per_k`` flops a component a step (the update's
+    O(D) work is below the rounding of that)."""
+    embeds, gumbel = data[0], data[3]
+    K = gumbel.shape[-1]
+    steps = int(chain_steps(embeds).sum())
+    rest = [t for i, t in enumerate(data) if i != 3]
+    return bound(steps * K * 4 + nbytes(*rest, *lm) + embeds.numel() * 4,
+                 steps * K * per_k)
+
+
+def fullcov_score_bound(args):
+    """K8: every input once, the output once; per live row 2 (F + D) + D +
+    8 flops for each active component (its global form, or its touched
+    slot's: pad and duplicate slots and those of empty components feed no
+    output), 4 for each component's share of the logsumexp (F =
+    D(D+1)/2)."""
+    Xc, prior_c, g, t, tslot, w, counts, valid_m = args
+    B, M, D = Xc.shape
+    F = D * (D + 1) // 2
+    rows = live_rows(valid_m, M)
+    K = w.shape[1]
+    per_row = (counts > 0).sum(1).float()
+    n_ops = (float((per_row * valid_m.clamp(0, M).float()).sum())
+             * (2 * (F + D) + D + 8) + rows * 4 * K)
+    return bound(nbytes(Xc, prior_c, *g, *t, tslot, w, counts, valid_m)
+                 + rows * 4, n_ops)
+
+
+def fullcov_chain_bound(data, ks, K):
+    """K9: the base and noise rows of the steps that run, the touched and
+    claimed slots' tables, the per-utterance inputs once, ks once; per step
+    each live slot's 2 D^2 + 3 D + 30 flops, 8 flops a component, and the
+    rank-1 update's 4 D^2 + 6 D (live slots counted from this run's
+    draws)."""
+    embeds, Xe, lpe, gumbel, base, counts, tm, tiP, tld, tk = data[:10]
+    B, S, D = Xe.shape
+    n = chain_steps(embeds)
+    steps = int(n.sum())
+    ks_c, tk_c = ks.cpu().numpy(), tk.cpu().numpy()
+    slot_steps = claimed = 0
+    for b in range(B):
+        live = set(tk_c[b][tk_c[b] >= 0].tolist())
+        for s in range(int(n[b])):
+            slot_steps += len(live)
+            k = int(ks_c[b, s])
+            if k >= 0 and k not in live:
+                live.add(k)
+                claimed += 1
+    n_ops = (slot_steps * (2 * D * D + 3 * D + 30) + steps * 8 * K
+             + steps * (4 * D * D + 6 * D))
+    n_bytes = (2 * steps * K * 4 + nbytes(embeds, Xe, lpe, counts, tm, tiP,
+                                          tld, tk, ks)
+               + claimed * (D * D + D + 1) * 4)
+    return bound(n_bytes, n_ops)
 
 
 # ------------------------------------------------------------- phase 4
@@ -631,6 +995,7 @@ def small_block_steps():
     families; the diag Viterbi steps must take K5's exact composition."""
     import segmentalist_torch as pt
     from segmentalist_torch.ops import cuda_score
+    from segmentalist_torch.utils.profiling import BENCH_LM, bench_prior
 
     def unigram(prior, **kw):
         return lambda c, dev: pt.UnigramAcousticWordseg(
@@ -640,12 +1005,12 @@ def small_block_steps():
 
     def bigram(prior, **kw):
         return lambda c, dev: pt.BigramAcousticWordseg(
-            40, prior, BIGRAM_LM, *c, p_boundary_init=0.5,
+            40, prior, BENCH_LM, *c, p_boundary_init=0.5,
             beta_sent_boundary=-1, n_slices_max=6, fb_type="unigram",
             batch_size=8, seed=4, device=dev, **kw)
 
-    fixed = fixedvar_prior(13, np.float32, "cpu")
-    diag = diag_prior(13, np.float32, "cpu")
+    fixed = bench_prior("fixed", 13, "cpu")
+    diag = bench_prior("diag", 13, "cpu")
     block_steps_vs_cpu("small unigram", unigram(fixed), exact=False)
     block_steps_vs_cpu("small bigram", bigram(fixed))
     block_steps_vs_cpu("small unigram diag", unigram(
@@ -658,71 +1023,71 @@ def small_block_steps():
           "the diag Viterbi block steps did not take K5's exact composition")
     block_steps_vs_cpu("small bigram diag", bigram(
         diag, covariance_type="diag"))
+    full = bench_prior("full", 13, "cpu")
+    block_steps_vs_cpu("small unigram full", unigram(
+        full, covariance_type="full"))
+    block_steps_vs_cpu("small unigram full viterbi", unigram(
+        full, covariance_type="full", fb_type="viterbi"))
+    block_steps_vs_cpu("small bigram full", bigram(
+        full, covariance_type="full"))
 
 
 # ------------------------------------------------------------- phase 5
 
 def reset_launches():
     from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
-                                        cuda_score)
+                                        cuda_fullcov_chain,
+                                        cuda_fullcov_score, cuda_score)
 
     cuda_score.launches = cuda_score.diag_launches = 0
     cuda_score.diag_exact_launches = cuda_dp.launches = 0
     cuda_chain.launches = cuda_chain.bigram_launches = 0
     cuda_diag_chain.launches = cuda_diag_chain.bigram_launches = 0
+    cuda_fullcov_score.launches = 0
+    cuda_fullcov_chain.launches = cuda_fullcov_chain.bigram_launches = 0
 
 
 def read_launches():
     """Each kernel's launches since `reset_launches` (K5: both
-    compositions)."""
+    compositions; K9: both weight modes)."""
     from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
-                                        cuda_score)
+                                        cuda_fullcov_chain,
+                                        cuda_fullcov_score, cuda_score)
 
     return {"K1": cuda_score.launches,
             "K2": cuda_dp.launches, "K3": cuda_chain.launches,
             "K4": cuda_chain.bigram_launches,
             "K5": cuda_score.diag_launches + cuda_score.diag_exact_launches,
             "K6": cuda_diag_chain.launches,
-            "K7": cuda_diag_chain.bigram_launches}
+            "K7": cuda_diag_chain.bigram_launches,
+            "K8": cuda_fullcov_score.launches,
+            "K9": (cuda_fullcov_chain.launches
+                   + cuda_fullcov_chain.bigram_launches)}
 
 
 PATH_KERNELS = {"unigram_fixed": ("K1", "K2", "K3"),
                 "bigram": ("K1", "K2", "K4"),
                 "unigram_diag": ("K5", "K2", "K6"),
-                "bigram_diag": ("K5", "K2", "K7")}
+                "bigram_diag": ("K5", "K2", "K7"),
+                "unigram_full": ("K8", "K2", "K9"),
+                "bigram_full": ("K8", "K2", "K9")}
 
 
 def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
               cov="fixed"):
     """One path at bench scale (the `bench.py` corpus and config): the
     unigram segmenter, or the bigram one (`bench.py`'s `bigram` row), with
-    fixed-variance or diag components (the diag prior and keywords of
-    `benchmarks/all_models.py:124-168`).  Returns the launches of every
-    kernel in this run; those of the path's own kernels must be > 0."""
-    import torch
-    import segmentalist_torch as pt
-    from segmentalist_torch.utils.synth import (boundary_f_score,
-                                                synthetic_corpus)
+    fixed-variance, diag or full components (the NIW priors and keywords
+    of `bench.py:379-395` and `benchmarks/all_models.py:124-171`).  Returns
+    the launches of every kernel in this run; those of the path's own
+    kernels must be > 0."""
+    from segmentalist_torch.utils.profiling import bench_segmenter
+    from segmentalist_torch.utils.synth import boundary_f_score
 
     name = ("bigram" if bigram else "unigram") + (
-        "_diag" if cov == "diag" else ("" if bigram else "_fixed"))
+        "_" + cov if cov != "fixed" else ("" if bigram else "_fixed"))
     t0 = time.time()
-    em, vi, du, lm, truth = synthetic_corpus(
-        n_utterances=n_utterances, n_landmarks_max=20, D=13, K_true=50,
-        n_slices_max=6, seed=0)
-    em = {k: v.astype(np.float32) for k, v in em.items()}
-    prior = (diag_prior if cov == "diag" else fixedvar_prior)(
-        13, np.float32, "cpu")
-    common = dict(
-        am_K=1000, am_param_prior=prior, embedding_mats=em,
-        vec_ids_dict=vi, durations_dict=du, landmarks_dict=lm,
-        covariance_type=cov, p_boundary_init=0.5, beta_sent_boundary=-1,
-        n_slices_max=6, batch_size=125, seed=0, device=DEVICE)
-    if bigram:
-        seg = pt.BigramAcousticWordseg(lm_params=BIGRAM_LM,
-                                       fb_type="unigram", **common)
-    else:
-        seg = pt.UnigramAcousticWordseg(pt.FBGMM, am_alpha=1.0, **common)
+    seg, truth = bench_segmenter(cov, bigram, n_utterances, DEVICE)
     n_cand = int((seg.utterances.seg_ids >= 0).sum())
     log("%s slice: %d utterances, %d candidate spans, setup %.1f s"
         % (name, n_utterances, n_cand, time.time() - t0))
@@ -759,7 +1124,7 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
         check(np.array_equal(seg.lm.unigram_counts,
                              seg.acoustic_model.stats.counts.cpu().numpy()),
               "LM unigram counts differ from the acoustic counts")
-    f1_min = F1_MIN_DIAG if cov == "diag" else F1_MIN
+    f1_min = {"fixed": F1_MIN, "diag": F1_MIN_DIAG, "full": F1_MIN_FULL}[cov]
     check(f1_end >= f1_min, "%s: final F1 %.4f < %.2f"
           % (name, f1_end, f1_min))
     return {k: launches[k] for k in PATH_KERNELS[name]}
@@ -792,17 +1157,21 @@ def main() -> int:
 
     compare = {"K1": compare_score, "K2": compare_dp, "K3": compare_chain,
                "K4": compare_bigram_chain, "K5": compare_diag_score,
-               "K6": compare_diag_chain, "K7": compare_bigram_diag_chain}
+               "K6": compare_diag_chain, "K7": compare_bigram_diag_chain,
+               "K8": compare_fullcov_score, "K9": compare_fullcov_chain}
     results = {(k, name): fn(shape, name)
                for name, shape in (("flagship", FLAGSHIP), ("long", LONG))
                for k, fn in compare.items()}
+    crafted_fullcov_own_pairs()
 
     toy_reference()
     small_block_steps()
     paths = {"unigram_fixed": run_slice(),
              "bigram": run_slice(bigram=True),
              "unigram_diag": run_slice(cov="diag"),
-             "bigram_diag": run_slice(bigram=True, cov="diag")}
+             "bigram_diag": run_slice(bigram=True, cov="diag"),
+             "unigram_full": run_slice(cov="full"),
+             "bigram_full": run_slice(bigram=True, cov="full")}
 
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
@@ -820,6 +1189,10 @@ def main() -> int:
                "segmentalist_tpu/ops/pallas_chain.py:825"),
         "K7": ("bigram_diag_chain", "segmentalist_torch/csrc/diag_chain.cu",
                "segmentalist_tpu/ops/pallas_chain.py:1284"),
+        "K8": ("fullcov_scores", "segmentalist_torch/csrc/fullcov_score.cu",
+               "segmentalist_tpu/ops/pallas_score.py:630"),
+        "K9": ("fullcov_chain", "segmentalist_torch/csrc/fullcov_chain.cu",
+               "segmentalist_tpu/ops/pallas_chain.py:1725"),
     }
     kernels = []
     for k, (fn, src, tpu) in meta.items():
@@ -830,13 +1203,24 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(fl["max_abs_err"], lo["max_abs_err"]),
             "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+            "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+            # no single PyTorch call computes any of these functions
+            "library_ms": None,
             "long_ms": lo["ms"], "long_plain_ms": lo["plain_ms"],
+            "long_bound_ms": lo["bound_ms"],
         }
         if "exact_ms" in fl:  # K5's exact composition (diag Viterbi)
             entry.update(exact_ms=fl["exact_ms"],
                          exact_plain_ms=fl["exact_plain_ms"],
                          exact_long_ms=lo["exact_ms"],
                          exact_long_plain_ms=lo["exact_plain_ms"])
+        if "bigram_ms" in fl:  # K9's bigram mode
+            entry.update(bigram_ms=fl["bigram_ms"],
+                         bigram_long_ms=lo["bigram_ms"])
+        if "f64_rel_err" in fl:  # K8 and the expanded form vs float64
+            entry.update({pre + k: r[k] for pre, r in (("", fl),
+                                                       ("long_", lo))
+                          for k in ("f64_rel_err", "expanded32_rel_err")})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 """segmentalist_torch: the PyTorch / CUDA port of segmentalist_tpu.
 
 Imports torch and numpy only.  It ports the unigram and bigram segmenters
-with the fixed-variance and the diagonal-covariance component families,
+with the fixed-variance, diagonal- and full-covariance component families,
 with hand-written Hopper kernels for candidate scoring, the DP forward
-filter and the assignment chains (``ops/cuda_*.py``, ``csrc/``).
+filter and the assignment chains (``ops/cuda_*.py``, ``csrc/``).  Its entry
+points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from .corpus import Utterances
-from .models import components_diag, components_fixedvar
+from .models import components_diag, components_fixedvar, components_full
 from .models.bigram_lm import BigramSmoothLM
 from .models.fbgmm import FBGMM
 from .priors import NIW, FixedVarPrior
@@ -16,4 +17,4 @@ from .segmenters.unigram import UnigramAcousticWordseg
 
 __all__ = ["BigramAcousticWordseg", "BigramSmoothLM", "FBGMM",
            "FixedVarPrior", "NIW", "UnigramAcousticWordseg", "Utterances",
-           "components_diag", "components_fixedvar"]
+           "components_diag", "components_fixedvar", "components_full"]

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import native
+from .device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -40,7 +41,8 @@ class Utterances:
 
     ``rng`` is the ``np.random.RandomState`` of the random boundary
     initialisation (default: numpy's global RNG, like the reference);
-    ``device`` holds the dense tensors.
+    ``device`` holds the dense tensors: the CUDA card by default (raises
+    when there is none), the CPU when the caller asks.
     """
 
     def __init__(self, lengths, vec_ids, durations, landmarks,
@@ -48,9 +50,9 @@ class Utterances:
                  n_slices_min: int = 0, n_slices_max: int = 6,
                  min_duration: int = 0,
                  rng: Optional[np.random.RandomState] = None,
-                 device="cpu"):
+                 device="cuda"):
         rand = rng if rng is not None else np.random
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         if list(lengths) != [len(i) for i in landmarks]:
             raise ValueError("lengths do not match the landmark lists")

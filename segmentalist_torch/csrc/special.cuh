@@ -30,8 +30,9 @@ __device__ __forceinline__ float lgamma_stirling(float z) {
     return series - shift;
 }
 
-// lgamma((v + 1) / 2) - lgamma(v / 2): the count-dependent Student-t
-// constant of the diag chains.
-__device__ __forceinline__ float lgamma_ratio(float v) {
-    return lgamma_stirling((v + 1.0f) / 2.0f) - lgamma_stirling(v / 2.0f);
+// lgamma((v + a) / 2) - lgamma(v / 2): the count-dependent Student-t
+// constant of the diag chains (a = 1) and of the full-covariance chain
+// (a = D).
+__device__ __forceinline__ float lgamma_ratio(float v, float a = 1.0f) {
+    return lgamma_stirling((v + a) / 2.0f) - lgamma_stirling(v / 2.0f);
 }

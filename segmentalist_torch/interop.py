@@ -16,8 +16,9 @@ from .priors import NIW, FixedVarPrior
 
 STATE_KEYS = ("X", "counts", "sum_x", "sum_sq", "assignments", "boundaries")
 PRIOR_KEYS = {"fixed": ("var", "mu_0", "var_0"),   # FixedVarPrior
-              "diag": ("m_0", "k_0", "v_0", "S_0")}  # NIW, S_0 a [D] vector
-PRIOR_TYPES = {"fixed": FixedVarPrior, "diag": NIW}
+              "diag": ("m_0", "k_0", "v_0", "S_0"),  # NIW, S_0 a [D] vector
+              "full": ("m_0", "k_0", "v_0", "S_0")}  # NIW, S_0 [D, D]
+PRIOR_TYPES = {"fixed": FixedVarPrior, "diag": NIW, "full": NIW}
 LM_KEYS = ("unigram_counts", "bigram_counts")
 
 
@@ -25,11 +26,12 @@ def load_state(seg, state: dict):
     """Replace the state of ``seg`` (a port ``UnigramAcousticWordseg`` or
     ``BigramAcousticWordseg``) with ``state``: numpy arrays under
     ``STATE_KEYS`` -- data ``X`` [N, D], statistics ``counts`` [K] /
-    ``sum_x`` / ``sum_sq`` [K, D], the ``[N]`` assignments and the
-    ``[U, N_max]`` boundaries -- the prior under the family's
-    ``PRIOR_KEYS`` (``var`` / ``mu_0`` / ``var_0`` [D] for "fixed"; ``m_0``
-    [D], scalars ``k_0`` / ``v_0`` and ``S_0`` [D] for "diag", as the JAX
-    ``NIW`` holds them) and, for a bigram segmenter, the LM tables under
+    ``sum_x`` [K, D] / ``sum_sq`` ([K, D], or [K, D, D] for "full"), the
+    ``[N]`` assignments and the ``[U, N_max]`` boundaries -- the prior under
+    the family's ``PRIOR_KEYS`` (``var`` / ``mu_0`` / ``var_0`` [D] for
+    "fixed"; ``m_0`` [D], scalars ``k_0`` / ``v_0`` and ``S_0`` -- [D] for
+    "diag", [D, D] for "full" -- as the JAX ``NIW`` holds them) and, for a
+    bigram segmenter, the LM tables under
     ``LM_KEYS`` (``unigram_counts`` [K], ``bigram_counts`` [K, K], the JAX
     segmenter's ``lm.state``)."""
     cov = seg.acoustic_model.covariance_type

@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class BigramLMState(NamedTuple):
     unigram_counts: torch.Tensor  # [K] int32
@@ -183,14 +185,15 @@ def add_transcript_counts(state: BigramLMState, transcript: torch.Tensor,
 
 class BigramSmoothLM:
     """Reference-parity class wrapper (``BigramSmoothLM``,
-    bigram_lms.py:17-114); ``state`` lives on ``device``."""
+    bigram_lms.py:17-114); ``state`` lives on ``device``: the CUDA card by
+    default (raises when there is none), the CPU when the caller asks."""
 
-    def __init__(self, intrp_lambda, a, b, K, device="cpu"):
+    def __init__(self, intrp_lambda, a, b, K, device="cuda"):
         self.intrp_lambda = float(intrp_lambda)
         self.a = float(a)
         self.b = float(b)
         self.K = int(K)
-        self.state = empty_lm_state(self.K, device)
+        self.state = empty_lm_state(self.K, resolve_device(device))
 
     # numpy views of the count tables (the reference exposes raw arrays)
     @property

@@ -5,8 +5,8 @@ Holds the acoustic model state the segmenter composes: data ``X``, the
 sufficient statistics, the ``[N]`` assignment vector and the per-item prior
 log densities, all on one device, plus the record metrics of the
 reference's ``FBGMM`` (``fbgmm.py``).  The component family follows
-``covariance_type`` ("fixed" or "diag"; "full" is not ported yet); the
-FBGMM's own Gibbs sweeps are not ported.
+``covariance_type``: "fixed", "diag" or "full" (whose ``sum_sq`` is
+[K, D, D]); the FBGMM's own Gibbs sweeps are not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from ..ops.random import logsumexp
 from ..ops.stats import SuffStats, num_active, suff_stats_from_assignments
+from ..device import resolve_device
 from ..priors import Prior
 from . import cov_module
 
@@ -75,13 +76,16 @@ class FBGMM:
     The ``[N]`` assignment vector is stored with one trailing sentinel slot
     (``_assign_pad``), so a block can write every row of a padded index
     tensor without a host sync; ``assignments`` is the ``[N]`` view.
+    The state lives on ``device``: the CUDA card by default (raises when
+    there is none), the CPU when the caller asks.
     """
 
     def __init__(self, X, prior: Prior, alpha, K, assignments,
-                 covariance_type="fixed", lms=1.0, device=None):
+                 covariance_type="fixed", lms=1.0, device="cuda"):
         self.cov = cov_module(covariance_type)
         self.covariance_type = covariance_type
-        X = torch.as_tensor(X, device=device)
+        self.full_cov = covariance_type == "full"
+        X = torch.as_tensor(X, device=resolve_device(device))
         self.device = X.device
         self.prior = prior.to(device=self.device, dtype=X.dtype)
         self.alpha = float(alpha)
@@ -102,7 +106,7 @@ class FBGMM:
         self.assignments = torch.as_tensor(assignments, dtype=torch.int32,
                                            device=self.device)
         self.stats = suff_stats_from_assignments(self.X, self.assignments,
-                                                 self.K_max)
+                                                 self.K_max, self.full_cov)
         self.log_prior_vec = self.cov.log_prior_batch(self.prior, self.X)
 
     @property

@@ -1,10 +1,11 @@
 """ctypes bindings for the native host-side corpus operations.
 
-Compiles ``segmentalist_tpu/native/corpus_ops.cpp`` (read by path; the JAX
-package is never imported) with ``g++`` into the port's git-ignored build
-directory, keyed by a hash of the source.  Every entry point returns None
-when no toolchain is available, and the callers then take their numpy
-fallbacks, as in ``segmentalist_tpu/native/__init__.py``.
+Compiles the port's own ``corpus_ops.cpp`` (beside this module; a byte-for-
+byte copy of the JAX package's ``segmentalist_tpu/native/corpus_ops.cpp``)
+with ``g++`` into the port's git-ignored build directory, keyed by a hash of
+the source.  Every entry point returns None when no toolchain is available,
+and the callers then take their numpy fallbacks, as in
+``segmentalist_tpu/native/__init__.py``.
 
 The random boundary initialisation draws from the library's own xorshift
 RNG, so with the same C++ source the same seed gives the same initial
@@ -25,10 +26,9 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_ROOT, "segmentalist_tpu", "native", "corpus_ops.cpp")
-BUILD_DIR = os.path.join(_ROOT, "segmentalist_torch", "_build")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_HERE, "corpus_ops.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # The Makefile's flags without -march=native, so a built library runs on any
 # x86-64 host (the integer RNG and copies give the same results either way).
 _FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]

@@ -1,0 +1,143 @@
+"""Fused full-covariance candidate scoring: kernel K8 and its plain version.
+
+Counterpart of ``segmentalist_tpu/ops/pallas_score.py::fullcov_log_margs``.
+With the inputs of ``segmenters.fullcov.fullcov_score_inputs`` it computes
+
+    maha_g[b, m, k] = |L[k] x[b, m] - Lmu[k]|^2
+    post_g          = ck[k] - vh[k] log1p(maha_g vinv[k])
+    c_t[b, m, s]    = the same against utterance b's touched-slot tables
+    post            = c_t[b, m, tslot[b, k]] where tslot[b, k] >= 0, else post_g
+    log_margs[b, m] = logsumexp_k( w[b, k] + where(counts[b, k] > 0, post,
+                                                   prior_c[b, m]) )
+
+where ``L`` is the inverse Cholesky factor of the predictive scale matrix
+(``PredParams.chol_inv``, packed lower triangle), so ``maha = (x -
+mu)^T A (x - mu)``.  The JAX package expands the same form into ``x^T A x
+- 2 x . A mu + mu . A mu``, whose terms cancel: in float32 two summation
+orders of it differed by 1.3e-4 relative at D = 130.  The whitened form
+cancels only in ``L x - L mu``, a difference of vectors the size of the
+whitened candidate, and stays in float32.  The kernel
+(``csrc/fullcov_score.cu``) and this plain version evaluate the same form
+and differ only in summation order.  A CPU tensor takes the plain version,
+a CUDA tensor the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+from .random import NEG_INF, logsumexp
+from .stats import sym_pack
+
+_CANDS = 16         # candidate rows a block scores (csrc/fullcov_score.cu)
+_SMEM_MAX = 48 * 1024
+_PLAIN_ELEMS = 1 << 28  # elements of the plain version's [.., C, D] slab
+
+launches = 0  # K8 launches since the last reset
+
+
+def fullcov_log_margs(Xc, prior_c, g, t, tslot, wvec, counts, valid_m=None):
+    """[B, M] collapsed candidate log marginals under the full-covariance
+    predictive, touched columns corrected.
+
+    Xc [B, M, D] candidate vectors; prior_c [B, M] their prior log
+    densities; ``g`` = (LT [F, K], LmuT [D, K], ck, vinv, vh [K]) the
+    global tables and ``t`` = (L [B, S, F], Lmu [B, S, D], ck, vinv, vh
+    [B, S]) the touched-slot tables (F = D(D+1)/2); tslot [B, K] int32 the
+    slot of each touched component (-1 elsewhere); wvec [B, K] mixture
+    weights incl. the denominator; counts [B, K] int32 leave-out counts;
+    valid_m optional [B] int32 valid-candidate prefix lengths (rows past it
+    come back -inf).
+    """
+    if cuda_lib.use_kernel(Xc):
+        return _launch(Xc, prior_c, g, t, tslot, wvec, counts, valid_m)
+    return fullcov_scores_plain(Xc, prior_c, g, t, tslot, wvec, counts,
+                                valid_m)
+
+
+def _maha(Xc, L, Lmu):
+    """[B, M, C] ``|L x - Lmu|^2`` of Xc [B, M, D] against packed factors
+    L [Bt, C, F] and Lmu [Bt, C, D] (Bt 1 or B), C in slabs."""
+    B, M, D = Xc.shape
+    pk = sym_pack(D, Xc.device)
+    Bt, C, _ = L.shape
+    step = max(1, _PLAIN_ELEMS // (B * M * D))
+    out = []
+    for c0 in range(0, C, step):
+        c1 = min(C, c0 + step)
+        full = L.new_zeros((Bt, c1 - c0, D, D))
+        full[..., pk.il0, pk.il1] = L[:, c0:c1]
+        y = (Xc @ full.reshape(Bt, -1, D).transpose(1, 2)).unflatten(
+            -1, (c1 - c0, D)) - Lmu[:, None, c0:c1]
+        out.append((y * y).sum(-1))
+    return torch.cat(out, dim=-1)
+
+
+def _student_t(maha, ck, vh, vinv):
+    return ck - vh * torch.log1p(maha * vinv)
+
+
+def fullcov_scores_plain(Xc, prior_c, g, t, tslot, wvec, counts,
+                         valid_m=None):
+    """Plain PyTorch version of K8: the whitened form as matrix products
+    over slabs of components, then select and -inf-safe logsumexp."""
+    B, M, _ = Xc.shape
+    gLT, gLmuT, gck, gvinv, gvh = g
+    tL, tLmu, tck, tvinv, tvh = t
+    post = _student_t(_maha(Xc, gLT.T[None], gLmuT.T[None]), gck, gvh,
+                      gvinv)                                 # [B, M, K]
+    c_t = _student_t(_maha(Xc, tL, tLmu), tck[:, None, :], tvh[:, None, :],
+                     tvinv[:, None, :])                      # [B, M, S]
+    K = tslot.shape[-1]
+    corr = c_t.gather(2, tslot.clamp_min(0).long()[:, None, :].expand(
+        B, M, K))
+    post = torch.where((tslot >= 0)[:, None, :], corr, post)
+    logits = wvec[:, None, :] + torch.where(
+        (counts > 0)[:, None, :], post, prior_c[..., None])
+    out = logsumexp(logits, dim=-1)
+    if valid_m is not None:
+        live = torch.arange(M, device=Xc.device)[None, :] < valid_m[:, None]
+        out = torch.where(live, out, NEG_INF)
+    return out
+
+
+def smem_bytes(D: int, S: int) -> int:
+    """Shared memory of one K8 block: the candidate rows and their
+    touched-slot scores."""
+    return 4 * _CANDS * (D + S)
+
+
+def _launch(Xc, prior_c, g, t, tslot, wvec, counts, valid_m):
+    global launches
+    B, M, D = Xc.shape
+    K = tslot.shape[-1]
+    S = t[1].shape[1]
+    F = D * (D + 1) // 2
+    if smem_bytes(D, S) > _SMEM_MAX:
+        raise ValueError("fullcov_scores kernel: D = %d, S = %d need more "
+                         "than %d B of shared memory" % (D, S, _SMEM_MAX))
+    dev, f32 = Xc.device, torch.float32
+    req = cuda_lib.require
+    req(Xc, "Xc", f32, (B, M, D), dev)
+    req(prior_c, "prior_c", f32, (B, M), dev)
+    for name, a, shape in zip(("LT", "LmuT", "ck", "vinv", "vh"), g,
+                              ((F, K), (D, K)) + ((K,),) * 3):
+        req(a, "g_" + name, f32, shape, dev)
+    for name, a, shape in zip(("L", "Lmu", "ck", "vinv", "vh"), t,
+                              ((B, S, F), (B, S, D)) + ((B, S),) * 3):
+        req(a, "t_" + name, f32, shape, dev)
+    req(tslot, "tslot", torch.int32, (B, K), dev)
+    req(wvec, "wvec", f32, (B, K), dev)
+    req(counts, "counts", torch.int32, (B, K), dev)
+    if valid_m is not None:
+        req(valid_m, "valid_m", torch.int32, (B,), dev)
+    out = torch.empty((B, M), dtype=f32, device=dev)
+    p = cuda_lib.ptr
+    err = cuda_lib.library().fullcov_scores_launch(
+        p(Xc), p(prior_c), *(p(a) for a in g), *(p(a) for a in t), p(tslot),
+        p(wvec), p(counts), p(valid_m), p(out), B, M, D, K, S,
+        cuda_lib.stream_of(Xc))
+    cuda_lib.check(err, "fullcov_scores")
+    launches += 1
+    return out

@@ -68,6 +68,20 @@ _SIGNATURES = {
     # one_minus_lam, lms, temp, half_log_pi, stream
     "bigram_diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 12 + [_I] * 4
                                 + [_F] * 9 + [_P],
+    # Xc, prior_c, g_{LT, LmuT, ck, vinv, vh}, t_{L, Lmu, ck, vinv, vh},
+    # tslot, w, counts, valid_m, out, B, M, D, K, S, stream
+    "fullcov_scores_launch": [_P] * 17 + [_I] * 5 + [_P],
+    # embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0, t_ldP0,
+    # tk0, g_m, g_invP, g_ldP, k0, v0, half_D, log_pi, cnt_s, slot_s, tm_s,
+    # tiP_s, tld_s, tk_s, ks, B, S, D, K, T0, in_smem, smem, alpha_over_K,
+    # lms, temp, use_argmax, stream
+    "fullcov_chain_launch": [_P] * 13 + [_F] * 4 + [_P] * 7 + [_I] * 7
+                            + [_F] * 3 + [_I, _P],
+    # the same to tk0 .. log_pi, then uni, big, corr_j, corr_i, the scratch
+    # and ks, B .. smem, a_over_K, a, b_over_K, b, lam, one_minus_lam, lms,
+    # temp, stream
+    "bigram_fullcov_chain_launch": [_P] * 13 + [_F] * 4 + [_P] * 11
+                                   + [_I] * 7 + [_F] * 8 + [_P],
 }
 
 build_seconds = None  # wall time of the last nvcc build in this process

@@ -1,7 +1,7 @@
 """Special functions shared by the port's plain versions and its kernels.
 
 ``lgamma_stirling`` is the recurrence-lifted Stirling series of the JAX
-package's diagonal-covariance chain kernels
+package's diagonal- and full-covariance chain kernels
 (``segmentalist_tpu/ops/pallas_chain.py::_lgamma_stirling``).  The CUDA
 kernels evaluate the same composition in ``csrc/special.cuh``; both keep
 its operation order, so a kernel and its plain version round alike.
@@ -39,8 +39,9 @@ def lgamma_stirling(z: torch.Tensor) -> torch.Tensor:
     return series - shift
 
 
-def lgamma_ratio(v: torch.Tensor) -> torch.Tensor:
-    """``lgamma((v + 1) / 2) - lgamma(v / 2)`` through
-    :func:`lgamma_stirling`: the count-dependent Student-t constant the diag
-    chains keep per column."""
-    return lgamma_stirling((v + 1.0) / 2.0) - lgamma_stirling(v / 2.0)
+def lgamma_ratio(v: torch.Tensor, a=1.0) -> torch.Tensor:
+    """``lgamma((v + a) / 2) - lgamma(v / 2)`` through
+    :func:`lgamma_stirling`: the count-dependent Student-t constant of the
+    diag chains (a = 1, kept per column) and of the full-covariance chain
+    (a = D, per touched slot)."""
+    return lgamma_stirling((v + a) / 2.0) - lgamma_stirling(v / 2.0)

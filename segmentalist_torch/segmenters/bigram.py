@@ -1,5 +1,5 @@
-"""Bigram acoustic word segmentation, fixed-variance or diagonal-covariance
-components.
+"""Bigram acoustic word segmentation, with fixed-variance, diagonal- or
+full-covariance components.
 
 Counterpart of ``segmentalist_tpu/segmenters/bigram.py`` (reference
 ``BigramAcousticWordseg``, ``bigram_acoustic_wordseg.py:32-722``): boundary
@@ -14,9 +14,9 @@ segment's component through the smoothed bigram LM
 One block step (:meth:`BigramAcousticWordseg.block_step`) follows the JAX
 package's ``_make_block_step`` (``bigram.py:953-1278``) stage by stage,
 sharing every stage but the chain with the unigram segmenter
-(``segmenters/blocked.py``): the scorer (K1, or K5 for the diag family)
-takes the LM's leave-out unigram weights, the chain is kernel K4 (K7 for
-diag), and the LM count tables take the
+(``segmenters/blocked.py``): the scorer (K1; K5 for the diag family, K8 for
+full) takes the LM's leave-out unigram weights, the chain is kernel K4 (K7
+for diag, K9's bigram mode for full), and the LM count tables take the
 block's signed count delta after the acoustic merge.  The LM is read
 before the merge, so its tables count every old pair the chain removes.
 """
@@ -103,7 +103,7 @@ class BigramAcousticWordseg(BlockedWordseg):
     ``bigram_acoustic_wordseg.py:129-256``, plus ``device``).
 
     ``lm_params``: ``{"type": "smooth", "intrp_lambda", "a", "b"}``.
-    ``covariance_type``: "fixed" or "diag" ("full" raises: ROADMAP M11).
+    ``covariance_type``: "fixed", "diag" or "full".
     ``seed`` seeds the initialisation, the per-sweep utterance order and
     the sampling noise, as in :class:`UnigramAcousticWordseg`.
     """
@@ -116,8 +116,8 @@ class BigramAcousticWordseg(BlockedWordseg):
                  lms=1.0, wip=0.0, fb_type="bigram",
                  init_am_assignments="rand", time_power_term=1.0,
                  batch_size: Optional[int] = None, seed: int = 0,
-                 decollide_new: bool = True, device="cpu"):
-        cov_module(covariance_type)  # "full" raises before any set-up
+                 decollide_new: bool = True, device="cuda"):
+        cov_module(covariance_type)  # an unknown family raises first
         if lm_params["type"] != "smooth":
             raise ValueError("invalid LM type: %r" % (lm_params["type"],))
         self.lms = float(lms)
@@ -270,7 +270,7 @@ class BigramAcousticWordseg(BlockedWordseg):
             noise = gumbel((am.K_max,), self._gen, self.device, dtype)
         k = canonicalize_new_component(
             am.stats.counts, annealed_gumbel_max(logits, noise, anneal_temp))
-        am.stats = add_item(am.stats, am.X[i_embed], k)
+        am.stats = add_item(am.stats, am.X[i_embed], k, am.full_cov)
         am.assignments[i_embed] = k.to(am.assignments.dtype)
         return int(k)
 
@@ -333,7 +333,8 @@ class BigramAcousticWordseg(BlockedWordseg):
         pairs_old = transcript_pairs_batch(blk.old_ks)
         uni_lo = lm.state.unigram_counts[None] - blk.own_counts
 
-        # 2. scoring with the LM's unigram weights (K1 / K5), boundaries (K2)
+        # 2. scoring with the LM's unigram weights (K1 / K5 / K8),
+        # boundaries (K2)
         if assignments_only:
             log_prob = torch.zeros(blk.idx.shape[0], dtype=X.dtype,
                                    device=self.device)
@@ -344,15 +345,19 @@ class BigramAcousticWordseg(BlockedWordseg):
             log_prob, new_bounds = self._resample_boundaries(
                 blk, w_b, anneal_temp, "sample", dp_noise)
 
-        # 3. bigram-conditioned assignment chains (kernel K4 / K7)
+        # 3. bigram-conditioned assignment chains (kernel K4 / K7 / K9)
         new_embeds, Xe_new, lpe_new = self._new_segments(blk, new_bounds)
-        data = (new_embeds, Xe_new, lpe_new,
-                self._chain_noise(chain_noise, blk.idx.shape[0]),
-                blk.lo_counts, blk.sum_xT)
+        noise = self._chain_noise(chain_noise, blk.idx.shape[0])
+        data = (new_embeds, Xe_new, lpe_new, noise, blk.lo_counts,
+                blk.sum_xT)
         lm_args = (uni_lo, lm.state.bigram_counts, *pairs_old)
         opts = dict(alpha_a=lm.a, intrp_lambda=lm.intrp_lambda,
                     b_smooth=lm.b, K=K, lms=self.lms)
-        if self._diag:
+        if self._family == "full":
+            new_ks = self._full_chain(
+                blk, new_embeds, Xe_new, noise, 0.0, self.lms, assign_temp,
+                lm=(*lm_args, lm.a, lm.intrp_lambda, lm.b))
+        elif self._family == "diag":
             new_ks = bigram_diag_chain(
                 *data, blk.sum_sqT, prior.m_0, *self._k0_v0, prior.S_0,
                 assign_temp, *lm_args, **opts)

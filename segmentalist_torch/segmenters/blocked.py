@@ -6,13 +6,17 @@ state and resample a block of utterances through the same stages
 ``bigram.py:953-1278``):
 
   1. the block's current segments and their leave-one-utterance-out
-     statistics (:meth:`BlockedWordseg._leave_out`);
+     statistics (:meth:`BlockedWordseg._leave_out`): feature-major moment
+     sums for the fixed-variance and diagonal-covariance families; for the
+     full-covariance one the global predictive parameters and each
+     utterance's touched-component leave-outs (``segmenters/fullcov.py``);
   2. fused candidate scoring (kernel K1 for the fixed-variance family, K5
-     for the diagonal-covariance one) and the boundary-resampling DP
-     (kernel K2) (:meth:`BlockedWordseg._resample_boundaries`);
+     for the diagonal-covariance one, K8 for the full-covariance one) and
+     the boundary-resampling DP (kernel K2)
+     (:meth:`BlockedWordseg._resample_boundaries`);
   3. the sequential assignment chain of the new segments -- the one stage
-     the segmenters do differently (K3 / K6 with Dirichlet weights, K4 / K7
-     with the bigram LM);
+     the segmenters do differently (K3 / K6 / K9 with Dirichlet weights,
+     K4 / K7 / K9's bigram mode with the bigram LM);
   4. cross-utterance decollision and the merge into the global state
      (:meth:`BlockedWordseg._merge`).
 
@@ -31,6 +35,8 @@ import torch
 
 from ..corpus import Utterances
 from ..device import resolve_device
+from ..models.components_full import PredParams
+from ..ops.cuda_fullcov_score import fullcov_log_margs
 from ..ops.cuda_score import diag_log_margs_T, fixedvar_log_margs_T
 from ..ops.dp import segment_dp
 from ..ops.random import gumbel
@@ -47,6 +53,8 @@ from .common import (
     pad_utterance_order,
     seed_assignments_to_vector,
 )
+from .fullcov import (Touched, fullcov_chain, fullcov_score_inputs,
+                      touched_leave_out)
 
 logger = logging.getLogger(__name__)
 
@@ -92,8 +100,10 @@ class Block(NamedTuple):
     Xe_old: torch.Tensor      # [B, N_max, D] their vectors
     own_counts: torch.Tensor  # [B, K] int32 per-utterance counts of old_ks
     lo_counts: torch.Tensor   # [B, K] int32 leave-one-utterance-out counts
-    sum_xT: torch.Tensor      # [B, D, K] leave-one-utterance-out sum_x
+    sum_xT: Optional[torch.Tensor]   # [B, D, K] leave-out sum_x (not full)
     sum_sqT: Optional[torch.Tensor]  # [B, D, K] ... sum_sq (diag only)
+    params_g: Optional[PredParams]   # global predictive params (full only)
+    touched: Optional[Touched]       # touched-slot leave-outs (full only)
 
 
 class BlockedWordseg:
@@ -175,16 +185,16 @@ class BlockedWordseg:
 
     def refresh_candidates(self):
         """Rebuild the sweep-static candidate tensors ``X[seg_ids]`` and
-        ``log_prior_vec[seg_ids]``, and the host copies of the diag prior's
+        ``log_prior_vec[seg_ids]``, and the host copies of the NIW prior's
         scalars (after replacing ``acoustic_model.X`` or its prior)."""
         am = self.acoustic_model
         self._cand_X, self._cand_lp = cand_tables(
             self._seg_ids_dp, am.X, am.log_prior_vec)
-        self._diag = am.covariance_type == "diag"
+        self._family = am.covariance_type
         # The chain kernels take k_0 and v_0 as host floats: fetched once
         # here, not in every block step.
         self._k0_v0 = ((float(am.prior.k_0), float(am.prior.v_0))
-                       if self._diag else None)
+                       if self._family != "fixed" else None)
 
     def calc_p_continue(self) -> float:
         """Sentence-continue probability under the symmetric Beta prior
@@ -241,7 +251,10 @@ class BlockedWordseg:
 
     def _leave_out(self, idx_blk) -> Block:
         """Stage 1: the block's current segments and leave-one-utterance-out
-        statistics.  ``idx_blk`` [B] host ints, -1 for padding."""
+        statistics (for the full family: the global predictive parameters
+        and the touched-slot leave-outs, no moment tables; the JAX
+        package's ``unigram.py:841-853``).  ``idx_blk`` [B] host ints, -1
+        for padding."""
         am, utt, dev = self.acoustic_model, self.utterances, self.device
         X, K = am.X, am.K_max
         idx_np = np.asarray(idx_blk, dtype=np.int64)
@@ -259,30 +272,45 @@ class BlockedWordseg:
         old_ks = torch.where(old_ok, am.assignments[old_rows], -1)
         Xe_old = X[old_rows]
         own_counts = counts_contrib(old_ks, old_ok, K)
-        moments = leave_out_moments_T(am.stats, X, old_embeds, old_ks, K,
-                                      rows=Xe_old, with_sq=self._diag)
-        sum_xT, sum_sqT = moments if self._diag else (moments, None)
+        sum_xT = sum_sqT = params_g = touched = None
+        if self._family == "full":
+            params_g = am.cov.predictive_params(am.prior, am.stats)
+            touched = touched_leave_out(am.prior, am.stats, X, old_embeds,
+                                        old_ks, rows=Xe_old)
+        elif self._family == "diag":
+            sum_xT, sum_sqT = leave_out_moments_T(
+                am.stats, X, old_embeds, old_ks, K, rows=Xe_old, with_sq=True)
+        else:
+            sum_xT = leave_out_moments_T(am.stats, X, old_embeds, old_ks, K,
+                                         rows=Xe_old)
         return Block(idx, valid, packed[B:], lengths, seg_ids, old_embeds,
                      old_ks, Xe_old, own_counts,
-                     am.stats.counts[None] - own_counts, sum_xT, sum_sqT)
+                     am.stats.counts[None] - own_counts, sum_xT, sum_sqT,
+                     params_g, touched)
 
     def _resample_boundaries(self, blk: Block, w_b: torch.Tensor,
                              anneal_temp: float, mode: str,
                              dp_noise: Optional[torch.Tensor]):
         """Stage 2: score every candidate span of the block with mixture
-        weights ``w_b`` [B, K] (kernel K1, or K5 for the diag family) and
-        resample the boundaries (kernel K2).  Returns (log_prob [B], new
-        boundaries [B, N_max]).
+        weights ``w_b`` [B, K] (kernel K1, K5 for the diag family, K8 for
+        the full one) and resample the boundaries (kernel K2).  Returns
+        (log_prob [B], new boundaries [B, N_max]).
 
         The diag Viterbi DP takes K5's exact per-dimension composition: a
         deterministic argmax must not see the grouped form's rounding
-        (the JAX driver's gate, ``unigram.py:863-871``)."""
+        (the JAX driver's gate, ``unigram.py:863-871``).  The full family
+        has one composition, K8, for both DP modes (``unigram.py:905-916``).
+        """
         am = self.acoustic_model
         B = blk.idx.shape[0]
         N_max, W_dp = self.utterances.N_max, self.W_dp
         Xc, prior_c = self._cand_X[blk.idx], self._cand_lp[blk.idx]
         valid_m = blk.lengths * W_dp
-        if self._diag:
+        if self._family == "full":
+            log_margs = fullcov_log_margs(
+                Xc, prior_c, *fullcov_score_inputs(blk.params_g, blk.touched),
+                w_b, blk.lo_counts, valid_m=valid_m)
+        elif self._family == "diag":
             muT, inv_varT, lpv, v = am.cov.predictive_params_T(
                 am.prior, blk.lo_counts, blk.sum_xT, blk.sum_sqT)
             log_margs = diag_log_margs_T(
@@ -321,6 +349,22 @@ class BlockedWordseg:
         return gumbel((B, self.utterances.N_max, am.K_max), self._gen,
                       self.device, am.X.dtype)
 
+    def _full_chain(self, blk: Block, new_embeds, Xe_new, noise, alpha,
+                    lms, temp, use_argmax=False, lm=None) -> torch.Tensor:
+        """Stage 3 for the full family: the global predictive scores of the
+        new segments (a plain float32 matmul with TF32 off, as the JAX
+        package leaves it to XLA), then kernel K9 (``lm``: its bigram mode,
+        see ``fullcov.fullcov_chain``)."""
+        am = self.acoustic_model
+        base = am.cov.log_post_pred_batch(
+            blk.params_g, Xe_new.reshape(-1, Xe_new.shape[-1])).reshape(
+                noise.shape)
+        return fullcov_chain(am.prior, am.X, blk.params_g, am.stats.counts,
+                             blk.lo_counts, blk.touched, new_embeds, base,
+                             noise, am.log_prior_vec, alpha, am.K_max, lms,
+                             temp, use_argmax=use_argmax, lm=lm,
+                             k0_v0=self._k0_v0)
+
     def _merge(self, blk: Block, new_bounds: torch.Tensor,
                new_embeds: torch.Tensor, Xe_new: torch.Tensor,
                new_ks: torch.Tensor) -> torch.Tensor:
@@ -335,8 +379,9 @@ class BlockedWordseg:
                 new_ks, (new_embeds >= 0) & valid[:, None], blk.lo_counts,
                 stats.counts)
         old_flat = flat_contrib(X, blk.old_embeds, blk.old_ks, K, valid,
-                                rows=blk.Xe_old)
-        new_flat = flat_contrib(X, new_embeds, new_ks, K, valid, rows=Xe_new)
+                                rows=blk.Xe_old, full_cov=am.full_cov)
+        new_flat = flat_contrib(X, new_embeds, new_ks, K, valid, rows=Xe_new,
+                                full_cov=am.full_cov)
         am.stats = merge_flat(stats, old_flat, new_flat)
         utt.boundaries_dev[blk.idx[blk.live]] = new_bounds[blk.live]
         pad, N = am._assign_pad, am.N

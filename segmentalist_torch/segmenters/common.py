@@ -1,5 +1,5 @@
-"""Shared machinery of the blocked-Gibbs segmentation sweeps (fixed-variance
-and diagonal-covariance paths).
+"""Shared machinery of the blocked-Gibbs segmentation sweeps (every
+covariance family).
 
 Counterpart of ``segmentalist_tpu/segmenters/common.py``.  A block of B
 utterances is resampled against the block-start state:
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.random import NEG_INF
-from ..ops.stats import SuffStats, item_sq, one_hot_rows
+from ..ops.stats import SuffStats, item_sq, moment_sums, one_hot_rows
 
 
 class Segments(NamedTuple):
@@ -109,9 +109,11 @@ def leave_out_moments_T(stats: SuffStats, X: torch.Tensor,
 
 def flat_contrib(X: torch.Tensor, embeds: torch.Tensor, ks: torch.Tensor,
                  K_max: int, valid: torch.Tensor,
-                 rows: torch.Tensor | None = None) -> SuffStats:
+                 rows: torch.Tensor | None = None,
+                 full_cov: bool = False) -> SuffStats:
     """Summed statistics of all (utterance, segment) pairs of a block, as
-    one-hot matrix products [K, B*S] @ [B*S, D]."""
+    one-hot matrix products [K, B*S] @ [B*S, D]; full second moments
+    through the packed lanes, unpacked by the mirror map."""
     ok = (embeds >= 0) & (ks >= 0) & valid[:, None]
     D = X.shape[-1]
     x = X[embeds.clamp_min(0).long()] if rows is None else rows
@@ -120,7 +122,7 @@ def flat_contrib(X: torch.Tensor, embeds: torch.Tensor, ks: torch.Tensor,
     return SuffStats(
         counts=oh.sum(0).to(torch.int32),
         sum_x=oh.T @ x,
-        sum_sq=oh.T @ item_sq(x),
+        sum_sq=moment_sums(oh.T, x, full_cov),
     )
 
 

@@ -1,5 +1,5 @@
-"""Unigram acoustic word segmentation, fixed-variance or diagonal-covariance
-components.
+"""Unigram acoustic word segmentation, with fixed-variance, diagonal- or
+full-covariance components.
 
 Counterpart of ``segmentalist_tpu/segmenters/unigram.py`` (reference
 ``UnigramAcousticWordseg``, ``unigram_acoustic_wordseg.py:27-564``):
@@ -11,9 +11,9 @@ blocked Gibbs sampling that alternates, per block of utterances,
 
 One block step (:meth:`UnigramAcousticWordseg.block_step`) follows the JAX
 package's ``_make_block_step`` (``unigram.py:785-1057``) stage by stage and
-runs three hand-written kernels on a CUDA device: the fused scorer (K1, or
-K5 for ``covariance_type="diag"``), the DP forward filter (K2) and the
-assignment chain (K3, or K6 for diag).  All state
+runs three hand-written kernels on a CUDA device: the fused scorer (K1; K5
+for ``covariance_type="diag"``, K8 for "full"), the DP forward filter (K2)
+and the assignment chain (K3; K6 for diag, K9 for full).  All state
 lives on the segmenter's ``device``; sampling noise comes from a
 ``torch.Generator`` seeded from ``seed``, or is injected by the caller.
 
@@ -46,7 +46,7 @@ class UnigramAcousticWordseg(BlockedWordseg):
     ``unigram_acoustic_wordseg.py:118-125``); ``am_class`` is accepted for
     signature parity and the port's FBGMM is always used.
 
-    covariance_type : "fixed" or "diag" ("full" raises: ROADMAP M11).
+    covariance_type : "fixed", "diag" or "full".
 
     batch_size : utterances resampled per blocked-Gibbs step (default
         ``min(64, U)``).
@@ -54,8 +54,9 @@ class UnigramAcousticWordseg(BlockedWordseg):
         package takes from numpy's global RNG, in the same order), the host
         RNG of the per-sweep utterance order, and the device generator of
         the sampling noise.
-    device : where the state lives and the kernels run ("cpu" runs the
-        plain PyTorch versions of the kernels).
+    device : where the state lives and the kernels run: the CUDA card by
+        default (raises when there is none); "cpu" when the caller asks for
+        it, which runs the kernels' plain PyTorch versions.
     """
 
     def __init__(self, am_class, am_alpha, am_K, am_param_prior,
@@ -66,7 +67,7 @@ class UnigramAcousticWordseg(BlockedWordseg):
                  lms=1.0, wip=0.0, fb_type="standard",
                  init_am_assignments="rand", time_power_term=1.0,
                  batch_size: Optional[int] = None, seed: int = 0,
-                 decollide_new: bool = True, device="cpu"):
+                 decollide_new: bool = True, device="cuda"):
         self.set_fb_type(fb_type)
         if (init_am_assignments == "one-by-one"
                 and seed_assignments_dict is None):
@@ -147,22 +148,26 @@ class UnigramAcousticWordseg(BlockedWordseg):
         # 1. current segments and leave-one-utterance-out statistics
         blk = self._leave_out(idx_blk)
 
-        # 2. fused candidate scoring (K1 / K5) and boundary resampling (K2)
+        # 2. fused candidate scoring (K1 / K5 / K8), boundary resampling (K2)
         w_b = log_weights(blk.lo_counts, am.alpha, K, am.lms,
                           include_denominator=True, dtype=X.dtype)
         log_prob, new_bounds = self._resample_boundaries(
             blk, w_b, anneal_temp, self._dp_mode, dp_noise)
 
-        # 3. sequential assignment of the new segments (kernel K3 / K6);
-        # Viterbi takes the argmax without the lms scaling (fbgmm.py:475)
+        # 3. sequential assignment of the new segments (kernel K3 / K6 /
+        # K9); Viterbi takes the argmax without the lms scaling (fbgmm.py:475)
         new_embeds, Xe_new, lpe_new = self._new_segments(blk, new_bounds)
         viterbi = self.fb_type == "viterbi"
-        data = (new_embeds, Xe_new, lpe_new,
-                self._chain_noise(chain_noise, blk.idx.shape[0]),
-                blk.lo_counts, blk.sum_xT)
+        noise = self._chain_noise(chain_noise, blk.idx.shape[0])
         opts = dict(alpha=am.alpha, K=K, lms=1.0 if viterbi else am.lms,
                     use_argmax=viterbi)
-        if self._diag:
+        data = (new_embeds, Xe_new, lpe_new, noise, blk.lo_counts,
+                blk.sum_xT)
+        if self._family == "full":
+            new_ks = self._full_chain(blk, new_embeds, Xe_new, noise,
+                                      am.alpha, opts["lms"], assign_temp,
+                                      use_argmax=viterbi)
+        elif self._family == "diag":
             new_ks = diag_chain(*data, blk.sum_sqT, prior.m_0,
                                 *self._k0_v0, prior.S_0, assign_temp, **opts)
         else:

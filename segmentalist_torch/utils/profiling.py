@@ -1,0 +1,129 @@
+"""Where a segmenter's Gibbs sweeps spend their time on the card.
+
+Builds a segmenter at the bench configuration (``bench_segmenter``: the
+JAX package's ``bench.py`` corpus, 1000 synthetic utterances with N_max 20,
+D 13 and 50 true words, ``am_K=1000``, ``batch_size=125``, and the priors of
+``bench.py:379-411`` and ``benchmarks/all_models.py:124-171``), runs
+warm-up sweeps, times sweeps without the profiler, then profiles sweeps
+with ``torch.profiler`` and prints one JSON line: ms/sweep, device time and
+kernel launches per sweep, the batched ``torch.linalg`` factorisations'
+device time, and the operators and kernels that take the most device time.
+
+    python -m segmentalist_torch.utils.profiling --cov full [--bigram]
+
+Needs a CUDA card (the profile is of the card's time).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+BENCH_LM = {"type": "smooth", "intrp_lambda": 0.1, "a": 1.0, "b": 1.0}
+WARMUP, SWEEPS = 9, 5  # warm-up sweeps, then sweeps timed and profiled
+# the batched factorisations of the full-covariance family
+LINALG_OPS = ("aten::linalg_cholesky_ex", "aten::linalg_solve_triangular")
+
+
+def bench_prior(cov: str, D: int, device):
+    """The bench priors: FixedVarPrior(var 0.05, mu_0 0, var_0 1) for
+    "fixed"; NIW(m_0 0, k_0 0.05, v_0 D + 3, S_0 0.05) with a [D] S_0 for
+    "diag" and 0.05 I_D for "full"."""
+    from ..priors import NIW, FixedVarPrior
+
+    f32 = np.float32
+    if cov == "fixed":
+        return FixedVarPrior.create(np.full(D, 0.05, f32), np.zeros(D, f32),
+                                    np.ones(D, f32), device=device)
+    S_0 = (np.full(D, 0.05, f32) if cov == "diag"
+           else 0.05 * np.eye(D, dtype=f32))
+    return NIW.create(np.zeros(D, f32), 0.05, D + 3.0, S_0, device=device)
+
+
+def bench_segmenter(cov: str = "fixed", bigram: bool = False,
+                    n_utterances: int = 1000, device="cuda"):
+    """(segmenter, ground-truth boundaries) at the bench configuration."""
+    from .. import BigramAcousticWordseg, FBGMM, UnigramAcousticWordseg
+    from .synth import synthetic_corpus
+
+    em, vi, du, lm, truth = synthetic_corpus(
+        n_utterances=n_utterances, n_landmarks_max=20, D=13, K_true=50,
+        n_slices_max=6, seed=0)
+    em = {k: v.astype(np.float32) for k, v in em.items()}
+    common = dict(
+        am_K=1000, am_param_prior=bench_prior(cov, 13, "cpu"),
+        embedding_mats=em, vec_ids_dict=vi, durations_dict=du,
+        landmarks_dict=lm, covariance_type=cov, p_boundary_init=0.5,
+        beta_sent_boundary=-1, n_slices_max=6, batch_size=125, seed=0,
+        device=device)
+    if bigram:
+        seg = BigramAcousticWordseg(lm_params=BENCH_LM, fb_type="unigram",
+                                    **common)
+    else:
+        seg = UnigramAcousticWordseg(FBGMM, am_alpha=1.0, **common)
+    return seg, truth
+
+
+def profile_sweeps(seg) -> dict:
+    """Warm up, time ``SWEEPS`` sweeps, then profile as many."""
+    from torch.profiler import ProfilerActivity, profile
+
+    seg.gibbs_sample(WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seg.gibbs_sample(SWEEPS)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / SWEEPS * 1e3
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        seg.gibbs_sample(SWEEPS)
+        torch.cuda.synchronize()
+    ms_prof = (time.time() - t0) / SWEEPS * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+
+    def per_sweep_ms(us):
+        return us / 1e3 / SWEEPS
+
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    ops = sorted((e for e in events if e.device_type.name == "CPU"
+                  and e.device_time_total > 0),
+                 key=lambda e: -e.device_time_total)[:12]
+    return {
+        "ms_per_sweep": ms, "ms_per_sweep_profiled": ms_prof,
+        "device_ms_per_sweep": per_sweep_ms(
+            sum(e.self_device_time_total for e in kernels)),
+        "kernels_per_sweep": sum(e.count for e in kernels) / SWEEPS,
+        "linalg_ms_per_sweep": {
+            e.key: per_sweep_ms(e.device_time_total) for e in events
+            if e.key in LINALG_OPS},
+        "top_kernels_ms_per_sweep": {
+            e.key[:80]: per_sweep_ms(e.self_device_time_total) for e in top},
+        "top_ops_ms_per_sweep": {
+            e.key: per_sweep_ms(e.device_time_total) for e in ops},
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cov", default="full", choices=("fixed", "diag",
+                                                     "full"))
+    ap.add_argument("--bigram", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: needs a CUDA card")
+    seg, _ = bench_segmenter(args.cov, args.bigram)
+    out = profile_sweeps(seg)
+    out.update(cov=args.cov, bigram=args.bigram,
+               device=torch.cuda.get_device_name(0))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -48,7 +48,7 @@ def _prior(pkg):
 def _pair(**kw):
     np.random.seed(kw.get("seed", 5))  # the JAX init draws from numpy's RNG
     jseg = JaxBigram(am_param_prior=_prior(jtpu), **_kwargs(**kw))
-    tseg = pt.BigramAcousticWordseg(am_param_prior=_prior(pt),
+    tseg = pt.BigramAcousticWordseg(am_param_prior=_prior(pt), device="cpu",
                                     **_kwargs(**kw))
     return jseg, tseg
 
@@ -174,10 +174,11 @@ def test_unported_modes_raise():
         tseg.gibbs_sample(1, am_n_iter=1)
     with pytest.raises(NotImplementedError):
         tseg.get_vec_embed_log_probs_bigram([0], [1.0])
-    # diag is ported (tests/test_torch_diag.py); full waits for M11
-    with pytest.raises(NotImplementedError, match="M11"):
-        pt.BigramAcousticWordseg(am_param_prior=_prior(pt),
-                                 **_kwargs(covariance_type="full"))
+    # diag and full are ported (tests/test_torch_diag.py,
+    # tests/test_torch_full.py); an unknown family raises
+    with pytest.raises(ValueError):
+        pt.BigramAcousticWordseg(am_param_prior=_prior(pt), device="cpu",
+                                 **_kwargs(covariance_type="spherical"))
     with pytest.raises(NotImplementedError):
         tseg.acoustic_model.gibbs_sample(1)
 
@@ -221,7 +222,8 @@ def _demo_pair():
             n_slices_max=2, fb_type="unigram", lms=1.0, batch_size=1, seed=1)
 
     np.random.seed(1)
-    return JaxBigram(**kw(jtpu)), pt.BigramAcousticWordseg(**kw(pt))
+    return (JaxBigram(**kw(jtpu)),
+            pt.BigramAcousticWordseg(device="cpu", **kw(pt)))
 
 
 def test_demo_corpus_scores_match_jax():

@@ -120,7 +120,7 @@ def test_lm_identities():
     """Reference LM identities (tests/test_bigram.py, reference
     tests/test_bigram_lms.py:13-74)."""
     intrp_lambda, a, b, k = 0.1, 1, 2, 5
-    lm = tlm.BigramSmoothLM(intrp_lambda, a, b, k)
+    lm = tlm.BigramSmoothLM(intrp_lambda, a, b, k, device="cpu")
     lm.counts_from_data([[1, 1, 3, 4, 0], [4, 4], [1, 0, 2, 2, 2, 2, 3, 1],
                          [3, 3, 1]])
     npt.assert_allclose(
@@ -139,7 +139,7 @@ def test_lm_identities():
 
 
 def test_lm_add_remove_roundtrip():
-    lm = tlm.BigramSmoothLM(0.2, 1.0, 2.0, 4)
+    lm = tlm.BigramSmoothLM(0.2, 1.0, 2.0, 4, device="cpu")
     lm.counts_from_utterance([0, 1, 1, 3])
     lm.counts_from_utterance([2, 0])
     uni0, big0 = lm.unigram_counts.copy(), lm.bigram_counts.copy()
@@ -148,9 +148,9 @@ def test_lm_add_remove_roundtrip():
     npt.assert_array_equal(lm.unigram_counts, uni0)
     npt.assert_array_equal(lm.bigram_counts, big0)
     # -1 pads carry context over, like the reference's `continue`.
-    lm2 = tlm.BigramSmoothLM(0.2, 1.0, 2.0, 4)
+    lm2 = tlm.BigramSmoothLM(0.2, 1.0, 2.0, 4, device="cpu")
     lm2.counts_from_utterance([0, 1, 3])
-    lm3 = tlm.BigramSmoothLM(0.2, 1.0, 2.0, 4)
+    lm3 = tlm.BigramSmoothLM(0.2, 1.0, 2.0, 4, device="cpu")
     lm3.counts_from_utterance([0, -1, 1, -1, 3, -1])
     npt.assert_array_equal(lm2.bigram_counts, lm3.bigram_counts)
 

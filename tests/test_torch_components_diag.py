@@ -102,9 +102,10 @@ def test_log_marg_matches_jax_and_masks_empty_slots():
 
 
 def test_family_dispatch():
+    from segmentalist_torch.models import components_full
+
     assert cov_module("diag") is tcd
-    with pytest.raises(NotImplementedError, match="M11"):
-        cov_module("full")
+    assert cov_module("full") is components_full
     with pytest.raises(ValueError):
         cov_module("spherical")
 

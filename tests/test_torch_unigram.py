@@ -51,7 +51,7 @@ def _pair(**kw):
     np.random.seed(kw.get("seed", 5))  # the JAX init draws from numpy's RNG
     jseg = JaxWordseg(jtpu.FBGMM, am_param_prior=_prior(jtpu), **_kwargs(**kw))
     tseg = pt.UnigramAcousticWordseg(pt.FBGMM, am_param_prior=_prior(pt),
-                                     **_kwargs(**kw))
+                                     device="cpu", **_kwargs(**kw))
     return jseg, tseg
 
 
@@ -185,7 +185,7 @@ def _toy_segmenter():
         pt.FBGMM, 10.0, 2, prior, {"test": emb},
         {"test": np.array([0, 1, 2])}, {"test": [1, 2, 1]},
         {"test": [1, 2]}, seed_boundaries_dict={"test": [2]},
-        beta_sent_boundary=-1, n_slices_max=20, batch_size=1)
+        beta_sent_boundary=-1, n_slices_max=20, batch_size=1, device="cpu")
 
 
 def test_vec_embed_log_probs_match_reference_values():
@@ -211,6 +211,7 @@ def test_one_by_one_init_is_refused():
     with pytest.raises(NotImplementedError):
         pt.UnigramAcousticWordseg(pt.FBGMM, am_param_prior=_prior(pt),
                                   init_am_assignments="one-by-one",
+                                  device="cpu",
                                   **_kwargs())
 
 

@@ -19,6 +19,8 @@ check that does not hold:
    float32 peak, counted from the inputs); K8 and the reference's
    expanded Mahalanobis form in float32 against float64; K9's bigram
    mode on a crafted case where the own-pair correction decides draws;
+   K6 / K7's launch plan (form, threads, shared bytes), longest chain,
+   device time (profiler) and device time a dependent step;
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
@@ -34,6 +36,11 @@ check that does not hold:
 
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``.
+
+To time some kernels alone (phases 1-3 of the named kernels, with their
+kernels line and no result line):
+
+    python3 chip_smoke.py --only K6,K7
 """
 
 from __future__ import annotations
@@ -477,6 +484,43 @@ def compare_diag_score(shape, name):
     return out
 
 
+def device_ms(fn, kernel_name, reps=10):
+    """Mean device milliseconds a launch of the kernels whose name holds
+    ``kernel_name``, from ``torch.profiler`` (CUPTI) over ``reps`` calls:
+    the kernel alone, without the host's launch cost that `cuda_ms` sees
+    when the card waits for the host.  The mean is over the launches the
+    profiler recorded (it may drop a record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    hits = [e for e in prof.key_averages() if kernel_name in e.key]
+    n = sum(e.count for e in hits)
+    check(n > reps // 2, "the profiler saw %d of %d launches of %s"
+          % (n, reps, kernel_name))
+    return sum(e.self_device_time_total for e in hits) / n / 1e3
+
+
+def diag_chain_plan(kernel, name, shape, bigram, run, embeds):
+    """K6 / K7's launch plan at this shape, each chain's longest step
+    count, the kernel's device time (profiler) over ``run()`` and that
+    time a dependent step of the longest chain."""
+    from segmentalist_torch.ops import cuda_diag_chain as cdc
+
+    plan = cdc.card_plan(shape["D"], shape["K"], shape["N_max"], bigram)
+    out = {"form": plan.form, "steps_max": int(chain_steps(embeds).max()),
+           "device_ms": device_ms(run, "diag_chain_kernel")}
+    out["us_per_step"] = out["device_ms"] * 1e3 / out["steps_max"]
+    log("%s %s: plan %s, longest chain %d steps, device %.4f ms (%.2f us a "
+        "step)" % (kernel, name, plan, out["steps_max"], out["device_ms"],
+                   out["us_per_step"]))
+    return out
+
+
 def compare_diag_chain(shape, name):
     """K6 in sample and argmax mode."""
     from segmentalist_torch.ops import cuda_diag_chain as cdc
@@ -501,6 +545,8 @@ def compare_diag_chain(shape, name):
         out["max_abs_err"] = max(out["max_abs_err"], ks_agreement(
             "K6 diag_chain use_argmax=%s" % use_argmax, name, ks_k, ks_p,
             data[0]))
+    out.update(diag_chain_plan("K6 diag_chain", name, shape, False, kernel,
+                               data[0]))
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 2)
     out.update(chain_bound(data, 6 * data[1].shape[-1] + 12))
@@ -545,6 +591,8 @@ def compare_bigram_diag_chain(shape, name):
         "would differ" % (name, int((ks_keep != ks_k).sum())))
     out = {"max_abs_err": ks_agreement("K7 bigram_diag_chain", name, ks_k,
                                        ks_p, data[0])}
+    out.update(diag_chain_plan("K7 bigram_diag_chain", name, shape, True,
+                               kernel, data[0]))
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 2)
     out.update(chain_bound(data, 6 * data[1].shape[-1] + 22,
@@ -1130,9 +1178,22 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
     return {k: launches[k] for k in PATH_KERNELS[name]}
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Drive the PyTorch port on one CUDA card.")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated kernels (e.g. K6,K7): run phases "
+                    "1-3 for these only and print their kernels line, with "
+                    "no result line")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
     import torch
 
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1159,9 +1220,16 @@ def main() -> int:
                "K4": compare_bigram_chain, "K5": compare_diag_score,
                "K6": compare_diag_chain, "K7": compare_bigram_diag_chain,
                "K8": compare_fullcov_score, "K9": compare_fullcov_chain}
+    if args.only:
+        compare = {k: compare[k] for k in args.only.split(",")}
     results = {(k, name): fn(shape, name)
                for name, shape in (("flagship", FLAGSHIP), ("long", LONG))
                for k, fn in compare.items()}
+    if args.only:
+        print(json.dumps({"kernels": {k: {name: r for (k2, name), r
+                                          in results.items() if k2 == k}
+                                      for k in compare}}))
+        return 0
     crafted_fullcov_own_pairs()
 
     toy_reference()
@@ -1221,6 +1289,11 @@ def main() -> int:
             entry.update({pre + k: r[k] for pre, r in (("", fl),
                                                        ("long_", lo))
                           for k in ("f64_rel_err", "expanded32_rel_err")})
+        if "us_per_step" in fl:  # K6 / K7: form, longest chain, per step
+            entry.update({pre + k: r[k] for pre, r in (("", fl),
+                                                       ("long_", lo))
+                          for k in ("form", "steps_max", "us_per_step",
+                                    "device_ms")})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // The bigram-LM mixture weights of the bigram assignment chains: K4
-// (fixedvar_chain.cu) and K7 (diag_chain.cu) compute them with these
-// functions, so the two cannot drift apart.
+// (fixedvar_chain.cu) and K9 (fullcov_chain.cu) through bigram_weight, K7
+// (diag_chain.cu) through its parts (the unigram half hoisted out of the
+// steps), so the chains cannot drift apart.
 //
 //   w[k] = j_prev < 0 ? lms (log(uni[k] + a/K) - log(n_uni + a))
 //          : lms log(lam (uni[k] + a/K) / (n_uni + a)
@@ -18,6 +19,8 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 // Inputs and constants of the bigram-LM weights.  The constants are float32
 // values rounded once on the host, exactly those the plain versions use
@@ -42,6 +45,35 @@ __device__ __forceinline__ void bigram_successors(const int *cj,
     }
 }
 
+// lam (uni[k] + a/K) / (n_uni + a), the unigram half of a weight given
+// j_prev >= 0: the same in every step of a chain, since uni is fixed.
+// uni_den = n_uni + a.
+template <class Div>
+__device__ __forceinline__ float bigram_uni_half(const BigramLM &lm, float u,
+                                                 float uni_den, Div div) {
+    return lm.lam * div(u + lm.a_over_K, uni_den);
+}
+
+// The weight given j_prev >= 0, from the unigram half, rowk =
+// big[j_prev, k] - corr[k] and uni_jb = uni[j_prev] + b.
+template <class Div>
+__device__ __forceinline__ float bigram_pair_weight(const BigramLM &lm,
+                                                    float uni_half,
+                                                    float rowk, float uni_jb,
+                                                    float lms, Div div) {
+    const float p = uni_half + div(lm.one_minus_lam * (rowk + lm.b_over_K),
+                                   uni_jb);
+    return lms * logf(p);
+}
+
+// The weight before the first valid segment (j_prev < 0).
+__device__ __forceinline__ float bigram_first_weight(const BigramLM &lm,
+                                                     float u,
+                                                     float log_uni_den,
+                                                     float lms) {
+    return lms * (logf(u + lm.a_over_K) - log_uni_den);
+}
+
 // The weight of slot k.  u = uni[k]; brow = row j_prev of big (unused when
 // j_prev < 0); succ / n_succ from bigram_successors; uni_den = n_uni + a and
 // log_uni_den its log; uni_j = uni[j_prev].
@@ -55,11 +87,9 @@ __device__ __forceinline__ float bigram_weight(const BigramLM &lm, float u,
     if (j_prev >= 0) {
         int corr = 0;
         for (int m = 0; m < n_succ; ++m) corr += succ[m] == k;
-        const float rowk = (float)(brow[k] - corr);
-        const float p = lm.lam * ((u + lm.a_over_K) / uni_den)
-                        + (lm.one_minus_lam * (rowk + lm.b_over_K))
-                              / (uni_j + lm.b);
-        return lms * logf(p);
+        return bigram_pair_weight(
+            lm, bigram_uni_half(lm, u, uni_den, DivIeee()),
+            (float)(brow[k] - corr), uni_j + lm.b, lms, DivIeee());
     }
-    return lms * (logf(u + lm.a_over_K) - log_uni_den);
+    return bigram_first_weight(lm, u, log_uni_den, lms);
 }

@@ -16,12 +16,15 @@ taken as the logs of four stride-4 group products
 term, K7 with the bigram LM of K4 (:func:`cuda_chain.bigram_lm_weights`).
 The plain versions follow the kernels (``csrc/diag_chain.cu``) step for
 step, with the same operation order, so on shared noise they sample the
-same chains.
+same chains.  On the card :func:`launch_plan` picks the kernels' form:
+the tables in one CTA's shared memory where they fit, else in device
+memory.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -201,10 +204,63 @@ def bigram_diag_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
                              weights)
 
 
-def _check_and_scratch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
-                       sum_sqT, k0m0, snp0, K):
-    """Validate the chain inputs; allocate the per-utterance tables
-    (cnt, lpv, gr [B, K]; sx, ssq, mu, var [B, D, K], float32) and ks."""
+class ChainPlan(NamedTuple):
+    """How K6 / K7 launch: one CTA of ``threads`` an utterance, with
+    ``smem`` bytes of dynamic shared memory; ``form`` "smem" keeps the
+    tables and column arrays in shared memory, "global" in device memory."""
+
+    form: str
+    threads: int
+    smem: int
+
+
+N_COL_ARRAYS = 6  # the global form's [B, 6, K] column arrays
+
+
+def smem_bytes(global_tables: bool, bigram: bool, D: int, S: int,
+               K: int) -> int:
+    """Dynamic shared memory of the CTA, as the kernel reserves it
+    (``csrc/diag_chain.cu::smem_words``).  The smem form: per column mu
+    and den [D], cnt, the two hoisted terms, the weight term and the
+    touched slot (K7: and its old-pair range) and a double-buffered noise
+    value.  Both forms: x and the log prior [3, D + 1]; k0 m0, snp0 and
+    the updated column's log variances [3, D]; the valid steps [S]; K7:
+    the old pairs [2, S]."""
+    per_col = 2 * D + (6 if bigram else 5) + 2
+    words = ((0 if global_tables else per_col * K) + 3 * (D + 1) + 3 * D
+             + S + (2 * S if bigram else 0))
+    return 4 * words
+
+
+def launch_plan(D: int, K: int, S: int, bigram: bool,
+                smem_limit: int) -> ChainPlan:
+    """The form of K6 / K7 for D dims, K columns and S segments (pure
+    Python): "smem" where the tables fit the ``smem_limit`` bytes of
+    dynamic shared memory a CTA may take, else "global".  Raises if
+    neither fits."""
+    if S >= 1 << 15:
+        raise ValueError("diag chains take fewer than 32768 segments")
+    threads = min(1024, 32 * max(1, -(-K // 32)))
+    for form in ("smem", "global"):
+        smem = smem_bytes(form == "global", bigram, D, S, K)
+        if smem <= smem_limit:
+            return ChainPlan(form, threads, smem)
+    raise ValueError("no diag chain form fits D=%d, K=%d, S=%d" % (D, K, S))
+
+
+def card_plan(D: int, K: int, S: int, bigram: bool) -> ChainPlan:
+    """:func:`launch_plan` under the current card's limit: its opt-in
+    shared memory a block less the kernel's static shared memory, as the
+    kernel library reads them."""
+    limit = cuda_lib.library().diag_chain_smem_limit()
+    if limit < 0:
+        cuda_lib.check(-limit, "diag_chain_smem_limit")
+    return launch_plan(D, K, S, bigram, limit)
+
+
+def _check(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0,
+           snp0, K):
+    """Validate the chain inputs; returns (B, S, D)."""
     B, S = embeds.shape
     D = Xe.shape[-1]
     dev, f32 = Xe.device, torch.float32
@@ -218,49 +274,69 @@ def _check_and_scratch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
     req(sum_sqT, "sum_sqT", f32, (B, D, K), dev)
     req(k0m0, "k0m0", f32, (D,), dev)
     req(snp0, "snp0", f32, (D,), dev)
-    vec = [torch.empty((B, K), dtype=f32, device=dev) for _ in range(3)]
-    tab = [torch.empty((B, D, K), dtype=f32, device=dev) for _ in range(4)]
+    return B, S, D
+
+
+def _outputs(plan, B, S, D, K, dev):
+    """ks and the kernel's device-memory scratch: the touched-column table
+    [B, S, 2, D] (a slot a step) and, for the global form only, the mu and
+    den tables [B, D, K] and the column arrays [B, 6, K]."""
+    f32 = torch.float32
     ks = torch.empty((B, S), dtype=torch.int32, device=dev)
-    # C order: cnt, sx, ssq, mu, var, lpv, gr, ks
-    return (B, S, D), [vec[0], *tab, vec[1], vec[2], ks]
+    touched = torch.empty((B, S, 2, D), dtype=f32, device=dev)
+    glob = ((torch.empty((B, D, K), dtype=f32, device=dev),
+             torch.empty((B, D, K), dtype=f32, device=dev),
+             torch.empty((B, N_COL_ARRAYS, K), dtype=f32, device=dev))
+            if plan.form == "global" else (None, None, None))
+    return ks, touched, glob
+
+
+def _plan_args(plan):
+    """The form and threads the kernel takes; it sizes its own shared
+    memory."""
+    return int(plan.form == "global"), plan.threads
 
 
 def _launch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0,
             snp0, k0, v0, temp, alpha, K, lms, use_argmax):
     global launches
-    (B, S, D), scratch = _check_and_scratch(
-        embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0,
-        snp0, K)
+    B, S, D = _check(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
+                     sum_sqT, k0m0, snp0, K)
+    plan = card_plan(D, K, S, False)
+    ks, touched, glob = _outputs(plan, B, S, D, K, Xe.device)
     p = cuda_lib.ptr
     err = cuda_lib.library().diag_chain_launch(
         p(embeds), p(Xe), p(log_prior_e), p(gumbel), p(counts), p(sum_xT),
-        p(sum_sqT), p(k0m0), p(snp0), k0, v0, *(p(t) for t in scratch),
-        B, S, D, K, alpha / K, lms, temp, _HALF_LOG_PI, int(use_argmax),
+        p(sum_sqT), p(k0m0), p(snp0), k0, v0, p(touched),
+        *(p(t) for t in glob), p(ks), B, S, D, K, *_plan_args(plan),
+        alpha / K, lms, temp, _HALF_LOG_PI, int(use_argmax),
         cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "diag_chain")
     launches += 1
-    return scratch[-1]
+    return ks
 
 
 def _launch_bigram(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT,
                    k0m0, snp0, k0, v0, temp, uni_lo, big_table, corr_j,
                    corr_i, consts, K, lms):
     global bigram_launches
-    (B, S, D), scratch = _check_and_scratch(
-        embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0,
-        snp0, K)
+    B, S, D = _check(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
+                     sum_sqT, k0m0, snp0, K)
     dev = Xe.device
     req = cuda_lib.require
     req(uni_lo, "uni_lo", torch.int32, (B, K), dev)
     req(big_table, "big_table", torch.int32, (K, K), dev)
     req(corr_j, "corr_j", torch.int32, (B, S), dev)
     req(corr_i, "corr_i", torch.int32, (B, S), dev)
+    plan = card_plan(D, K, S, True)
+    ks, touched, glob = _outputs(plan, B, S, D, K, dev)
     p = cuda_lib.ptr
     err = cuda_lib.library().bigram_diag_chain_launch(
         p(embeds), p(Xe), p(log_prior_e), p(gumbel), p(counts), p(sum_xT),
         p(sum_sqT), p(k0m0), p(snp0), k0, v0, p(uni_lo), p(big_table),
-        p(corr_j), p(corr_i), *(p(t) for t in scratch), B, S, D, K, *consts,
-        lms, temp, _HALF_LOG_PI, cuda_lib.stream_of(Xe))
+        p(corr_j), p(corr_i), p(touched), *(p(t) for t in glob), p(ks), B,
+        S, D, K, *_plan_args(plan), *consts, lms, temp, _HALF_LOG_PI,
+        cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "bigram_diag_chain")
     bigram_launches += 1
-    return scratch[-1]
+    return ks

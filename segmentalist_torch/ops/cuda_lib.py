@@ -58,16 +58,20 @@ _SIGNATURES = {
     # c0, stream
     "bigram_fixedvar_chain_launch": [_P] * 19 + [_I] * 4 + [_F] * 9 + [_P],
     # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0, snp0,
-    # k0, v0, cnt_s, sx_s, ssq_s, mu_s, var_s, lpv_s, gr_s, ks, B, S, D, K,
+    # k0, v0, touched, mu_g, den_g, col_g, ks, B, S, D, K, global, threads,
     # alpha_over_K, lms, temp, half_log_pi, use_argmax, stream
-    "diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 8 + [_I] * 4
+    "diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 5 + [_I] * 6
                          + [_F] * 4 + [_I, _P],
     # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0, snp0,
-    # k0, v0, uni, big, corr_j, corr_i, cnt_s, sx_s, ssq_s, mu_s, var_s,
-    # lpv_s, gr_s, ks, B, S, D, K, a_over_K, a, b_over_K, b, lam,
+    # k0, v0, uni, big, corr_j, corr_i, touched, mu_g, den_g, col_g, ks, B,
+    # S, D, K, global, threads, a_over_K, a, b_over_K, b, lam,
     # one_minus_lam, lms, temp, half_log_pi, stream
-    "bigram_diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 12 + [_I] * 4
+    "bigram_diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 9 + [_I] * 6
                                 + [_F] * 9 + [_P],
+    # global, bigram, D, S, K -> bytes
+    "diag_chain_smem_bytes": [_I] * 5,
+    # -> bytes (or minus a CUDA error code)
+    "diag_chain_smem_limit": [],
     # Xc, prior_c, g_{LT, LmuT, ck, vinv, vh}, t_{L, Lmu, ck, vinv, vh},
     # tslot, w, counts, valid_m, out, B, M, D, K, S, stream
     "fullcov_scores_launch": [_P] * 17 + [_I] * 5 + [_P],
@@ -83,6 +87,9 @@ _SIGNATURES = {
     "bigram_fullcov_chain_launch": [_P] * 13 + [_F] * 4 + [_P] * 11
                                    + [_I] * 7 + [_F] * 8 + [_P],
 }
+
+# entry points that return something other than a CUDA error code
+_RESTYPES = {"diag_chain_smem_bytes": ctypes.c_longlong}
 
 build_seconds = None  # wall time of the last nvcc build in this process
 
@@ -124,7 +131,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

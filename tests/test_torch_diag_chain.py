@@ -223,3 +223,44 @@ def test_k7_first_segment_uses_unigram_weights():
     c["big"] = np.full_like(c["big"], -7)  # would give NaN weights if read
     npt.assert_array_equal(_port_k7(c, K, 0.9, 0.2, 1.0), want)
     npt.assert_array_equal(want, _jax_k7(c, K, 0.9, 0.2, 1.0))
+
+
+# The H100's opt-in shared memory a block less the kernel's static arrays.
+H100_SMEM_LIMIT = 232_448 - 1_024
+
+
+@pytest.mark.parametrize("D,K,S,form,bytes_k6,bytes_k7", [
+    # the flagship: 1024 threads, one column each; per column
+    # 2 D + 7 (K7: 8) words, plus x and prior 3 (D + 1), prior terms and
+    # log variances 3 D, steps S (K7: and the old pairs 2 S)
+    (13, 1000, 20, "smem", 132_404, 136_564),
+    (37, 200, 20, "smem", 65_780, 66_740),
+    (130, 1000, 120, "global", 3_612, 4_572),  # 1 MB of tables: no column
+    (13, 5000, 20, "global", 404, 564),
+])
+@pytest.mark.parametrize("bigram", [False, True])
+def test_launch_plan_picks_a_form_that_fits(D, K, S, form, bytes_k6,
+                                            bytes_k7, bigram):
+    plan = cuda_diag_chain.launch_plan(D, K, S, bigram, H100_SMEM_LIMIT)
+    assert plan.form == form
+    assert plan.smem == (bytes_k7 if bigram else bytes_k6)
+    assert plan.smem <= H100_SMEM_LIMIT
+    assert plan.threads == min(1024, -(-K // 32) * 32)
+
+
+@pytest.mark.parametrize("bigram", [False, True])
+def test_launch_plan_follows_the_smem_limit(bigram):
+    """The smem form exactly when its bytes fit the card's limit."""
+    D, K, S = 13, 1000, 20
+    need = cuda_diag_chain.smem_bytes(False, bigram, D, S, K)
+    assert cuda_diag_chain.launch_plan(D, K, S, bigram, need).form == "smem"
+    assert cuda_diag_chain.launch_plan(D, K, S, bigram,
+                                       need - 4).form == "global"
+
+
+def test_launch_plan_raises_where_no_form_fits():
+    with pytest.raises(ValueError):  # not even the global form's arrays
+        cuda_diag_chain.launch_plan(130, 1000, 20, False, 1_024)
+    with pytest.raises(ValueError):
+        cuda_diag_chain.launch_plan(13, 1000, 1 << 15, False,
+                                    H100_SMEM_LIMIT)

@@ -14,13 +14,14 @@ check that does not hold:
 3. each kernel (K1-K9, both compositions of K5, both modes of K9) against
    its plain PyTorch version on the card, in float32, at the flagship
    shapes (B=125, N_max=20, W=6, K=1000, D=13) and a long/wide case
-   (N_max=120, D=130), with CUDA-event timings and each kernel's bound
-   (the larger of its bytes over the memory rate and its flops over the
-   float32 peak, counted from the inputs); K8 and the reference's
-   expanded Mahalanobis form in float32 against float64; K9's bigram
-   mode on a crafted case where the own-pair correction decides draws;
-   K6 / K7's launch plan (form, threads, shared bytes), longest chain,
-   device time (profiler) and device time a dependent step;
+   (N_max=120, D=130), with CUDA-event timings, device time (profiler)
+   and each kernel's bound (the larger of its bytes over the memory rate
+   and its flops over the float32 peak, counted from the inputs; K9 also
+   its streamed-table bound); K8 and the reference's expanded Mahalanobis
+   form in float32 against float64; K9's bigram mode on a crafted case
+   where the own-pair correction decides draws; the launch plans of K6 /
+   K7, K8 and K9, and K6 / K7's longest chain and device time a
+   dependent step;
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
@@ -40,7 +41,7 @@ The second-to-last line is a JSON summary of the kernels, the last line
 To time some kernels alone (phases 1-3 of the named kernels, with their
 kernels line and no result line):
 
-    python3 chip_smoke.py --only K6,K7
+    python3 chip_smoke.py --only K8,K9
 """
 
 from __future__ import annotations
@@ -289,11 +290,13 @@ def compare_score(shape, name):
     ms = cuda_ms(lambda: cuda_score.fixedvar_scores(*args), 50)
     plain_ms = cuda_ms(lambda: cuda_score.fixedvar_scores_plain(*args), 20)
     out = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+               device_ms=device_ms(lambda: cuda_score.fixedvar_scores(*args),
+                                   "fixedvar_scores_kernel"),
                **score_bound(args, 4 * Xc.shape[-1] + 5))
-    log("K1 fixedvar_scores %s: max|d|=%.3g max rel=%.3g  kernel %.4f ms  "
-        "plain %.4f ms  bound %.4f ms (%s)" % (
-            name, max_abs, rel, ms, plain_ms, out["bound_ms"],
-            out["bound_by"]))
+    log("K1 fixedvar_scores %s: max|d|=%.3g max rel=%.3g  kernel %.4f ms "
+        "(device %s)  plain %.4f ms  bound %.4f ms (%s)" % (
+            name, max_abs, rel, ms, out["device_ms"], plain_ms,
+            out["bound_ms"], out["bound_by"]))
     return out
 
 
@@ -328,14 +331,18 @@ def compare_dp(shape, name):
                                  err.max().item())
     out["ms"] = cuda_ms(lambda: cuda_dp.forward_alphas(rev, lengths, lpc),
                         50)
+    out["device_ms"] = device_ms(
+        lambda: cuda_dp.forward_alphas(rev, lengths, lpc),
+        "forward_alphas_kernel")
     out["plain_ms"] = cuda_ms(
         lambda: cuda_dp.forward_alphas_plain(rev, lengths, lpc), 10)
     B, N, W = rev.shape
     out.update(bound(nbytes(rev, lengths) + B * (N + W) * 4,
                      int(lengths.sum()) * (4 * W + 2)))
-    log("K2 forward_alphas %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms "
-        "(%s)" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
-                  out["bound_by"]))
+    log("K2 forward_alphas %s: kernel %.4f ms (device %s)  plain %.4f ms  "
+        "bound %.4f ms (%s)" % (name, out["ms"], out["device_ms"],
+                                out["plain_ms"], out["bound_ms"],
+                                out["bound_by"]))
     return out
 
 
@@ -368,11 +375,13 @@ def compare_chain(shape, name):
             "K3 fixedvar_chain use_argmax=%s" % use_argmax, name, ks_k, ks_p,
             embeds))
     out["ms"] = cuda_ms(kernel, 20)
+    out["device_ms"] = device_ms(kernel, "::chain_kernel<")
     out["plain_ms"] = cuda_ms(plain, 3)
     out.update(chain_bound(data, 4 * Xe.shape[-1] + 8))
-    log("K3 fixedvar_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms "
-        "(%s)" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
-                  out["bound_by"]))
+    log("K3 fixedvar_chain %s: kernel %.4f ms (device %s)  plain %.4f ms  "
+        "bound %.4f ms (%s)" % (name, out["ms"], out["device_ms"],
+                                out["plain_ms"], out["bound_ms"],
+                                out["bound_by"]))
     return out
 
 
@@ -441,11 +450,13 @@ def compare_bigram_chain(shape, name):
     out = {"max_abs_err": ks_agreement("K4 bigram_fixedvar_chain", name,
                                        ks_k, ks_p, data[0])}
     out["ms"] = cuda_ms(kernel, 20)
+    out["device_ms"] = device_ms(kernel, "::chain_kernel<")
     out["plain_ms"] = cuda_ms(plain, 3)
     out.update(chain_bound(data, 4 * data[1].shape[-1] + 18, lm))
-    log("K4 bigram_fixedvar_chain %s: kernel %.4f ms  plain %.4f ms  bound "
-        "%.4f ms (%s)" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
-                          out["bound_by"]))
+    log("K4 bigram_fixedvar_chain %s: kernel %.4f ms (device %s)  plain "
+        "%.4f ms  bound %.4f ms (%s)" % (name, out["ms"], out["device_ms"],
+                                         out["plain_ms"], out["bound_ms"],
+                                         out["bound_by"]))
     return out
 
 
@@ -473,10 +484,14 @@ def compare_diag_score(shape, name):
             lambda: cuda_score.diag_scores(*args, exact=exact), 50)
         out[pre + "plain_ms"] = cuda_ms(
             lambda: cuda_score.diag_scores_plain(*args, exact=exact), 5)
+        out[pre + "device_ms"] = device_ms(
+            lambda: cuda_score.diag_scores(*args, exact=exact),
+            "diag_scores_kernel")
         out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
-        log("%s: max|d|=%.3g max rel=%.3g  kernel %.4f ms  plain %.4f ms"
-            % (label, err.max().item(), rel, out[pre + "ms"],
-               out[pre + "plain_ms"]))
+        log("%s: max|d|=%.3g max rel=%.3g  kernel %.4f ms (device %s)  "
+            "plain %.4f ms" % (label, err.max().item(), rel, out[pre + "ms"],
+                               out[pre + "device_ms"],
+                               out[pre + "plain_ms"]))
     D = args[0].shape[-1]
     out.update(score_bound(args, 5 * D + (D + 3) // 4 + 4))
     log("K5 diag_scores %s: bound %.4f ms (%s)"
@@ -489,20 +504,25 @@ def device_ms(fn, kernel_name, reps=10):
     ``kernel_name``, from ``torch.profiler`` (CUPTI) over ``reps`` calls:
     the kernel alone, without the host's launch cost that `cuda_ms` sees
     when the card waits for the host.  The mean is over the launches the
-    profiler recorded (it may drop a record)."""
+    profiler recorded (it may drop a record, or a whole window's: then up
+    to two more windows are taken, and None comes back if all three lack
+    the kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    hits = [e for e in prof.key_averages() if kernel_name in e.key]
-    n = sum(e.count for e in hits)
-    check(n > reps // 2, "the profiler saw %d of %d launches of %s"
-          % (n, reps, kernel_name))
-    return sum(e.self_device_time_total for e in hits) / n / 1e3
+    for _ in range(3):  # a window can come back without kernel records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        hits = [e for e in prof.key_averages() if kernel_name in e.key]
+        n = sum(e.count for e in hits)
+        if n > reps // 2:
+            return sum(e.self_device_time_total for e in hits) / n / 1e3
+        log("the profiler saw %d of %d launches of %s" % (n, reps,
+                                                         kernel_name))
+    return None
 
 
 def diag_chain_plan(kernel, name, shape, bigram, run, embeds):
@@ -514,8 +534,9 @@ def diag_chain_plan(kernel, name, shape, bigram, run, embeds):
     plan = cdc.card_plan(shape["D"], shape["K"], shape["N_max"], bigram)
     out = {"form": plan.form, "steps_max": int(chain_steps(embeds).max()),
            "device_ms": device_ms(run, "diag_chain_kernel")}
-    out["us_per_step"] = out["device_ms"] * 1e3 / out["steps_max"]
-    log("%s %s: plan %s, longest chain %d steps, device %.4f ms (%.2f us a "
+    out["us_per_step"] = (None if out["device_ms"] is None else
+                          out["device_ms"] * 1e3 / out["steps_max"])
+    log("%s %s: plan %s, longest chain %d steps, device %s ms (%s us a "
         "step)" % (kernel, name, plan, out["steps_max"], out["device_ms"],
                    out["us_per_step"]))
     return out
@@ -726,15 +747,21 @@ def compare_fullcov_score(shape, name):
     log("K8 %s against float64: kernel (whitened form, float32) max rel "
         "%.3g; float32 expanded form %.3g" % (
             name, out["f64_rel_err"], out["expanded32_rel_err"]))
-    out["ms"] = cuda_ms(lambda: cfs.fullcov_log_margs(
-        *args[:-1], valid_m=args[-1]), 20)
+    def kernel():
+        return cfs.fullcov_log_margs(*args[:-1], valid_m=args[-1])
+
+    out["ms"] = cuda_ms(kernel, 20)
+    out["device_ms"] = device_ms(kernel, "fullcov_scores_kernel")
     out["plain_ms"] = cuda_ms(lambda: cfs.fullcov_scores_plain(
         *args[:-1], valid_m=args[-1]), 3)
     out.update(fullcov_score_bound(args))
-    log("K8 fullcov_scores %s: max|d|=%.3g max rel=%.3g  kernel %.4f ms  "
-        "plain %.4f ms  bound %.4f ms (%s)" % (
-            name, max_abs, rel, out["ms"], out["plain_ms"], out["bound_ms"],
-            out["bound_by"]))
+    Xc = args[0]
+    plan = cfs.card_plan(Xc.shape[-1], args[4].shape[-1], Xc.shape[1])
+    out["plan"] = "%d rows x %d tiles" % (plan.rows, plan.tiles)
+    log("K8 fullcov_scores %s: plan %s, max|d|=%.3g max rel=%.3g  kernel "
+        "%.4f ms (device %s)  plain %.4f ms  bound %.4f ms (%s)" % (
+            name, plan, max_abs, rel, out["ms"], out["device_ms"],
+            out["plain_ms"], out["bound_ms"], out["bound_by"]))
     return out
 
 
@@ -785,12 +812,23 @@ def compare_fullcov_chain(shape, name):
         "K9 bigram_fullcov_chain", name, ks_k, ks_p, embeds))
     out["ms"] = cuda_ms(kernel, 20)
     out["bigram_ms"] = cuda_ms(kernel_bigram, 20)
+    out["device_ms"] = device_ms(kernel, "fullcov_chain_kernel")
+    out["bigram_device_ms"] = device_ms(kernel_bigram, "fullcov_chain_kernel")
     out["plain_ms"] = cuda_ms(plain, 2)
     out.update(fullcov_chain_bound(data, kernel(), K))
-    log("K9 fullcov_chain %s: kernel %.4f ms (bigram %.4f)  plain %.4f ms  "
-        "bound %.4f ms (%s)" % (name, out["ms"], out["bigram_ms"],
-                                out["plain_ms"], out["bound_ms"],
-                                out["bound_by"]))
+    out["bigram_slot_steps"] = fullcov_chain_bound(
+        data, kernel_bigram(), K)["slot_steps"]
+    plan = cfc.card_plan(shape["D"], K, shape["N_max"], data[9].shape[1],
+                         False)
+    out["plan"] = "%s, %d threads, %d ring buffers" % (
+        plan.form, plan.threads, plan.ring)
+    log("K9 fullcov_chain %s: plan %s; kernel %.4f ms (bigram %.4f), device "
+        "%s ms (bigram %s)  plain %.4f ms  bound %.4f ms (%s), streamed "
+        "tables %.4f ms (%d slot steps; bigram %d)" % (
+            name, plan, out["ms"], out["bigram_ms"], out["device_ms"],
+            out["bigram_device_ms"], out["plain_ms"], out["bound_ms"],
+            out["bound_by"], out["stream_bound_ms"], out["slot_steps"],
+            out["bigram_slot_steps"]))
     return out
 
 
@@ -931,7 +969,8 @@ def fullcov_chain_bound(data, ks, K):
     claimed slots' tables, the per-utterance inputs once, ks once; per step
     each live slot's 2 D^2 + 3 D + 30 flops, 8 flops a component, and the
     rank-1 update's 4 D^2 + 6 D (live slots counted from this run's
-    draws)."""
+    draws).  Also the streamed-table bound: the live slots' tables read
+    once a step (slot_steps D^2 4 bytes) at the memory rate."""
     embeds, Xe, lpe, gumbel, base, counts, tm, tiP, tld, tk = data[:10]
     B, S, D = Xe.shape
     n = chain_steps(embeds)
@@ -951,7 +990,10 @@ def fullcov_chain_bound(data, ks, K):
     n_bytes = (2 * steps * K * 4 + nbytes(embeds, Xe, lpe, counts, tm, tiP,
                                           tld, tk, ks)
                + claimed * (D * D + D + 1) * 4)
-    return bound(n_bytes, n_ops)
+    # a one-block-an-utterance chain whose tables do not fit on chip reads
+    # every live slot's D x D table each step
+    return dict(bound(n_bytes, n_ops), slot_steps=slot_steps,
+                stream_bound_ms=slot_steps * D * D * 4 / PEAK_BYTES * 1e3)
 
 
 # ------------------------------------------------------------- phase 4
@@ -1274,17 +1316,25 @@ def main(argv=None) -> int:
             "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
             # no single PyTorch call computes any of these functions
             "library_ms": None,
+            "device_ms": fl["device_ms"],
             "long_ms": lo["ms"], "long_plain_ms": lo["plain_ms"],
             "long_bound_ms": lo["bound_ms"],
+            "long_device_ms": lo["device_ms"],
         }
         if "exact_ms" in fl:  # K5's exact composition (diag Viterbi)
             entry.update(exact_ms=fl["exact_ms"],
                          exact_plain_ms=fl["exact_plain_ms"],
+                         exact_device_ms=fl["exact_device_ms"],
                          exact_long_ms=lo["exact_ms"],
-                         exact_long_plain_ms=lo["exact_plain_ms"])
-        if "bigram_ms" in fl:  # K9's bigram mode
-            entry.update(bigram_ms=fl["bigram_ms"],
-                         bigram_long_ms=lo["bigram_ms"])
+                         exact_long_plain_ms=lo["exact_plain_ms"],
+                         exact_long_device_ms=lo["exact_device_ms"])
+        if "bigram_ms" in fl:  # K9's bigram mode and streamed-table bound
+            entry.update({pre + k: r[k] for pre, r in (("", fl),
+                                                       ("long_", lo))
+                          for k in ("bigram_ms", "bigram_device_ms",
+                                    "stream_bound_ms", "slot_steps")})
+        if "plan" in fl:  # K8 / K9: the launch plan at each shape
+            entry.update(plan=fl["plan"], long_plan=lo["plan"])
         if "f64_rel_err" in fl:  # K8 and the expanded form vs float64
             entry.update({pre + k: r[k] for pre, r in (("", fl),
                                                        ("long_", lo))
@@ -1292,8 +1342,7 @@ def main(argv=None) -> int:
         if "us_per_step" in fl:  # K6 / K7: form, longest chain, per step
             entry.update({pre + k: r[k] for pre, r in (("", fl),
                                                        ("long_", lo))
-                          for k in ("form", "steps_max", "us_per_step",
-                                    "device_ms")})
+                          for k in ("form", "steps_max", "us_per_step")})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

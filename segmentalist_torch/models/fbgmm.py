@@ -81,7 +81,7 @@ class FBGMM:
     """
 
     def __init__(self, X, prior: Prior, alpha, K, assignments,
-                 covariance_type="fixed", lms=1.0, device="cuda"):
+                 covariance_type="full", lms=1.0, device="cuda"):
         self.cov = cov_module(covariance_type)
         self.covariance_type = covariance_type
         self.full_cov = covariance_type == "full"

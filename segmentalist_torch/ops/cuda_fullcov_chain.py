@@ -38,6 +38,7 @@ ascending order -- so on shared noise they sample the same chains.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -48,8 +49,6 @@ from .special import lgamma_ratio
 from .stats import canonicalize_new_component
 
 _LOG_PI = math.log(math.pi)
-_WARPS = 8                 # warps of a K9 block (csrc/fullcov_chain.cu)
-_SMEM_TABLES = 48 * 1024   # slot tables live in shared memory up to this
 
 launches = 0         # K9 launches, Dirichlet weights
 bigram_launches = 0  # K9 launches, bigram-LM weights
@@ -225,19 +224,91 @@ def bigram_fullcov_chain_plain(embeds, Xe, log_prior_e, gumbel, base,
                                 g_ldP, k0, v0, temp, False, weights)
 
 
-def smem_bytes(D: int, S: int, T: int, tables: bool) -> int:
-    """Shared memory of one K9 block: the step's vectors, the per-warp
-    slot buffers, the slot scores and old successors, and (``tables``) the
-    slot tables (m, inv P, logdet P, component)."""
-    fixed = 4 * (3 * D + 2 * _WARPS * D + T + S)
-    return fixed + (4 * T * (D * D + D + 2) if tables else 0)
+class ChainPlan(NamedTuple):
+    """How K9 launches: one block of ``threads`` an utterance, with
+    ``smem`` bytes of dynamic shared memory; ``form`` "smem" keeps the
+    slot tables in shared memory, "stream" keeps them in device memory and
+    streams each live slot's record through a ring of ``ring`` record
+    buffers in shared memory (0 in the smem form)."""
+
+    form: str
+    threads: int
+    ring: int
+    smem: int
+
+
+MAX_RING = 3        # csrc/fullcov_chain.cu kMaxRing
+MAX_THREADS = 512   # csrc/fullcov_chain.cu kMaxThreads
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def rec_words(D: int) -> int:
+    """Words of a streamed slot record: m, then inv P (transposed), each
+    padded to a multiple of 4 (bulk copies move multiples of 16 bytes)."""
+    return _round4(D) + _round4(D * D)
+
+
+def smem_bytes(form: str, bigram: bool, D: int, S: int, T0: int, K: int,
+               ring: int = 0) -> int:
+    """Dynamic shared memory of the block, as the kernel reserves it
+    (``csrc/fullcov_chain.cu::smem_words``).  Smem form: inv P [T, D, D],
+    m and U [T, D]; stream form: the ring [ring, rec_words] and U delta
+    [2, D].  Both: a claim's u [D]; cnt, w, slot_of (bigram: the pair
+    range) [K]; noise and base double buffers [4, K]; ten slot arrays and
+    lists [T]; x and the log prior [3, D + 1]; the valid steps [S]; bigram:
+    the old pairs [2, S]."""
+    T = T0 + S
+    tables = (ring * rec_words(D) + 2 * D if form == "stream"
+              else T * (D * D + 2 * D))
+    words = (tables + D + (4 if bigram else 3) * K + 4 * K + 10 * T
+             + 3 * (D + 1) + S + (2 * S if bigram else 0))
+    return 4 * words
+
+
+def _threads(n: int) -> int:
+    return min(MAX_THREADS, 32 * max(2, -(-n // 32)))
+
+
+def launch_plan(D: int, K: int, S: int, T0: int, bigram: bool,
+                smem_limit: int) -> ChainPlan:
+    """The form of K9 for D dims, K components, S segments and T0 input
+    slots (pure Python): "smem" where every table fits the ``smem_limit``
+    bytes of dynamic shared memory a block may take, else "stream" with as
+    many record buffers (2 or 3) as fit.  Raises if neither fits."""
+    if S >= 1 << 15:
+        raise ValueError("fullcov chains take fewer than 32768 segments")
+    smem = smem_bytes("smem", bigram, D, S, T0, K)
+    if smem <= smem_limit:
+        return ChainPlan("smem", _threads(max(K, (T0 + S) * D)), 0, smem)
+    consumers = 32 * -(-D // 32)
+    if consumers + 32 <= MAX_THREADS:
+        for ring in range(MAX_RING, 1, -1):
+            smem = smem_bytes("stream", bigram, D, S, T0, K, ring)
+            if smem <= smem_limit:
+                return ChainPlan("stream", _threads(max(K, consumers + 32)),
+                                 ring, smem)
+    raise ValueError("no fullcov chain form fits D=%d, K=%d, S=%d, T0=%d"
+                     % (D, K, S, T0))
+
+
+def card_plan(D: int, K: int, S: int, T0: int, bigram: bool) -> ChainPlan:
+    """:func:`launch_plan` under the current card's limit: its opt-in
+    shared memory a block less the kernel's static shared memory, as the
+    kernel library reads them."""
+    limit = cuda_lib.library().fullcov_chain_smem_limit()
+    if limit < 0:
+        cuda_lib.check(-limit, "fullcov_chain_smem_limit")
+    return launch_plan(D, K, S, T0, bigram, limit)
 
 
 def _check_and_scratch(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0,
-                       t_invP0, t_ldP0, tk0, g_m, g_invP, g_ldP, K):
-    """Validate the chain inputs; allocate the per-utterance scratch (cnt
-    [B, K] float32, slot_of [B, K] int32, and the slot tables in device
-    memory when they do not fit in shared memory) and ks."""
+                       t_invP0, t_ldP0, tk0, g_m, g_invP, g_ldP, K, bigram):
+    """Validate the chain inputs; pick the plan; allocate the stream
+    form's slot records [B, T, rec_words] and U [B, T, D] in device memory
+    (empty in the smem form) and ks."""
     B, S = embeds.shape
     D = Xe.shape[-1]
     T0 = tk0.shape[1]
@@ -257,20 +328,14 @@ def _check_and_scratch(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0,
     req(g_m, "g_m", f32, (K, D), dev)
     req(g_invP, "g_invP", f32, (K, D, D), dev)
     req(g_ldP, "g_ldP", f32, (K,), dev)
-    in_smem = smem_bytes(D, S, T, True) <= _SMEM_TABLES
-    if smem_bytes(D, S, T, in_smem) > _SMEM_TABLES:
-        raise ValueError("fullcov_chain kernel: D = %d, T = %d need more "
-                         "than %d B of shared memory" % (D, T, _SMEM_TABLES))
-    n = 0 if in_smem else B * T
-    scratch = [torch.empty((B, K), dtype=f32, device=dev),
-               torch.empty((B, K), dtype=i32, device=dev),
+    plan = card_plan(D, K, S, T0, bigram)
+    n = B * T if plan.form == "stream" else 0
+    scratch = [torch.empty((n, rec_words(D)), dtype=f32, device=dev),
                torch.empty((n, D), dtype=f32, device=dev),
-               torch.empty((n, D * D), dtype=f32, device=dev),
-               torch.empty((n,), dtype=f32, device=dev),
-               torch.empty((n,), dtype=i32, device=dev),
                torch.empty((B, S), dtype=i32, device=dev)]
-    # C order: cnt, slot_of, tm, tiP, tld, tk, ks
-    return (B, S, D, T0, smem_bytes(D, S, T, in_smem), int(in_smem)), scratch
+    # C order: recs, Ug, ks, then B, S, D, K, T0, form, threads, ring
+    return (B, S, D, K, T0, int(plan.form == "stream"), plan.threads,
+            plan.ring), scratch
 
 
 def _launch(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0,
@@ -279,12 +344,12 @@ def _launch(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0,
     global launches
     tables = (embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0,
               t_ldP0, tk0, g_m, g_invP, g_ldP)
-    (B, S, D, T0, smem, in_smem), scratch = _check_and_scratch(*tables, K)
+    dims, scratch = _check_and_scratch(*tables, K, False)
     p = cuda_lib.ptr
     err = cuda_lib.library().fullcov_chain_launch(
-        *(p(a) for a in tables), k0, v0, 0.5 * D, _LOG_PI,
-        *(p(a) for a in scratch), B, S, D, K, T0, in_smem, smem, alpha / K,
-        lms, temp, int(use_argmax), cuda_lib.stream_of(Xe))
+        *(p(a) for a in tables), k0, v0, 0.5 * dims[2], _LOG_PI,
+        *(p(a) for a in scratch), *dims, alpha / K, lms, temp,
+        int(use_argmax), cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "fullcov_chain")
     launches += 1
     return scratch[-1]
@@ -296,7 +361,8 @@ def _launch_bigram(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0,
     global bigram_launches
     tables = (embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0,
               t_ldP0, tk0, g_m, g_invP, g_ldP)
-    (B, S, D, T0, smem, in_smem), scratch = _check_and_scratch(*tables, K)
+    dims, scratch = _check_and_scratch(*tables, K, True)
+    B, S = dims[:2]
     dev = Xe.device
     req = cuda_lib.require
     req(uni_lo, "uni_lo", torch.int32, (B, K), dev)
@@ -305,9 +371,9 @@ def _launch_bigram(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0,
     req(corr_i, "corr_i", torch.int32, (B, S), dev)
     p = cuda_lib.ptr
     err = cuda_lib.library().bigram_fullcov_chain_launch(
-        *(p(a) for a in tables), k0, v0, 0.5 * D, _LOG_PI, p(uni_lo),
-        p(big_table), p(corr_j), p(corr_i), *(p(a) for a in scratch), B, S,
-        D, K, T0, in_smem, smem, *consts, lms, temp, cuda_lib.stream_of(Xe))
+        *(p(a) for a in tables), k0, v0, 0.5 * dims[2], _LOG_PI, p(uni_lo),
+        p(big_table), p(corr_j), p(corr_i), *(p(a) for a in scratch), *dims,
+        *consts, lms, temp, cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "bigram_fullcov_chain")
     bigram_launches += 1
     return scratch[-1]

@@ -24,14 +24,14 @@ a CUDA tensor the kernel.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import cuda_lib
 from .random import NEG_INF, logsumexp
 from .stats import sym_pack
 
-_CANDS = 16         # candidate rows a block scores (csrc/fullcov_score.cu)
-_SMEM_MAX = 48 * 1024
 _PLAIN_ELEMS = 1 << 28  # elements of the plain version's [.., C, D] slab
 
 launches = 0  # K8 launches since the last reset
@@ -62,6 +62,8 @@ def _maha(Xc, L, Lmu):
     B, M, D = Xc.shape
     pk = sym_pack(D, Xc.device)
     Bt, C, _ = L.shape
+    if C == 0:
+        return Xc.new_zeros((B, M, 0))
     step = max(1, _PLAIN_ELEMS // (B * M * D))
     out = []
     for c0 in range(0, C, step):
@@ -90,9 +92,10 @@ def fullcov_scores_plain(Xc, prior_c, g, t, tslot, wvec, counts,
     c_t = _student_t(_maha(Xc, tL, tLmu), tck[:, None, :], tvh[:, None, :],
                      tvinv[:, None, :])                      # [B, M, S]
     K = tslot.shape[-1]
-    corr = c_t.gather(2, tslot.clamp_min(0).long()[:, None, :].expand(
-        B, M, K))
-    post = torch.where((tslot >= 0)[:, None, :], corr, post)
+    if c_t.shape[-1]:  # S > 0 touched slots
+        corr = c_t.gather(2, tslot.clamp_min(0).long()[:, None, :].expand(
+            B, M, K))
+        post = torch.where((tslot >= 0)[:, None, :], corr, post)
     logits = wvec[:, None, :] + torch.where(
         (counts > 0)[:, None, :], post, prior_c[..., None])
     out = logsumexp(logits, dim=-1)
@@ -102,10 +105,47 @@ def fullcov_scores_plain(Xc, prior_c, g, t, tslot, wvec, counts,
     return out
 
 
-def smem_bytes(D: int, S: int) -> int:
-    """Shared memory of one K8 block: the candidate rows and their
-    touched-slot scores."""
-    return 4 * _CANDS * (D + S)
+class ScorePlan(NamedTuple):
+    """How K8 launches: a grid of ``tiles`` x B blocks of ``rows``
+    candidate rows (8 a warp), with ``smem`` bytes of dynamic shared
+    memory."""
+
+    rows: int
+    tiles: int
+    smem: int
+
+
+ROWS_PER_WARP = 8  # csrc/fullcov_score.cu kRowsPerWarp
+RING_WORDS = 3 * 16 * 128  # the factor ring: stages x lanes x entries
+
+
+def smem_bytes(D: int, K: int, rows: int) -> int:
+    """Dynamic shared memory of a block, as the kernel reserves it
+    (``csrc/fullcov_score.cu::smem_words``): the factor ring, the rows
+    [D, rows], the global and touched column lists [K] each and the warps'
+    partial logsumexps of the empty columns [2, warps]."""
+    return 4 * (RING_WORDS + D * rows + 2 * K + 2 * (rows // ROWS_PER_WARP))
+
+
+def launch_plan(D: int, K: int, M: int, smem_limit: int) -> ScorePlan:
+    """K8's tiling for D dims, K components and M candidate rows an
+    utterance (pure Python): 64 rows a block (8 warps; each staged factor
+    value feeds 64 rows), or 32 if 64 would exceed the ``smem_limit`` bytes
+    of dynamic shared memory.  Raises if neither fits."""
+    for rows in (64, 32):
+        smem = smem_bytes(D, K, rows)
+        if smem <= smem_limit:
+            return ScorePlan(rows, -(-M // rows), smem)
+    raise ValueError("no fullcov scores tile fits D=%d, K=%d" % (D, K))
+
+
+def card_plan(D: int, K: int, M: int) -> ScorePlan:
+    """:func:`launch_plan` under the current card's limit: its opt-in
+    shared memory a block less the kernel's static shared memory."""
+    limit = cuda_lib.library().fullcov_scores_smem_limit()
+    if limit < 0:
+        cuda_lib.check(-limit, "fullcov_scores_smem_limit")
+    return launch_plan(D, K, M, limit)
 
 
 def _launch(Xc, prior_c, g, t, tslot, wvec, counts, valid_m):
@@ -114,9 +154,6 @@ def _launch(Xc, prior_c, g, t, tslot, wvec, counts, valid_m):
     K = tslot.shape[-1]
     S = t[1].shape[1]
     F = D * (D + 1) // 2
-    if smem_bytes(D, S) > _SMEM_MAX:
-        raise ValueError("fullcov_scores kernel: D = %d, S = %d need more "
-                         "than %d B of shared memory" % (D, S, _SMEM_MAX))
     dev, f32 = Xc.device, torch.float32
     req = cuda_lib.require
     req(Xc, "Xc", f32, (B, M, D), dev)
@@ -132,11 +169,12 @@ def _launch(Xc, prior_c, g, t, tslot, wvec, counts, valid_m):
     req(counts, "counts", torch.int32, (B, K), dev)
     if valid_m is not None:
         req(valid_m, "valid_m", torch.int32, (B,), dev)
+    plan = card_plan(D, K, M)
     out = torch.empty((B, M), dtype=f32, device=dev)
     p = cuda_lib.ptr
     err = cuda_lib.library().fullcov_scores_launch(
         p(Xc), p(prior_c), *(p(a) for a in g), *(p(a) for a in t), p(tslot),
-        p(wvec), p(counts), p(valid_m), p(out), B, M, D, K, S,
+        p(wvec), p(counts), p(valid_m), p(out), B, M, D, K, S, plan.rows,
         cuda_lib.stream_of(Xc))
     cuda_lib.check(err, "fullcov_scores")
     launches += 1

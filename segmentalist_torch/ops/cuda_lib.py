@@ -73,23 +73,33 @@ _SIGNATURES = {
     # -> bytes (or minus a CUDA error code)
     "diag_chain_smem_limit": [],
     # Xc, prior_c, g_{LT, LmuT, ck, vinv, vh}, t_{L, Lmu, ck, vinv, vh},
-    # tslot, w, counts, valid_m, out, B, M, D, K, S, stream
-    "fullcov_scores_launch": [_P] * 17 + [_I] * 5 + [_P],
+    # tslot, w, counts, valid_m, out, B, M, D, K, S, rows, stream
+    "fullcov_scores_launch": [_P] * 17 + [_I] * 6 + [_P],
+    # D, K, rows -> bytes
+    "fullcov_scores_smem_bytes": [_I] * 3,
+    # -> bytes (or minus a CUDA error code)
+    "fullcov_scores_smem_limit": [],
     # embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0, t_ldP0,
-    # tk0, g_m, g_invP, g_ldP, k0, v0, half_D, log_pi, cnt_s, slot_s, tm_s,
-    # tiP_s, tld_s, tk_s, ks, B, S, D, K, T0, in_smem, smem, alpha_over_K,
-    # lms, temp, use_argmax, stream
-    "fullcov_chain_launch": [_P] * 13 + [_F] * 4 + [_P] * 7 + [_I] * 7
+    # tk0, g_m, g_invP, g_ldP, k0, v0, half_D, log_pi, recs, Ug, ks, B, S,
+    # D, K, T0, stream_form, threads, ring, alpha_over_K, lms, temp,
+    # use_argmax, stream
+    "fullcov_chain_launch": [_P] * 13 + [_F] * 4 + [_P] * 3 + [_I] * 8
                             + [_F] * 3 + [_I, _P],
-    # the same to tk0 .. log_pi, then uni, big, corr_j, corr_i, the scratch
-    # and ks, B .. smem, a_over_K, a, b_over_K, b, lam, one_minus_lam, lms,
+    # the same to tk0 .. log_pi, then uni, big, corr_j, corr_i, recs, Ug,
+    # ks, B .. ring, a_over_K, a, b_over_K, b, lam, one_minus_lam, lms,
     # temp, stream
-    "bigram_fullcov_chain_launch": [_P] * 13 + [_F] * 4 + [_P] * 11
-                                   + [_I] * 7 + [_F] * 8 + [_P],
+    "bigram_fullcov_chain_launch": [_P] * 13 + [_F] * 4 + [_P] * 7
+                                   + [_I] * 8 + [_F] * 8 + [_P],
+    # stream_form, bigram, D, S, T0, K, ring -> bytes
+    "fullcov_chain_smem_bytes": [_I] * 7,
+    # -> bytes (or minus a CUDA error code)
+    "fullcov_chain_smem_limit": [],
 }
 
 # entry points that return something other than a CUDA error code
-_RESTYPES = {"diag_chain_smem_bytes": ctypes.c_longlong}
+_RESTYPES = {"diag_chain_smem_bytes": ctypes.c_longlong,
+             "fullcov_chain_smem_bytes": ctypes.c_longlong,
+             "fullcov_scores_smem_bytes": ctypes.c_longlong}
 
 build_seconds = None  # wall time of the last nvcc build in this process
 

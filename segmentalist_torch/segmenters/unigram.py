@@ -116,7 +116,8 @@ class UnigramAcousticWordseg(BlockedWordseg):
 
     # ------------------------------------------------------------- sampling
 
-    def gibbs_sample(self, n_iter: int, anneal_schedule=None,
+    def gibbs_sample(self, n_iter: int, am_n_iter: int = 0,
+                     anneal_schedule=None,
                      anneal_start_temp_inv: float = 0.1,
                      anneal_end_temp_inv: float = 1.0,
                      n_anneal_steps: int = -1,
@@ -124,7 +125,14 @@ class UnigramAcousticWordseg(BlockedWordseg):
         """Blocked Gibbs sampling over all utterances (reference
         ``gibbs_sample``, unigram_acoustic_wordseg.py:362-472): every sweep
         visits the utterances in a fresh host permutation, in blocks of
-        ``batch_size``.  Returns the reference's 8-key record dict."""
+        ``batch_size``.  Returns the reference's 8-key record dict.
+        ``am_n_iter`` > 0 (acoustic-model-only sweeps before each sweep)
+        needs FBGMM's sequential Gibbs step, which is not ported yet."""
+        if am_n_iter > 0:
+            raise NotImplementedError(
+                "am_n_iter > 0 needs FBGMM.gibbs_sample "
+                "(segmentalist_tpu/models/fbgmm.py:391), which "
+                "segmentalist_torch does not port yet")
         temps = anneal_temperatures(n_iter, anneal_schedule,
                                     anneal_start_temp_inv,
                                     anneal_end_temp_inv, n_anneal_steps)

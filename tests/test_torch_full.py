@@ -29,6 +29,7 @@ from segmentalist_tpu.segmenters.unigram import (
 
 import segmentalist_torch as pt
 from segmentalist_torch import interop
+from segmentalist_torch.models import cov_module
 from segmentalist_torch.ops import cuda_fullcov_chain, cuda_fullcov_score
 from segmentalist_torch.segmenters.blocked import RECORD_KEYS
 from segmentalist_torch.utils.synth import synthetic_corpus
@@ -250,6 +251,16 @@ def test_default_device_of_the_parts_is_the_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
     assert pt.BigramSmoothLM(0.1, 1.0, 1.0, 4, device="cpu").K == 4
+
+
+def test_fbgmm_defaults_to_the_full_family():
+    """FBGMM's covariance_type defaults to "full", as the reference's does
+    (segmentalist_tpu/models/fbgmm.py:119)."""
+    X = np.random.RandomState(0).randn(5, D)
+    am = pt.FBGMM(X, _prior(pt), 1.0, 4, np.array([0, 1, 0, -1, 2]),
+                  device="cpu")
+    assert am.covariance_type == "full" and am.full_cov
+    assert am.cov is cov_module("full")
 
 
 def test_native_source_is_the_port_own_copy():

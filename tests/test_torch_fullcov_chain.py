@@ -268,3 +268,51 @@ def test_port_pipeline_matches_xla_twin():
             use_argmax=use_argmax)
         npt.assert_array_equal(got.numpy(),
                                _jax_twin(c, 0.9, 1.2, use_argmax))
+
+
+# The H100's opt-in shared memory a block (227 KB) and the default 48 KB.
+LIMIT_227K, LIMIT_48K = 232448, 48 * 1024
+
+
+@pytest.mark.parametrize("bigram", [False, True])
+@pytest.mark.parametrize("D,N_max,limit,form,ring", [
+    (13, 20, LIMIT_227K, "smem", 0),
+    (13, 120, LIMIT_227K, "smem", 0),     # 225 / 230 KB: still on chip
+    (130, 20, LIMIT_227K, "stream", 2),   # a 68 KB record a buffer
+    (130, 120, LIMIT_227K, "stream", 2),
+    (40, 20, LIMIT_227K, "stream", 3),
+    (13, 20, LIMIT_48K, "stream", 3),
+    (13, 120, LIMIT_48K, "stream", 3),
+])
+def test_launch_plan_picks_the_form(D, N_max, limit, form, ring, bigram):
+    """K9's plan at the flagship and long shapes (K 1000, T0 = N_max)
+    under the H100's opt-in limit and the default one: the tables stay on
+    chip where they fit, else the ring takes as many record buffers as fit
+    (at most 3)."""
+    K = 1000
+    c = cuda_fullcov_chain
+    plan = c.launch_plan(D, K, N_max, N_max, bigram, limit)
+    assert (plan.form, plan.ring) == (form, ring)
+    assert plan.smem == c.smem_bytes(form, bigram, D, N_max, N_max, K,
+                                     ring) <= limit
+    assert plan.threads == 512
+    if form == "stream":  # one more buffer would not fit, or is not taken
+        assert ring == c.MAX_RING or c.smem_bytes(
+            form, bigram, D, N_max, N_max, K, ring + 1) > limit
+    else:
+        assert 4 * D * D * 2 * N_max < plan.smem  # the tables
+
+
+def test_launch_plan_raises_where_nothing_fits():
+    with pytest.raises(ValueError, match="no fullcov chain form"):
+        cuda_fullcov_chain.launch_plan(130, 1000, 20, 20, False, LIMIT_48K)
+    with pytest.raises(ValueError, match="32768"):
+        cuda_fullcov_chain.launch_plan(13, 10, 1 << 15, 0, False, LIMIT_227K)
+
+
+def test_stream_records_are_whole_16_byte_units():
+    """A streamed record (m, then inv P, each padded to 4 words) is a
+    multiple of 4 words, as bulk copies need, and holds both."""
+    for D in (3, 13, 40, 130):
+        w = cuda_fullcov_chain.rec_words(D)
+        assert w % 4 == 0 and D * D + D <= w < D * D + D + 8

@@ -143,3 +143,35 @@ def test_float32_plain_stays_close_to_float64():
     f32 += [port[4], port[5].float(), port[6]]
     got = cuda_fullcov_score.fullcov_log_margs(*f32).numpy()
     npt.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("D,M,limit,rows,tiles", [
+    (13, 120, 232448, 64, 2),        # flagship: 64 rows, 2 tiles
+    (13, 100, 232448, 64, 2),        # a ragged last tile
+    (130, 720, 232448, 64, 12),      # long: 64 rows a block
+    (130, 720, 64 * 1024, 32, 23),   # 64 rows would not fit 64 KB
+])
+def test_launch_plan_tiles(D, M, limit, rows, tiles):
+    """K8's row tiles (8 rows a warp) and their shared memory, K 1000."""
+    plan = cuda_fullcov_score.launch_plan(D, 1000, M, limit)
+    assert (plan.rows, plan.tiles) == (rows, tiles)
+    assert plan.rows * plan.tiles >= M > plan.rows * (plan.tiles - 1)
+    assert plan.smem == cuda_fullcov_score.smem_bytes(D, 1000, rows) <= limit
+
+
+def test_plain_takes_no_touched_slots():
+    """With S = 0 touched slot tables (and so no touched column), the plain
+    version scores every column by the global tables."""
+    Xc, prior_c, g, t, tslot, w, lo = _case(7)[0]
+    tslot = torch.full_like(tslot, -1)
+    got = cuda_fullcov_score.fullcov_scores_plain(
+        Xc, prior_c, g, tuple(a[:, :0].contiguous() for a in t), tslot, w,
+        lo)
+    want = cuda_fullcov_score.fullcov_scores_plain(Xc, prior_c, g, t, tslot,
+                                                   w, lo)
+    npt.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_launch_plan_raises_where_no_tile_fits():
+    with pytest.raises(ValueError, match="no fullcov scores tile"):
+        cuda_fullcov_score.launch_plan(130, 10000, 720, 48 * 1024)

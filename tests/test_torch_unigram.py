@@ -169,6 +169,17 @@ def test_annealed_viterbi_sampling_runs():
     npt.assert_allclose(rec["anneal_temp"], 1.0 / np.linspace(0.1, 1.0, 3))
 
 
+def test_gibbs_sample_takes_am_n_iter_second():
+    """The reference's positional order (n_iter, am_n_iter,
+    anneal_schedule, ...): "linear" binds to the schedule; acoustic-model
+    sweeps are not ported and raise."""
+    _, tseg = _pair()
+    rec = tseg.gibbs_sample(1, 0, "linear")
+    npt.assert_allclose(rec["anneal_temp"], [10.0])
+    with pytest.raises(NotImplementedError, match="am_n_iter"):
+        tseg.gibbs_sample(1, 1)
+
+
 def _toy_segmenter():
     """The reference's one-utterance toy corpus
     (``tests/test_unigram_wordseg.py:19-66``)."""

@@ -201,11 +201,10 @@ def diag_leave_out_stats(rng, B, K, D, device):
 
 
 def diag_score_inputs(shape, seed, device):
-    """K5's inputs, with the tables `cuda_score.diag_log_margs_T` forms."""
+    """K5's inputs: `cuda_score.diag_log_margs_T`'s arguments."""
     import torch
     from segmentalist_torch.models import components_diag as cdg
     from segmentalist_torch.models.fbgmm import log_weights
-    from segmentalist_torch.ops import cuda_score
     from segmentalist_torch.utils.profiling import bench_prior
 
     rng = np.random.RandomState(seed)
@@ -223,8 +222,7 @@ def diag_score_inputs(shape, seed, device):
     valid_m = torch.as_tensor(rng.randint(2, N_max + 1, B) * W,
                               dtype=torch.int32, device=device)
     return (Xc, cdg.log_prior_batch(prior, Xc), muT.contiguous(),
-            *cuda_score.diag_score_tables(inv_varT, lpv, v, D), w, counts,
-            valid_m)
+            inv_varT.contiguous(), lpv, v, w, counts, valid_m)
 
 
 def diag_chain_inputs(shape, seed, device):
@@ -268,15 +266,22 @@ def ks_agreement(kernel, name, ks_k, ks_p, embeds):
 
 # ------------------------------------------------------------- phase 3
 
+def score_plan(shape):
+    """K1 / K5's launch plan at this shape, as a string."""
+    from segmentalist_torch.ops import cuda_score
+
+    plan = cuda_score.card_plan(shape["D"], shape["K"],
+                                shape["N_max"] * shape["W"])
+    return "%d rows x %d tiles" % (plan.rows, plan.tiles)
+
+
 def compare_score(shape, name):
     import torch
     from segmentalist_torch.ops import cuda_score
 
-    Xc, prior_c, muT, precT, w, counts, valid_m = score_inputs(shape, 1,
-                                                               DEVICE)
-    args = (Xc, prior_c, muT, precT, torch.log(precT).sum(-2), w, counts,
-            valid_m)
-    got = cuda_score.fixedvar_scores(*args)
+    args = score_inputs(shape, 1, DEVICE)
+    Xc = args[0]
+    got = cuda_score.fixedvar_log_margs_T(*args)
     ref = cuda_score.fixedvar_scores_plain(*args)
     sync()
     fin = torch.isfinite(ref)
@@ -287,15 +292,18 @@ def compare_score(shape, name):
     max_abs = err.max().item()
     check(rel <= SCORE_TOL, "K1 %s: relative error %.3g > %g"
           % (name, rel, SCORE_TOL))
-    ms = cuda_ms(lambda: cuda_score.fixedvar_scores(*args), 50)
+    ms = cuda_ms(lambda: cuda_score.fixedvar_log_margs_T(*args), 50)
     plain_ms = cuda_ms(lambda: cuda_score.fixedvar_scores_plain(*args), 20)
+    D = Xc.shape[-1]
     out = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-               device_ms=device_ms(lambda: cuda_score.fixedvar_scores(*args),
-                                   "fixedvar_scores_kernel"),
-               **score_bound(args, 4 * Xc.shape[-1] + 5))
-    log("K1 fixedvar_scores %s: max|d|=%.3g max rel=%.3g  kernel %.4f ms "
-        "(device %s)  plain %.4f ms  bound %.4f ms (%s)" % (
-            name, max_abs, rel, ms, out["device_ms"], plain_ms,
+               device_ms=device_ms(
+                   lambda: cuda_score.fixedvar_log_margs_T(*args),
+                   "::FixedVar, "),
+               plan=score_plan(shape),
+               **score_bound(args, 4 * D + 5, 1, D))
+    log("K1 fixedvar_scores %s: plan %s, max|d|=%.3g max rel=%.3g  kernel "
+        "%.4f ms (device %s)  plain %.4f ms  bound %.4f ms (%s)" % (
+            name, out["plan"], max_abs, rel, ms, out["device_ms"], plain_ms,
             out["bound_ms"], out["bound_by"]))
     return out
 
@@ -466,10 +474,11 @@ def compare_diag_score(shape, name):
     from segmentalist_torch.ops import cuda_score
 
     args = diag_score_inputs(shape, 5, DEVICE)
-    out = {"max_abs_err": 0.0}
+    D = args[0].shape[-1]
+    out = {"max_abs_err": 0.0, "plan": score_plan(shape)}
     for exact in (False, True):
         label = "K5 diag_scores %s exact=%s" % (name, exact)
-        got = cuda_score.diag_scores(*args, exact=exact)
+        got = cuda_score.diag_log_margs_T(*args, exact=exact)
         ref = cuda_score.diag_scores_plain(*args, exact=exact)
         sync()
         fin = torch.isfinite(ref)
@@ -481,21 +490,26 @@ def compare_diag_score(shape, name):
               % (label, rel, SCORE_TOL))
         pre = "exact_" if exact else ""
         out[pre + "ms"] = cuda_ms(
-            lambda: cuda_score.diag_scores(*args, exact=exact), 50)
+            lambda: cuda_score.diag_log_margs_T(*args, exact=exact), 50)
         out[pre + "plain_ms"] = cuda_ms(
             lambda: cuda_score.diag_scores_plain(*args, exact=exact), 5)
         out[pre + "device_ms"] = device_ms(
-            lambda: cuda_score.diag_scores(*args, exact=exact),
-            "diag_scores_kernel")
+            lambda: cuda_score.diag_log_margs_T(*args, exact=exact),
+            "::Diag<%s>" % str(exact).lower())
         out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
+        # grouped: a log a closed group of 4; exact: a log1p a dim; both an
+        # exp a term of the logsumexp; a column's cst / vh (2 lgamma, a log)
+        # and its D divisions inv_var / v
+        n_sfu = D + 1 if exact else (D + 3) // 4 + 1
+        n_fp32 = 4 * D + 4 if exact else 5 * D + (D + 3) // 4 + 4
+        b = score_bound(args, n_fp32, n_sfu, D + 3)
+        out.update({pre + k: v for k, v in b.items()})
         log("%s: max|d|=%.3g max rel=%.3g  kernel %.4f ms (device %s)  "
-            "plain %.4f ms" % (label, err.max().item(), rel, out[pre + "ms"],
-                               out[pre + "device_ms"],
-                               out[pre + "plain_ms"]))
-    D = args[0].shape[-1]
-    out.update(score_bound(args, 5 * D + (D + 3) // 4 + 4))
-    log("K5 diag_scores %s: bound %.4f ms (%s)"
-        % (name, out["bound_ms"], out["bound_by"]))
+            "plain %.4f ms  bound %.4f ms (%s)" % (
+                label, err.max().item(), rel, out[pre + "ms"],
+                out[pre + "device_ms"], out[pre + "plain_ms"],
+                b["bound_ms"], b["bound_by"]))
+    log("K5 diag_scores %s: plan %s" % (name, out["plan"]))
     return out
 
 
@@ -894,12 +908,21 @@ def crafted_fullcov_own_pairs():
 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12     # float32 outside the tensor cores, flop/s
+# Special-function results (log, exp, reciprocal: MUFU) a second: 16 a clock
+# an SM (CUDA C++ Programming Guide, "Arithmetic Instructions", throughput
+# table, compute capability 9.0) x 132 SMs x 1.98 GHz, the clock at which
+# 132 SMs x 128 float32 lanes x 2 give PEAK_FP32.  Each log / log1p / exp /
+# lgamma / division counts as one result: a floor, as the library's
+# accurate forms take further float32 operations besides.
+PEAK_SFU = 16 * 132 * 1.98e9
 
 
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 peak."""
-    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+def bound(n_bytes, n_ops, n_sfu=0):
+    """(bound_ms, bound_by): the largest of bytes over the memory rate,
+    float32 operations over the float32 peak and special-function results
+    over their rate (the two kinds of operation run on separate units)."""
+    t_b = n_bytes / PEAK_BYTES
+    t_o = max(n_ops / PEAK_FP32, n_sfu / PEAK_SFU)
     return {"bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
@@ -922,16 +945,21 @@ def chain_steps(embeds):
     return torch.where(embeds >= 0, steps, 0).amax(1)
 
 
-def score_bound(args, per_term):
+def score_bound(args, per_term, sfu_per_term, sfu_per_column):
     """K1 / K5: every input once, the output once; per live row
-    ``per_term`` flops for each active component and 4 for each
-    component's share of the logsumexp."""
+    ``per_term`` float32 operations and ``sfu_per_term`` special-function
+    results for each active component, 4 operations for each component's
+    share of the logsumexp; ``sfu_per_column`` results for each active
+    component of an utterance (its constants: K1's D logs of prec, K5's D
+    divisions and 3 for cst)."""
     Xc, counts, valid_m = args[0], args[-2], args[-1]
     M = Xc.shape[1]
     vm = valid_m.clamp(0, M).float()
-    n_ops = (float(((counts > 0).sum(1).float() * vm).sum()) * per_term
-             + live_rows(valid_m, M) * counts.shape[1] * 4)
-    return bound(nbytes(*args) + Xc.shape[0] * M * 4, n_ops)
+    active = (counts > 0).sum(1).float()
+    pairs = float((active * vm).sum())
+    n_ops = pairs * per_term + live_rows(valid_m, M) * counts.shape[1] * 4
+    n_sfu = pairs * sfu_per_term + float(active.sum()) * sfu_per_column
+    return bound(nbytes(*args) + Xc.shape[0] * M * 4, n_ops, n_sfu)
 
 
 def chain_bound(data, per_k, lm=()):
@@ -1198,13 +1226,15 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
         sweep_ms.append((time.time() - t) / n * 1e3)
     launches = read_launches()
     log_marg = [v for r in records for v in r["log_marg"]]
+    comps = [v for r in records for v in r["components"]]
     f1_end = f1()
     log("%s slice: %d sweeps, ms/sweep per call %s (timed %s, best %.3f), "
         "log_marg first %.6g last %.6g, F1 sweep 0 %.4f -> end %.4f, "
-        "launches %s" % (
+        "active components first %d last %d of %d, launches %s" % (
             name, len(log_marg), [round(v, 3) for v in sweep_ms],
             [round(v, 3) for v in sweep_ms[2:]], min(sweep_ms[2:]),
-            log_marg[0], log_marg[-1], f1_0, f1_end, launches))
+            log_marg[0], log_marg[-1], f1_0, f1_end, comps[0], comps[-1],
+            seg.acoustic_model.K_max, launches))
     check(len(log_marg) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
     check(all(math.isfinite(v) for v in log_marg), "non-finite log_marg")
     for k in PATH_KERNELS[name]:
@@ -1322,18 +1352,15 @@ def main(argv=None) -> int:
             "long_device_ms": lo["device_ms"],
         }
         if "exact_ms" in fl:  # K5's exact composition (diag Viterbi)
-            entry.update(exact_ms=fl["exact_ms"],
-                         exact_plain_ms=fl["exact_plain_ms"],
-                         exact_device_ms=fl["exact_device_ms"],
-                         exact_long_ms=lo["exact_ms"],
-                         exact_long_plain_ms=lo["exact_plain_ms"],
-                         exact_long_device_ms=lo["exact_device_ms"])
+            entry.update({pre + k: r["exact_" + k] for pre, r in (
+                ("exact_", fl), ("exact_long_", lo)) for k in (
+                    "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")})
         if "bigram_ms" in fl:  # K9's bigram mode and streamed-table bound
             entry.update({pre + k: r[k] for pre, r in (("", fl),
                                                        ("long_", lo))
                           for k in ("bigram_ms", "bigram_device_ms",
                                     "stream_bound_ms", "slot_steps")})
-        if "plan" in fl:  # K8 / K9: the launch plan at each shape
+        if "plan" in fl:  # K1, K5, K8, K9: the launch plan at each shape
             entry.update(plan=fl["plan"], long_plan=lo["plan"])
         if "f64_rel_err" in fl:  # K8 and the expanded form vs float64
             entry.update({pre + k: r[k] for pre, r in (("", fl),

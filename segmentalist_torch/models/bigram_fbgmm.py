@@ -13,8 +13,8 @@ from .fbgmm import FBGMM
 
 
 class BigramFBGMM(FBGMM):
-    def __init__(self, X, prior, K, assignments, covariance_type="fixed",
-                 lms=1.0, lm=None, device="cuda"):
+    def __init__(self, X, prior, K, assignments="rand",
+                 covariance_type="fixed", lms=1.0, lm=None, device="cuda"):
         # alpha is unused by the bigram model (weights come from the LM); the
         # value 0 makes accidental use of the Dirichlet path conspicuous.
         super().__init__(X, prior, alpha=0.0, K=K, assignments=assignments,

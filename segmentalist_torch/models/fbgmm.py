@@ -71,7 +71,10 @@ class FBGMM:
     """Finite Bayesian Gaussian mixture model state (reference
     ``fbgmm.py:27-498``): ``alpha`` is the symmetric-Dirichlet
     concentration, ``K`` the number of component slots, ``assignments`` an
-    int vector (-1 = unassigned); ``lms`` scales the mixture weights.
+    int vector (-1 = unassigned), "rand" (a uniform draw from numpy's
+    global state, as the reference) or "each-in-own"; ``lms`` scales the
+    mixture weights.  ``decollide_new`` is kept for the FBGMM's own blocked
+    sampler (reference ``fbgmm.py:578``), which is not ported yet.
 
     The ``[N]`` assignment vector is stored with one trailing sentinel slot
     (``_assign_pad``), so a block can write every row of a padded index
@@ -80,8 +83,9 @@ class FBGMM:
     there is none), the CPU when the caller asks.
     """
 
-    def __init__(self, X, prior: Prior, alpha, K, assignments,
-                 covariance_type="full", lms=1.0, device="cuda"):
+    def __init__(self, X, prior: Prior, alpha, K, assignments="rand",
+                 covariance_type="full", lms=1.0, decollide_new=True,
+                 device="cuda"):
         self.cov = cov_module(covariance_type)
         self.covariance_type = covariance_type
         self.full_cov = covariance_type == "full"
@@ -90,15 +94,20 @@ class FBGMM:
         self.prior = prior.to(device=self.device, dtype=X.dtype)
         self.alpha = float(alpha)
         self.lms = float(lms)
+        self.decollide_new = bool(decollide_new)
         self.setup_components(K, assignments, X)
 
-    def setup_components(self, K, assignments, X=None):
+    def setup_components(self, K, assignments="rand", X=None):
         """Reset the state from an assignment vector (reference
         ``setup_components``, fbgmm.py:93-137)."""
         if X is not None:
             self.X = X
             self.N, self.D = X.shape
         self.K_max = int(K)
+        if isinstance(assignments, str) and assignments == "rand":
+            assignments = np.random.randint(0, self.K_max, self.N)
+        elif isinstance(assignments, str) and assignments == "each-in-own":
+            assignments = np.arange(self.N)
         assignments = _make_consecutive(
             np.asarray(torch.as_tensor(assignments).cpu(), dtype=np.int64))
         if assignments.max(initial=-1) >= self.K_max:

@@ -40,12 +40,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every pointer, and the stream, as c_void_p.
 _SIGNATURES = {
-    # Xc, prior_c, muT, precT, log_prod, w, counts, valid_m, out,
-    # B, M, D, K, c0, stream
-    "fixedvar_scores_launch": [_P] * 9 + [_I] * 4 + [_F, _P],
-    # Xc, prior_c, muT, ivvT, const, vh, w, counts, valid_m, out,
+    # Xc, prior_c, muT, precT, w, counts, valid_m, out, B, M, D, K, c0,
+    # stream
+    "fixedvar_scores_launch": [_P] * 8 + [_I] * 4 + [_F, _P],
+    # Xc, prior_c, muT, inv_varT, log_prod_var, v, w, counts, valid_m, out,
     # B, M, D, K, exact, stream
     "diag_scores_launch": [_P] * 10 + [_I] * 5 + [_P],
+    # K1 / K5 (one template): D, K -> bytes; -> bytes (or minus a CUDA
+    # error code)
+    "diag_family_smem_bytes": [_I] * 2,
+    "diag_family_smem_limit": [],
     # rev, lengths, lpc, out, B, N, W, use_max, stream
     "forward_alphas_launch": [_P] * 4 + [_I] * 4 + [_P],
     # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0, p0m0,
@@ -97,7 +101,8 @@ _SIGNATURES = {
 }
 
 # entry points that return something other than a CUDA error code
-_RESTYPES = {"diag_chain_smem_bytes": ctypes.c_longlong,
+_RESTYPES = {"diag_family_smem_bytes": ctypes.c_longlong,
+             "diag_chain_smem_bytes": ctypes.c_longlong,
              "fullcov_chain_smem_bytes": ctypes.c_longlong,
              "fullcov_scores_smem_bytes": ctypes.c_longlong}
 

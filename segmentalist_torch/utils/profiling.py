@@ -6,10 +6,11 @@ D 13 and 50 true words, ``am_K=1000``, ``batch_size=125``, and the priors of
 ``bench.py:379-411`` and ``benchmarks/all_models.py:124-171``), runs
 warm-up sweeps, times sweeps without the profiler, then profiles sweeps
 with ``torch.profiler`` and prints one JSON line: ms/sweep, device time and
-kernel launches per sweep, the batched ``torch.linalg`` factorisations'
-device time, and the operators and kernels that take the most device time.
+kernel launches per sweep, the active components, the batched
+``torch.linalg`` factorisations' device time, and the operators and kernels
+that take the most device time.
 
-    python -m segmentalist_torch.utils.profiling --cov full [--bigram]
+    python -m segmentalist_torch.utils.profiling --cov {fixed,diag,full} [--bigram]
 
 Needs a CUDA card (the profile is of the card's time).
 """
@@ -72,7 +73,7 @@ def profile_sweeps(seg) -> dict:
     """Warm up, time ``SWEEPS`` sweeps, then profile as many."""
     from torch.profiler import ProfilerActivity, profile
 
-    seg.gibbs_sample(WARMUP)
+    warm = seg.gibbs_sample(WARMUP)
     torch.cuda.synchronize()
     t0 = time.time()
     seg.gibbs_sample(SWEEPS)
@@ -81,7 +82,7 @@ def profile_sweeps(seg) -> dict:
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        seg.gibbs_sample(SWEEPS)
+        last = seg.gibbs_sample(SWEEPS)
         torch.cuda.synchronize()
     ms_prof = (time.time() - t0) / SWEEPS * 1e3
     events = prof.key_averages()
@@ -99,9 +100,17 @@ def profile_sweeps(seg) -> dict:
         "device_ms_per_sweep": per_sweep_ms(
             sum(e.self_device_time_total for e in kernels)),
         "kernels_per_sweep": sum(e.count for e in kernels) / SWEEPS,
+        # active components (the scorers' active columns) of K_max
+        "components": {"after_warmup": warm["components"][-1],
+                       "last": last["components"][-1],
+                       "K_max": seg.acoustic_model.K_max},
         "linalg_ms_per_sweep": {
             e.key: per_sweep_ms(e.device_time_total) for e in events
             if e.key in LINALG_OPS},
+        # the candidate scorer's (K1, K5 or K8) device time
+        "scorer_ms_per_sweep": per_sweep_ms(sum(
+            e.self_device_time_total for e in kernels
+            if "scores_kernel" in e.key)),
         "top_kernels_ms_per_sweep": {
             e.key[:80]: per_sweep_ms(e.self_device_time_total) for e in top},
         "top_ops_ms_per_sweep": {

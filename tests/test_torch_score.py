@@ -118,3 +118,37 @@ def test_cuda_tensor_never_takes_plain_path():
 
     assert cuda_lib.use_kernel(FakeCuda())
     assert not cuda_lib.use_kernel(torch.zeros(1))
+
+
+@pytest.mark.parametrize("D,limit,smem", [
+    (13, 232448, 43232),     # flagship
+    (13, 48 * 1024, 43232),  # fits the default 48 KB too
+    (130, 232448, 73184),    # long
+    (130, 73184, 73184),     # a limit of exactly the block's bytes
+    (512, 232448, 170976),   # the widest rows
+])
+def test_launch_plan_tiles(D, limit, smem):
+    """K1 / K5's row tiles (64 rows, 8 a warp) and their shared memory,
+    K 1000, M 720: the table ring and the per-column constants (8,192 +
+    768 words), the rows [D, 64], the column list and the warps'
+    partials."""
+    plan = cuda_score.launch_plan(D, 1000, 720, limit)
+    assert (plan.rows, plan.tiles, plan.smem) == (64, 12, smem)
+    assert cuda_score.smem_bytes(D, 1000) == smem <= limit
+
+
+def test_launch_plan_list_is_one_window_of_columns():
+    """The column list holds min(K, 8 columns a thread) entries."""
+    assert (cuda_score.smem_bytes(13, 5000)
+            - cuda_score.smem_bytes(13, 2000)) == 4 * 48
+    assert (cuda_score.smem_bytes(13, 1000)
+            - cuda_score.smem_bytes(13, 300)) == 4 * 700
+
+
+@pytest.mark.parametrize("D,limit", [(130, 48 * 1024), (512, 48 * 1024),
+                                     (130, 73180)])
+def test_launch_plan_raises_where_no_tile_fits(D, limit):
+    """Under 48 KB only rows of D 13 fit (D 130 takes 73,184 bytes), and a
+    limit 4 bytes short of a block's refuses it."""
+    with pytest.raises(ValueError, match="no candidate-score tile"):
+        cuda_score.launch_plan(D, 1000, 720, limit)

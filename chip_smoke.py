@@ -16,12 +16,13 @@ check that does not hold:
    shapes (B=125, N_max=20, W=6, K=1000, D=13) and a long/wide case
    (N_max=120, D=130), with CUDA-event timings, device time (profiler)
    and each kernel's bound (the larger of its bytes over the memory rate
-   and its flops over the float32 peak, counted from the inputs; K9 also
-   its streamed-table bound); K8 and the reference's expanded Mahalanobis
-   form in float32 against float64; K9's bigram mode on a crafted case
-   where the own-pair correction decides draws; the launch plans of K6 /
-   K7, K8 and K9, and K6 / K7's longest chain and device time a
-   dependent step;
+   and its flops over the float32 peak, counted from the inputs; K9 and
+   the global form of K3 / K4 / K6 / K7 also their streamed-table bound);
+   K8 and the reference's expanded Mahalanobis form in float32 against
+   float64; K9's bigram mode on a crafted case where the own-pair
+   correction decides draws; the launch plans of K3 / K4, K6 / K7, K8 and
+   K9, and K3 / K4 / K6 / K7's longest chain and device time a dependent
+   step;
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
@@ -382,14 +383,17 @@ def compare_chain(shape, name):
         out["max_abs_err"] = max(out["max_abs_err"], ks_agreement(
             "K3 fixedvar_chain use_argmax=%s" % use_argmax, name, ks_k, ks_p,
             embeds))
+    plan = cuda_chain.card_plan(shape["D"], K, shape["N_max"], False)
+    out.update(chain_plan("K3 fixedvar_chain", name, plan, kernel, embeds,
+                          "FixedVarChain"))
     out["ms"] = cuda_ms(kernel, 20)
-    out["device_ms"] = device_ms(kernel, "::chain_kernel<")
     out["plain_ms"] = cuda_ms(plain, 3)
     out.update(chain_bound(data, 4 * Xe.shape[-1] + 8))
-    log("K3 fixedvar_chain %s: kernel %.4f ms (device %s)  plain %.4f ms  "
-        "bound %.4f ms (%s)" % (name, out["ms"], out["device_ms"],
-                                out["plain_ms"], out["bound_ms"],
-                                out["bound_by"]))
+    out.update(table_stream_bound(plan, kernel(), counts, Xe.shape[-1],
+                                  cuda_chain.TABLES["global"]))
+    log("K3 fixedvar_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms "
+        "(%s)%s" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
+                    out["bound_by"], stream_note(out)))
     return out
 
 
@@ -457,14 +461,19 @@ def compare_bigram_chain(shape, name):
         "would differ" % (name, int((ks_keep != ks_k).sum())))
     out = {"max_abs_err": ks_agreement("K4 bigram_fixedvar_chain", name,
                                        ks_k, ks_p, data[0])}
+    plan = cuda_chain.card_plan(shape["D"], K, shape["N_max"], True)
+    out.update(chain_plan("K4 bigram_fixedvar_chain", name, plan, kernel,
+                          data[0], "FixedVarChain"))
     out["ms"] = cuda_ms(kernel, 20)
-    out["device_ms"] = device_ms(kernel, "::chain_kernel<")
     out["plain_ms"] = cuda_ms(plain, 3)
-    out.update(chain_bound(data, 4 * data[1].shape[-1] + 18, lm))
-    log("K4 bigram_fixedvar_chain %s: kernel %.4f ms (device %s)  plain "
-        "%.4f ms  bound %.4f ms (%s)" % (name, out["ms"], out["device_ms"],
-                                         out["plain_ms"], out["bound_ms"],
-                                         out["bound_by"]))
+    D = data[1].shape[-1]
+    out.update(chain_bound(data, 4 * D + 18, lm))
+    out.update(table_stream_bound(plan, ks_k, data[4], D,
+                                  cuda_chain.TABLES["global"]))
+    log("K4 bigram_fixedvar_chain %s: kernel %.4f ms  plain %.4f ms  bound "
+        "%.4f ms (%s)%s" % (name, out["ms"], out["plain_ms"],
+                            out["bound_ms"], out["bound_by"],
+                            stream_note(out)))
     return out
 
 
@@ -539,15 +548,13 @@ def device_ms(fn, kernel_name, reps=10):
     return None
 
 
-def diag_chain_plan(kernel, name, shape, bigram, run, embeds):
-    """K6 / K7's launch plan at this shape, each chain's longest step
-    count, the kernel's device time (profiler) over ``run()`` and that
-    time a dependent step of the longest chain."""
-    from segmentalist_torch.ops import cuda_diag_chain as cdc
-
-    plan = cdc.card_plan(shape["D"], shape["K"], shape["N_max"], bigram)
+def chain_plan(kernel, name, plan, run, embeds, family):
+    """A chain's (K3 / K4, K6 / K7) launch plan, each chain's longest step
+    count, the kernel's device time (profiler; the records of the chain
+    template's ``family`` policy) over ``run()`` and that time a dependent
+    step of the longest chain."""
     out = {"form": plan.form, "steps_max": int(chain_steps(embeds).max()),
-           "device_ms": device_ms(run, "diag_chain_kernel")}
+           "device_ms": device_ms(run, family)}
     out["us_per_step"] = (None if out["device_ms"] is None else
                           out["device_ms"] * 1e3 / out["steps_max"])
     log("%s %s: plan %s, longest chain %d steps, device %s ms (%s us a "
@@ -580,14 +587,17 @@ def compare_diag_chain(shape, name):
         out["max_abs_err"] = max(out["max_abs_err"], ks_agreement(
             "K6 diag_chain use_argmax=%s" % use_argmax, name, ks_k, ks_p,
             data[0]))
-    out.update(diag_chain_plan("K6 diag_chain", name, shape, False, kernel,
-                               data[0]))
+    plan = cdc.card_plan(shape["D"], K, shape["N_max"], False)
+    out.update(chain_plan("K6 diag_chain", name, plan, kernel, data[0],
+                          "DiagChain"))
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 2)
-    out.update(chain_bound(data, 6 * data[1].shape[-1] + 12))
-    log("K6 diag_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)"
+    D = data[1].shape[-1]
+    out.update(chain_bound(data, 6 * D + 12))
+    out.update(table_stream_bound(plan, kernel(), data[4], D, 2))
+    log("K6 diag_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)%s"
         % (name, out["ms"], out["plain_ms"], out["bound_ms"],
-           out["bound_by"]))
+           out["bound_by"], stream_note(out)))
     return out
 
 
@@ -626,15 +636,17 @@ def compare_bigram_diag_chain(shape, name):
         "would differ" % (name, int((ks_keep != ks_k).sum())))
     out = {"max_abs_err": ks_agreement("K7 bigram_diag_chain", name, ks_k,
                                        ks_p, data[0])}
-    out.update(diag_chain_plan("K7 bigram_diag_chain", name, shape, True,
-                               kernel, data[0]))
+    plan = cdc.card_plan(shape["D"], K, shape["N_max"], True)
+    out.update(chain_plan("K7 bigram_diag_chain", name, plan, kernel,
+                          data[0], "DiagChain"))
     out["ms"] = cuda_ms(kernel, 20)
     out["plain_ms"] = cuda_ms(plain, 2)
-    out.update(chain_bound(data, 6 * data[1].shape[-1] + 22,
-                           (counts, big, pj, pi)))
+    D = data[1].shape[-1]
+    out.update(chain_bound(data, 6 * D + 22, (counts, big, pj, pi)))
+    out.update(table_stream_bound(plan, ks_k, counts, D, 2))
     log("K7 bigram_diag_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f "
-        "ms (%s)" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
-                     out["bound_by"]))
+        "ms (%s)%s" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
+                       out["bound_by"], stream_note(out)))
     return out
 
 
@@ -972,6 +984,31 @@ def chain_bound(data, per_k, lm=()):
     rest = [t for i, t in enumerate(data) if i != 3]
     return bound(steps * K * 4 + nbytes(*rest, *lm) + embeds.numel() * 4,
                  steps * K * per_k)
+
+
+def table_stream_bound(plan, ks, counts, D, tables):
+    """The global form of K3 / K4 and K6 / K7 re-reads every occupied
+    column's ``tables`` [D] rows each step (one CTA an utterance, the
+    tables in device memory): that traffic over the memory rate, the
+    occupied columns counted from the counts and this run's draws.  The
+    smem form keeps the tables on chip, so it has no such bound."""
+    if plan.form != "global":
+        return {}
+    ks_c, occ = ks.cpu().numpy(), (counts > 0).cpu().numpy()
+    col_steps = 0
+    for b in range(ks_c.shape[0]):
+        live = occ[b].copy()
+        for k in ks_c[b][ks_c[b] >= 0]:
+            col_steps += int(live.sum())
+            live[k] = True
+    return {"col_steps": col_steps,
+            "stream_bound_ms": col_steps * tables * D * 4 / PEAK_BYTES * 1e3}
+
+
+def stream_note(out):
+    return ("" if "stream_bound_ms" not in out else
+            ", streamed tables %.4f ms (%d column steps)"
+            % (out["stream_bound_ms"], out["col_steps"]))
 
 
 def fullcov_score_bound(args):
@@ -1366,10 +1403,13 @@ def main(argv=None) -> int:
             entry.update({pre + k: r[k] for pre, r in (("", fl),
                                                        ("long_", lo))
                           for k in ("f64_rel_err", "expanded32_rel_err")})
-        if "us_per_step" in fl:  # K6 / K7: form, longest chain, per step
+        if "us_per_step" in fl:  # K3, K4, K6, K7: form, longest chain
             entry.update({pre + k: r[k] for pre, r in (("", fl),
                                                        ("long_", lo))
                           for k in ("form", "steps_max", "us_per_step")})
+            if "stream_bound_ms" in lo:  # the global form's table traffic
+                entry.update(long_stream_bound_ms=lo["stream_bound_ms"],
+                             long_col_steps=lo["col_steps"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ chains.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -212,14 +213,85 @@ def bigram_fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts,
                         prec, prec0, p0m0, temp, False, weights)
 
 
-def _chain_scratch(B, D, K, dev):
-    """Per-utterance tables of the chain kernels: cnt, lpp [B, K] and
-    sum_x, mu, pp [B, D, K], float32."""
+class ChainPlan(NamedTuple):
+    """How a chain of the diagonal family (K3 / K4, K6 / K7) launches: one
+    CTA of ``threads`` an utterance, with ``smem`` bytes of dynamic shared
+    memory; ``form`` "smem" keeps the tables and column arrays in shared
+    memory, "global" in device memory."""
+
+    form: str
+    threads: int
+    smem: int
+
+
+def pick_form(smem_of, K: int, S: int, smem_limit: int,
+              what: str) -> ChainPlan:
+    """The first form of ("smem", "global") whose shared memory
+    ``smem_of(global_tables)`` fits ``smem_limit`` bytes, with a thread a
+    column up to 1024; raises if neither fits or S is too long."""
+    if S >= 1 << 15:
+        raise ValueError("%s chains take fewer than 32768 segments" % what)
+    threads = min(1024, 32 * max(1, -(-K // 32)))
+    for form in ("smem", "global"):
+        smem = smem_of(form == "global")
+        if smem <= smem_limit:
+            return ChainPlan(form, threads, smem)
+    raise ValueError("no %s chain form fits K=%d, S=%d" % (what, K, S))
+
+
+# K3 / K4's tables: mu and pp in the smem form; mu alone in the global
+# form, which recomputes pp from the count.
+TABLES = {"smem": 2, "global": 1}
+N_COL_ARRAYS = 5  # the global form's [B, 5, K] column arrays
+
+
+def smem_bytes(global_tables: bool, bigram: bool, D: int, S: int,
+               K: int) -> int:
+    """Dynamic shared memory of K3 / K4's CTA, as the kernel reserves it
+    (``csrc/diag_family_chain.cuh::smem_words`` of the form's policy).  The
+    smem form: per column its tables, cnt, the hoisted term, the weight
+    term and the touched slot (K4: and its old-pair range) and a
+    double-buffered noise value.  Both forms: x and the log prior
+    [3, D + 1]; prec, prec0, p0m0, the updated column's logs and its
+    running sums [5, D]; the valid steps [S]; K4: the old pairs [2, S]."""
+    per_col = TABLES["smem"] * D + (5 if bigram else 4) + 2
+    words = ((0 if global_tables else per_col * K) + 3 * (D + 1) + 5 * D
+             + S + (2 * S if bigram else 0))
+    return 4 * words
+
+
+def launch_plan(D: int, K: int, S: int, bigram: bool,
+                smem_limit: int) -> ChainPlan:
+    """The form of K3 / K4 for D dims, K columns and S segments (pure
+    Python): "smem" where the tables fit the ``smem_limit`` bytes of
+    dynamic shared memory a CTA may take, else "global".  Raises if
+    neither fits."""
+    return pick_form(lambda g: smem_bytes(g, bigram, D, S, K), K, S,
+                     smem_limit, "fixed-variance")
+
+
+def card_plan(D: int, K: int, S: int, bigram: bool) -> ChainPlan:
+    """:func:`launch_plan` under the current card's limit: its opt-in
+    shared memory a block less the kernel's static shared memory, as the
+    kernel library reads them."""
+    limit = cuda_lib.library().fixedvar_chain_smem_limit()
+    if limit < 0:
+        cuda_lib.check(-limit, "fixedvar_chain_smem_limit")
+    return launch_plan(D, K, S, bigram, limit)
+
+
+def _outputs(plan, B, S, D, K, dev):
+    """ks and the kernel's device-memory scratch: the touched-column table
+    [B, S, D] (a slot a step) and, for the global form only, the tables
+    [B, tables, D, K] and the column arrays [B, 5, K]."""
     f32 = torch.float32
-    return (torch.empty((B, K), dtype=f32, device=dev),
-            *(torch.empty((B, D, K), dtype=f32, device=dev)
-              for _ in range(3)),
-            torch.empty((B, K), dtype=f32, device=dev))
+    ks = torch.empty((B, S), dtype=torch.int32, device=dev)
+    touched = torch.empty((B, S, D), dtype=f32, device=dev)
+    glob = ((torch.empty((B, TABLES["global"], D, K), dtype=f32,
+                         device=dev),
+             torch.empty((B, N_COL_ARRAYS, K), dtype=f32, device=dev))
+            if plan.form == "global" else (None, None))
+    return ks, touched, glob
 
 
 def _check_chain_inputs(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
@@ -244,14 +316,14 @@ def _launch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0,
     global launches
     B, S, D, dev = _check_chain_inputs(embeds, Xe, log_prior_e, gumbel,
                                        counts, sum_xT, prec, prec0, p0m0, K)
-    cnt_s, sumx_s, mu_s, pp_s, lpp_s = _chain_scratch(B, D, K, dev)
-    ks = torch.empty((B, S), dtype=torch.int32, device=dev)
+    plan = card_plan(D, K, S, False)
+    ks, touched, glob = _outputs(plan, B, S, D, K, dev)
     p = cuda_lib.ptr
     err = cuda_lib.library().fixedvar_chain_launch(
         p(embeds), p(Xe), p(log_prior_e), p(gumbel), p(counts), p(sum_xT),
-        p(prec), p(prec0), p(p0m0), p(cnt_s), p(sumx_s), p(mu_s), p(pp_s),
-        p(lpp_s), p(ks), B, S, D, K, alpha / K, lms, temp,
-        -0.5 * D * _LOG_2PI, int(use_argmax), cuda_lib.stream_of(Xe))
+        p(prec), p(prec0), p(p0m0), p(touched), *(p(t) for t in glob),
+        p(ks), B, S, D, K, int(plan.form == "global"), plan.threads, alpha / K, lms,
+        temp, -0.5 * D * _LOG_2PI, int(use_argmax), cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "fixedvar_chain")
     launches += 1
     return ks
@@ -268,15 +340,15 @@ def _launch_bigram(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec,
     req(big_table, "big_table", torch.int32, (K, K), dev)
     req(corr_j, "corr_j", torch.int32, (B, S), dev)
     req(corr_i, "corr_i", torch.int32, (B, S), dev)
-    cnt_s, sumx_s, mu_s, pp_s, lpp_s = _chain_scratch(B, D, K, dev)
-    ks = torch.empty((B, S), dtype=torch.int32, device=dev)
+    plan = card_plan(D, K, S, True)
+    ks, touched, glob = _outputs(plan, B, S, D, K, dev)
     p = cuda_lib.ptr
     err = cuda_lib.library().bigram_fixedvar_chain_launch(
         p(embeds), p(Xe), p(log_prior_e), p(gumbel), p(counts), p(sum_xT),
         p(prec), p(prec0), p(p0m0), p(uni_lo), p(big_table), p(corr_j),
-        p(corr_i), p(cnt_s), p(sumx_s), p(mu_s), p(pp_s), p(lpp_s), p(ks),
-        B, S, D, K, *consts, lms, temp, -0.5 * D * _LOG_2PI,
-        cuda_lib.stream_of(Xe))
+        p(corr_i), p(touched), *(p(t) for t in glob), p(ks), B, S, D, K,
+        int(plan.form == "global"), plan.threads, *consts, lms, temp,
+        -0.5 * D * _LOG_2PI, cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "bigram_fixedvar_chain")
     bigram_launches += 1
     return ks

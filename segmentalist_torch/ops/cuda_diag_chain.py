@@ -29,7 +29,8 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_lib
-from .cuda_chain import bigram_constants, bigram_lm_weights
+from .cuda_chain import (ChainPlan, bigram_constants, bigram_lm_weights,
+                         pick_form)
 from .random import annealed_gumbel_max
 from .special import lgamma_ratio
 from .stats import canonicalize_new_component
@@ -204,30 +205,21 @@ def bigram_diag_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
                              weights)
 
 
-class ChainPlan(NamedTuple):
-    """How K6 / K7 launch: one CTA of ``threads`` an utterance, with
-    ``smem`` bytes of dynamic shared memory; ``form`` "smem" keeps the
-    tables and column arrays in shared memory, "global" in device memory."""
-
-    form: str
-    threads: int
-    smem: int
-
-
 N_COL_ARRAYS = 6  # the global form's [B, 6, K] column arrays
 
 
 def smem_bytes(global_tables: bool, bigram: bool, D: int, S: int,
                K: int) -> int:
     """Dynamic shared memory of the CTA, as the kernel reserves it
-    (``csrc/diag_chain.cu::smem_words``).  The smem form: per column mu
-    and den [D], cnt, the two hoisted terms, the weight term and the
-    touched slot (K7: and its old-pair range) and a double-buffered noise
-    value.  Both forms: x and the log prior [3, D + 1]; k0 m0, snp0 and
-    the updated column's log variances [3, D]; the valid steps [S]; K7:
-    the old pairs [2, S]."""
+    (``csrc/diag_family_chain.cuh::smem_words`` of its policy).  The smem
+    form: per column mu and den [D], cnt, the two hoisted terms, the
+    weight term and the touched slot (K7: and its old-pair range) and a
+    double-buffered noise value.  Both forms: x and the log prior
+    [3, D + 1]; k0 m0, snp0, the updated column's log variances and its
+    running sums sx, ssq [5, D]; the valid steps [S]; K7: the old pairs
+    [2, S]."""
     per_col = 2 * D + (6 if bigram else 5) + 2
-    words = ((0 if global_tables else per_col * K) + 3 * (D + 1) + 3 * D
+    words = ((0 if global_tables else per_col * K) + 3 * (D + 1) + 5 * D
              + S + (2 * S if bigram else 0))
     return 4 * words
 
@@ -238,14 +230,8 @@ def launch_plan(D: int, K: int, S: int, bigram: bool,
     Python): "smem" where the tables fit the ``smem_limit`` bytes of
     dynamic shared memory a CTA may take, else "global".  Raises if
     neither fits."""
-    if S >= 1 << 15:
-        raise ValueError("diag chains take fewer than 32768 segments")
-    threads = min(1024, 32 * max(1, -(-K // 32)))
-    for form in ("smem", "global"):
-        smem = smem_bytes(form == "global", bigram, D, S, K)
-        if smem <= smem_limit:
-            return ChainPlan(form, threads, smem)
-    raise ValueError("no diag chain form fits D=%d, K=%d, S=%d" % (D, K, S))
+    return pick_form(lambda g: smem_bytes(g, bigram, D, S, K), K, S,
+                     smem_limit, "diag")
 
 
 def card_plan(D: int, K: int, S: int, bigram: bool) -> ChainPlan:
@@ -280,14 +266,13 @@ def _check(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0,
 def _outputs(plan, B, S, D, K, dev):
     """ks and the kernel's device-memory scratch: the touched-column table
     [B, S, 2, D] (a slot a step) and, for the global form only, the mu and
-    den tables [B, D, K] and the column arrays [B, 6, K]."""
+    den tables [B, 2, D, K] and the column arrays [B, 6, K]."""
     f32 = torch.float32
     ks = torch.empty((B, S), dtype=torch.int32, device=dev)
     touched = torch.empty((B, S, 2, D), dtype=f32, device=dev)
-    glob = ((torch.empty((B, D, K), dtype=f32, device=dev),
-             torch.empty((B, D, K), dtype=f32, device=dev),
+    glob = ((torch.empty((B, 2, D, K), dtype=f32, device=dev),
              torch.empty((B, N_COL_ARRAYS, K), dtype=f32, device=dev))
-            if plan.form == "global" else (None, None, None))
+            if plan.form == "global" else (None, None))
     return ks, touched, glob
 
 

@@ -53,24 +53,28 @@ _SIGNATURES = {
     # rev, lengths, lpc, out, B, N, W, use_max, stream
     "forward_alphas_launch": [_P] * 4 + [_I] * 4 + [_P],
     # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0, p0m0,
-    # cnt_s, sumx_s, mu_s, pp_s, lpp_s, ks, B, S, D, K, alpha_over_K, lms,
-    # temp, c0, use_argmax, stream
-    "fixedvar_chain_launch": [_P] * 15 + [_I] * 4 + [_F] * 4 + [_I, _P],
+    # touched, tab_g, col_g, ks, B, S, D, K, form, threads, alpha_over_K,
+    # lms, temp, c0, use_argmax, stream
+    "fixedvar_chain_launch": [_P] * 13 + [_I] * 6 + [_F] * 4 + [_I, _P],
     # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0, p0m0,
-    # uni, big, corr_j, corr_i, cnt_s, sumx_s, mu_s, pp_s, lpp_s, ks,
-    # B, S, D, K, a_over_K, a, b_over_K, b, lam, one_minus_lam, lms, temp,
-    # c0, stream
-    "bigram_fixedvar_chain_launch": [_P] * 19 + [_I] * 4 + [_F] * 9 + [_P],
+    # uni, big, corr_j, corr_i, touched, tab_g, col_g, ks, B, S, D, K, form,
+    # threads, a_over_K, a, b_over_K, b, lam, one_minus_lam, lms, temp, c0,
+    # stream
+    "bigram_fixedvar_chain_launch": [_P] * 17 + [_I] * 6 + [_F] * 9 + [_P],
+    # form, bigram, D, S, K -> bytes
+    "fixedvar_chain_smem_bytes": [_I] * 5,
+    # -> bytes (or minus a CUDA error code)
+    "fixedvar_chain_smem_limit": [],
     # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0, snp0,
-    # k0, v0, touched, mu_g, den_g, col_g, ks, B, S, D, K, global, threads,
+    # k0, v0, touched, tab_g, col_g, ks, B, S, D, K, global, threads,
     # alpha_over_K, lms, temp, half_log_pi, use_argmax, stream
-    "diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 5 + [_I] * 6
+    "diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 4 + [_I] * 6
                          + [_F] * 4 + [_I, _P],
     # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0, snp0,
-    # k0, v0, uni, big, corr_j, corr_i, touched, mu_g, den_g, col_g, ks, B,
-    # S, D, K, global, threads, a_over_K, a, b_over_K, b, lam,
-    # one_minus_lam, lms, temp, half_log_pi, stream
-    "bigram_diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 9 + [_I] * 6
+    # k0, v0, uni, big, corr_j, corr_i, touched, tab_g, col_g, ks, B, S, D,
+    # K, global, threads, a_over_K, a, b_over_K, b, lam, one_minus_lam, lms,
+    # temp, half_log_pi, stream
+    "bigram_diag_chain_launch": [_P] * 9 + [_F] * 2 + [_P] * 8 + [_I] * 6
                                 + [_F] * 9 + [_P],
     # global, bigram, D, S, K -> bytes
     "diag_chain_smem_bytes": [_I] * 5,
@@ -103,6 +107,7 @@ _SIGNATURES = {
 # entry points that return something other than a CUDA error code
 _RESTYPES = {"diag_family_smem_bytes": ctypes.c_longlong,
              "diag_chain_smem_bytes": ctypes.c_longlong,
+             "fixedvar_chain_smem_bytes": ctypes.c_longlong,
              "fullcov_chain_smem_bytes": ctypes.c_longlong,
              "fullcov_scores_smem_bytes": ctypes.c_longlong}
 

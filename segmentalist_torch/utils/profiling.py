@@ -7,8 +7,8 @@ D 13 and 50 true words, ``am_K=1000``, ``batch_size=125``, and the priors of
 warm-up sweeps, times sweeps without the profiler, then profiles sweeps
 with ``torch.profiler`` and prints one JSON line: ms/sweep, device time and
 kernel launches per sweep, the active components, the batched
-``torch.linalg`` factorisations' device time, and the operators and kernels
-that take the most device time.
+``torch.linalg`` factorisations', the scorer's and the chain's device time,
+and the operators and kernels that take the most device time.
 
     python -m segmentalist_torch.utils.profiling --cov {fixed,diag,full} [--bigram]
 
@@ -111,6 +111,13 @@ def profile_sweeps(seg) -> dict:
         "scorer_ms_per_sweep": per_sweep_ms(sum(
             e.self_device_time_total for e in kernels
             if "scores_kernel" in e.key)),
+        # the assignment chain's (K3 / K4, K6 / K7 or K9) device time and
+        # launches
+        "chain_ms_per_sweep": per_sweep_ms(sum(
+            e.self_device_time_total for e in kernels
+            if "chain_kernel" in e.key)),
+        "chain_launches_per_sweep": sum(
+            e.count for e in kernels if "chain_kernel" in e.key) / SWEEPS,
         "top_kernels_ms_per_sweep": {
             e.key[:80]: per_sweep_ms(e.self_device_time_total) for e in top},
         "top_ops_ms_per_sweep": {

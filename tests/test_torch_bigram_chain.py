@@ -148,3 +148,39 @@ def test_first_segment_uses_unigram_weights():
     c["big"] = np.full_like(c["big"], -7)  # would give NaN weights if read
     npt.assert_array_equal(_port(c, K, 0.9, 0.2, 1.0), want)
     npt.assert_array_equal(want, _jax(c, K, 0.9, 0.2, 1.0))
+
+
+# The H100's opt-in shared memory a block less the kernel's static arrays.
+H100_SMEM_LIMIT = 232_448 - 1_024
+
+
+@pytest.mark.parametrize("D,K,form,smem", [
+    # K3's bytes (tests/test_torch_chain.py) plus the old-pair range a
+    # column (K words) and the old pairs (2 S words, S 20)
+    (13, 200, "smem", 27_068),
+    (13, 1000, "smem", 132_668),  # the bigram cell: one column a thread
+    (13, 1500, "smem", 198_668),
+    (37, 200, "smem", 66_236),
+    (37, 1000, "global", 1_436),
+    (37, 1500, "global", 1_436),
+    (130, 200, "smem", 218_012),
+    (130, 1000, "global", 4_412),
+    (130, 1500, "global", 4_412),
+])
+def test_launch_plan_picks_a_form_that_fits(D, K, form, smem):
+    plan = cuda_chain.launch_plan(D, K, 20, True, H100_SMEM_LIMIT)
+    assert plan.form == form
+    assert plan.smem == smem == cuda_chain.smem_bytes(form == "global",
+                                                      True, D, 20, K)
+    assert plan.smem <= H100_SMEM_LIMIT
+    assert plan.threads == min(1024, -(-K // 32) * 32)
+
+
+def test_launch_plan_follows_the_smem_limit():
+    """The smem form exactly when its bytes fit the card's limit."""
+    D, K, S = 13, 1000, 20
+    need = cuda_chain.smem_bytes(False, True, D, S, K)
+    assert cuda_chain.launch_plan(D, K, S, True, need).form == "smem"
+    assert cuda_chain.launch_plan(D, K, S, True, need - 4).form == "global"
+    with pytest.raises(ValueError):  # not even the global form's arrays
+        cuda_chain.launch_plan(130, 1000, 20, True, 1_024)

@@ -92,3 +92,72 @@ def test_plain_matches_pallas_f32():
     c, K = _case(3, dtype=np.float32)
     npt.assert_array_equal(_port(c, K, 1.0, 1.0, False).numpy(),
                            _jax(c, K, 1.0, 1.0, False))
+
+
+# The H100's opt-in shared memory a block less the kernel's static arrays.
+H100_SMEM_LIMIT = 232_448 - 1_024
+
+
+@pytest.mark.parametrize("D,K,form,smem", [
+    # per column mu and pp [D], cnt, the hoisted term, the weight, the
+    # touched slot and two noise values: 2 D + 6 words; plus x and prior
+    # 3 (D + 1), prec, prec0, p0m0, the updated column's logs and sums 5 D,
+    # steps S (20)
+    (13, 200, "smem", 26_108),
+    (13, 1000, "smem", 128_508),  # the flagship, one column a thread
+    (13, 1500, "smem", 192_508),
+    (37, 200, "smem", 65_276),
+    (37, 1000, "global", 1_276),  # 296 KB of tables: no column on chip
+    (37, 1500, "global", 1_276),
+    (130, 200, "smem", 217_052),
+    (130, 1000, "global", 4_252),  # the long shape
+    (130, 1500, "global", 4_252),
+])
+def test_launch_plan_picks_a_form_that_fits(D, K, form, smem):
+    plan = cuda_chain.launch_plan(D, K, 20, False, H100_SMEM_LIMIT)
+    assert plan.form == form
+    assert plan.smem == smem == cuda_chain.smem_bytes(form == "global",
+                                                      False, D, 20, K)
+    assert plan.smem <= H100_SMEM_LIMIT
+    assert plan.threads == min(1024, -(-K // 32) * 32)
+
+
+def test_launch_plan_follows_the_smem_limit():
+    """The smem form exactly when its bytes fit the card's limit."""
+    D, K, S = 13, 1000, 20
+    need = cuda_chain.smem_bytes(False, False, D, S, K)
+    assert cuda_chain.launch_plan(D, K, S, False, need).form == "smem"
+    assert cuda_chain.launch_plan(D, K, S, False, need - 4).form == "global"
+
+
+def test_launch_plan_raises_where_no_form_fits():
+    with pytest.raises(ValueError):  # not even the global form's arrays
+        cuda_chain.launch_plan(130, 1000, 20, False, 1_024)
+    with pytest.raises(ValueError):
+        cuda_chain.launch_plan(13, 1000, 1 << 15, False, H100_SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pp_recomputed_from_the_count_equals_the_table(dtype):
+    """The global form of K3 / K4 recomputes a column's pp from its count
+    alone (prec_n = prec0 + c prec; pp = prec_n prec / (prec_n + prec)),
+    where the plain version and the smem form keep the table derived with
+    the means: the same operations on the same values, so the same bits,
+    for empty, small and large counts."""
+    rng = np.random.RandomState(5)
+    D, K = 13, 400
+    var = torch.as_tensor(0.01 + rng.rand(D), dtype=dtype)
+    var_0 = torch.as_tensor(0.5 + rng.rand(D), dtype=dtype)
+    mu_0 = torch.as_tensor(rng.randn(D), dtype=dtype)
+    prec, prec0 = 1.0 / var, 1.0 / var_0
+    counts = rng.randint(0, 60, K) * (rng.rand(K) > 0.4)
+    counts[:5] = [0, 1, 999, 10 ** 5, 10 ** 7]
+    cnt = torch.as_tensor(counts, dtype=dtype)
+    sx = cnt[None, :] * torch.as_tensor(rng.randn(D, K), dtype=dtype)
+    for c in (cnt, cnt + 1.0):  # the init's counts and an update's
+        _, table = cuda_chain._derive(prec[:, None], prec0[:, None],
+                                      (prec0 * mu_0)[:, None], c[None, :],
+                                      sx)
+        for k in range(K):
+            prec_n = prec0 + c[k] * prec
+            assert torch.equal(table[:, k], prec_n * prec / (prec_n + prec))

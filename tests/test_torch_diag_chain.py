@@ -231,12 +231,13 @@ H100_SMEM_LIMIT = 232_448 - 1_024
 
 @pytest.mark.parametrize("D,K,S,form,bytes_k6,bytes_k7", [
     # the flagship: 1024 threads, one column each; per column
-    # 2 D + 7 (K7: 8) words, plus x and prior 3 (D + 1), prior terms and
-    # log variances 3 D, steps S (K7: and the old pairs 2 S)
-    (13, 1000, 20, "smem", 132_404, 136_564),
-    (37, 200, 20, "smem", 65_780, 66_740),
-    (130, 1000, 120, "global", 3_612, 4_572),  # 1 MB of tables: no column
-    (13, 5000, 20, "global", 404, 564),
+    # 2 D + 7 (K7: 8) words, plus x and prior 3 (D + 1), prior terms, the
+    # updated column's log variances and its sums sx, ssq 5 D, steps S (K7:
+    # and the old pairs 2 S)
+    (13, 1000, 20, "smem", 132_508, 136_668),
+    (37, 200, 20, "smem", 66_076, 67_036),
+    (130, 1000, 120, "global", 4_652, 5_612),  # 1 MB of tables: no column
+    (13, 5000, 20, "global", 508, 668),
 ])
 @pytest.mark.parametrize("bigram", [False, True])
 def test_launch_plan_picks_a_form_that_fits(D, K, S, form, bytes_k6,

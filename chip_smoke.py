@@ -22,7 +22,9 @@ check that does not hold:
    float64; K9's bigram mode on a crafted case where the own-pair
    correction decides draws; the launch plans of K3 / K4, K6 / K7, K8 and
    K9, and K3 / K4 / K6 / K7's longest chain and device time a dependent
-   step;
+   step; K2 as the whole DP in one launch against the plain composition,
+   identical alphas and boundaries in both modes, also at W = N_max = 120,
+   with the unfused stage's time beside it;
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
@@ -60,7 +62,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 FLAGSHIP = dict(B=125, N_max=20, W=6, K=1000, D=13)
 LONG = dict(B=125, N_max=120, W=6, K=1000, D=130)
+WIDE_DP = dict(B=125, N_max=120, W=120)  # K2 at W = N_max (n_slices_max 0)
 SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
+LP_TOL = 1e-6           # K2's log_prob: the plain version's card sum has no
+                        # fixed order
 AGREE_MIN = 0.999       # share of identical boundaries / assignments
 F1_MIN = 0.67           # fixed-variance paths (JAX on a TPU: 0.696)
 F1_MIN_DIAG = 0.72      # diag paths (JAX on a TPU: 0.750)
@@ -310,48 +315,71 @@ def compare_score(shape, name):
 
 
 def compare_dp(shape, name):
+    """K2 at one shape: the fused kernel (the whole DP in one launch)
+    against its plain version, the composition ``dp.segment_dp_plain``, in
+    both modes on shared noise: identical alphas and boundaries, log_prob
+    to ``LP_TOL``.  Times: the kernel (events and device), the plain
+    composition, and the unfused stage as the segmenters ran it before the
+    fusion, with the forward filter served by K2 (reverse the scores, K2's
+    alphas, then ``backward_sample``'s eager ops: events around the stage,
+    the profiler's device time summed over its kernels)."""
     import torch
     from segmentalist_torch.ops import cuda_dp, dp
 
     scores, lengths, noise = dp_inputs(shape, 2, DEVICE)
-    rev = dp._rev_mask_scores(scores, 0)
+    B, N, W = scores.shape
     lpc = torch.full((), math.log(0.9), device=DEVICE)
-    out = {}
+    out = {"max_abs_err": 0.0}
     for use_max in (False, True):
-        a_k = cuda_dp.forward_alphas(rev, lengths, lpc, use_max)
-        a_p = cuda_dp.forward_alphas_plain(rev, lengths, lpc, use_max)
+        nz = None if use_max else noise
+        lp_k, b_k, a_k = cuda_dp.segment_dp(scores, lengths, lpc, 1.0, 0,
+                                            use_max, nz, with_alphas=True)
+        lp_p, b_p, a_p = dp.segment_dp_plain(scores, lengths, lpc, 1.0, 0,
+                                             use_max, nz, with_alphas=True)
         sync()
-        fin = torch.isfinite(a_p)
-        check(bool((torch.isfinite(a_k) == fin).all()),
-              "K2 %s: -inf pattern differs" % name)
-        err = (a_k - a_p).abs()[fin]
-        rel = (err / a_p.abs()[fin].clamp_min(1.0)).max().item()
-        check(rel <= SCORE_TOL, "K2 %s: relative error %.3g" % (name, rel))
-        _, b_k = dp.backward_sample(rev, a_k, lengths, 1.0, use_max, noise)
-        _, b_p = dp.backward_sample(rev, a_p, lengths, 1.0, use_max, noise)
-        same = (b_k == b_p).all(1).float().mean().item()
-        log("K2 forward_alphas %s use_max=%s: max|d|=%.3g max rel=%.3g  "
-            "identical boundaries %d/%d" % (
-                name, use_max, err.max().item(), rel,
-                int((b_k == b_p).all(1).sum()), b_k.shape[0]))
-        check(same >= AGREE_MIN, "K2 %s: boundary agreement %.4f"
-              % (name, same))
-        out["max_abs_err"] = max(out.get("max_abs_err", 0.0),
-                                 err.max().item())
-    out["ms"] = cuda_ms(lambda: cuda_dp.forward_alphas(rev, lengths, lpc),
-                        50)
-    out["device_ms"] = device_ms(
-        lambda: cuda_dp.forward_alphas(rev, lengths, lpc),
-        "forward_alphas_kernel")
-    out["plain_ms"] = cuda_ms(
-        lambda: cuda_dp.forward_alphas_plain(rev, lengths, lpc), 10)
-    B, N, W = rev.shape
-    out.update(bound(nbytes(rev, lengths) + B * (N + W) * 4,
-                     int(lengths.sum()) * (4 * W + 2)))
-    log("K2 forward_alphas %s: kernel %.4f ms (device %s)  plain %.4f ms  "
-        "bound %.4f ms (%s)" % (name, out["ms"], out["device_ms"],
-                                out["plain_ms"], out["bound_ms"],
-                                out["bound_by"]))
+        err = (lp_k - lp_p).abs()
+        rel = (err / lp_p.abs().clamp_min(1.0)).max().item()
+        same_a = torch.equal(a_k, a_p)
+        log("K2 segment_dp %s use_max=%s: alphas identical %s, identical "
+            "boundary rows %d/%d, log_prob max|d|=%.3g max rel=%.3g" % (
+                name, use_max, same_a,
+                int((b_k == b_p).all(1).sum()), B, err.max().item(), rel))
+        check(same_a, "K2 %s: alphas differ from the plain version" % name)
+        check(torch.equal(b_k, b_p), "K2 %s: boundaries differ from the "
+              "plain version" % name)
+        check(rel <= LP_TOL, "K2 %s: log_prob relative error %.3g"
+              % (name, rel))
+        out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
+
+    def fused():
+        return cuda_dp.segment_dp(scores, lengths, lpc, 1.0, 0, False, noise)
+
+    def unfused():
+        r = dp._rev_mask_scores(scores, 0)
+        a = cuda_dp.segment_dp(scores, lengths, lpc, 1.0, 0, False, noise,
+                               with_alphas=True)[2]
+        return dp.backward_sample(r, a, lengths, 1.0, False, noise)
+
+    out["ms"] = cuda_ms(fused, 50)
+    out["device_ms"] = device_ms(fused, "segment_dp_kernel")
+    out["plain_ms"] = cuda_ms(lambda: dp.segment_dp_plain(
+        scores, lengths, lpc, 1.0, 0, False, noise), 10 if W <= 32 else 3)
+    out["unfused_ms"] = cuda_ms(unfused, 50)
+    out["unfused_device_ms"], out["unfused_kernels"] = device_ms(
+        unfused, None)
+    # the whole launch (the intercept and the backward pass included) over
+    # the N - 1 forward steps; utils/chain_probe.py --kernels K2 fits the
+    # time of one step alone
+    out["launch_us_a_step"] = (None if out["device_ms"] is None
+                               else out["device_ms"] * 1e3 / max(N - 1, 1))
+    out.update(dp_bound(scores, lengths, noise))
+    log("K2 segment_dp %s: kernel %.4f ms (device %s, the launch's device "
+        "time over %d forward steps %s us)  plain composition %.4f ms  bound "
+        "%.4f ms (%s); unfused stage %.4f ms (device %s ms in %s kernels)"
+        % (name, out["ms"], out["device_ms"], N - 1, out["launch_us_a_step"],
+           out["plain_ms"], out["bound_ms"], out["bound_by"],
+           out["unfused_ms"], out["unfused_device_ms"],
+           out["unfused_kernels"]))
     return out
 
 
@@ -529,7 +557,8 @@ def device_ms(fn, kernel_name, reps=10):
     when the card waits for the host.  The mean is over the launches the
     profiler recorded (it may drop a record, or a whole window's: then up
     to two more windows are taken, and None comes back if all three lack
-    the kernel)."""
+    the kernel).  With ``kernel_name`` None: (device ms, kernels) a call of
+    ``fn``, summed over every kernel it launches, or (None, None)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -539,13 +568,21 @@ def device_ms(fn, kernel_name, reps=10):
             for _ in range(reps):
                 fn()
             sync()
-        hits = [e for e in prof.key_averages() if kernel_name in e.key]
+        if kernel_name is None:
+            hits = [e for e in prof.key_averages()
+                    if e.device_type.name == "CUDA"
+                    and not getattr(e, "is_user_annotation", False)]
+        else:
+            hits = [e for e in prof.key_averages() if kernel_name in e.key]
         n = sum(e.count for e in hits)
-        if n > reps // 2:
-            return sum(e.self_device_time_total for e in hits) / n / 1e3
-        log("the profiler saw %d of %d launches of %s" % (n, reps,
-                                                         kernel_name))
-    return None
+        total_ms = sum(e.self_device_time_total for e in hits) / 1e3
+        if kernel_name is None and n:
+            return total_ms / reps, n / reps
+        if kernel_name is not None and n > reps // 2:
+            return total_ms / n
+        log("the profiler saw %d of %d launches of %s" % (
+            n, reps, kernel_name or "the stage's kernels"))
+    return (None, None) if kernel_name is None else None
 
 
 def chain_plan(kernel, name, plan, run, embeds, family):
@@ -944,6 +981,24 @@ def nbytes(*tensors):
                if t is not None)
 
 
+def dp_bound(scores, lengths, noise):
+    """K2: the scores (and the noise) read once, lengths once, the outputs
+    (log_prob [B] and boundaries [B, N] bool) written once; per forward
+    step that a row
+    needs (t < length) 4 W + 2 operations, W exps and a log; per node up to
+    the length W adds, W compares and 3 W for the draw, and W divisions
+    (sample mode)."""
+    B, N, W = scores.shape
+    lens = lengths.clamp(0, N)
+    steps = int((lens - 1).clamp_min(0).sum())
+    n_ops, n_sfu = steps * (4 * W + 2), steps * (W + 1)
+    nodes = int(lens.sum())
+    n_ops += nodes * 5 * W
+    n_sfu += nodes * W if noise is not None else 0
+    return bound(nbytes(scores, noise, lengths) + B * 4 + B * N, n_ops,
+                 n_sfu)
+
+
 def live_rows(valid_m, M):
     return int(valid_m.clamp(0, M).sum())
 
@@ -1334,6 +1389,8 @@ def main(argv=None) -> int:
     results = {(k, name): fn(shape, name)
                for name, shape in (("flagship", FLAGSHIP), ("long", LONG))
                for k, fn in compare.items()}
+    if "K2" in compare:
+        results[("K2", "wide")] = compare_dp(WIDE_DP, "wide")
     if args.only:
         print(json.dumps({"kernels": {k: {name: r for (k2, name), r
                                           in results.items() if k2 == k}
@@ -1353,7 +1410,7 @@ def main(argv=None) -> int:
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
                "segmentalist_tpu/ops/pallas_score.py:185"),
-        "K2": ("forward_alphas", "segmentalist_torch/csrc/forward_dp.cu",
+        "K2": ("segment_dp", "segmentalist_torch/csrc/forward_dp.cu",
                "segmentalist_tpu/ops/pallas_dp.py:122"),
         "K3": ("fixedvar_chain", "segmentalist_torch/csrc/fixedvar_chain.cu",
                "segmentalist_tpu/ops/pallas_chain.py:327"),
@@ -1388,6 +1445,15 @@ def main(argv=None) -> int:
             "long_bound_ms": lo["bound_ms"],
             "long_device_ms": lo["device_ms"],
         }
+        if "unfused_ms" in fl:  # K2: the unfused stage, the launch's
+            # device time a step; the W = N_max shape
+            wd = results[("K2", "wide")]
+            entry.update({pre + k: r[k] for pre, r in (
+                ("", fl), ("long_", lo), ("wide_", wd)) for k in (
+                    "launch_us_a_step", "unfused_ms", "unfused_device_ms",
+                    "unfused_kernels")})
+            entry.update({"wide_" + k: wd[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")})
         if "exact_ms" in fl:  # K5's exact composition (diag Viterbi)
             entry.update({pre + k: r["exact_" + k] for pre, r in (
                 ("exact_", fl), ("exact_long_", lo)) for k in (

@@ -50,8 +50,13 @@ _SIGNATURES = {
     # error code)
     "diag_family_smem_bytes": [_I] * 2,
     "diag_family_smem_limit": [],
-    # rev, lengths, lpc, out, B, N, W, use_max, stream
-    "forward_alphas_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # scores, noise, lengths, lpc, alphas, log_prob, bounds, B, N, W, n_min,
+    # use_max, temp, staged, warps, stream
+    "segment_dp_launch": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+    # N, W, staged, noise -> bytes a warp
+    "segment_dp_smem_bytes": [_I] * 4,
+    # -> bytes (or minus a CUDA error code)
+    "segment_dp_smem_limit": [],
     # embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0, p0m0,
     # touched, tab_g, col_g, ks, B, S, D, K, form, threads, alpha_over_K,
     # lms, temp, c0, use_argmax, stream
@@ -109,7 +114,8 @@ _RESTYPES = {"diag_family_smem_bytes": ctypes.c_longlong,
              "diag_chain_smem_bytes": ctypes.c_longlong,
              "fixedvar_chain_smem_bytes": ctypes.c_longlong,
              "fullcov_chain_smem_bytes": ctypes.c_longlong,
-             "fullcov_scores_smem_bytes": ctypes.c_longlong}
+             "fullcov_scores_smem_bytes": ctypes.c_longlong,
+             "segment_dp_smem_bytes": ctypes.c_longlong}
 
 build_seconds = None  # wall time of the last nvcc build in this process
 

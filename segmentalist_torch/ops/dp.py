@@ -1,8 +1,12 @@
 """Forward-filtering backward-sampling / Viterbi segmentation DP.
 
 Counterpart of ``segmentalist_tpu/ops/dp.py`` (reference module-level DP,
-``unigram_acoustic_wordseg.py:653-864``).  Only the forward filter is
-sequential (kernel K2, ``ops/cuda_dp.py``); then
+``unigram_acoustic_wordseg.py:653-864``).  On the card the whole DP is one
+launch of kernel K2 (``ops/cuda_dp.py::segment_dp``): the forward filter,
+then at every node the draw of its predecessor pointer and the walk of the
+visited chain, all on chip.  On the CPU it is the kernel's plain version,
+:func:`segment_dp_plain`: the forward filter (``forward_alphas_plain``),
+then
 
 * every prefix node ``v`` draws its predecessor pointer at once (one
   batched Gumbel-max over the window, on injected noise [B, N, W]), and
@@ -25,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .cuda_dp import forward_alphas
+from . import cuda_dp, cuda_lib
 from .random import NEG_INF, annealed_gumbel_max, gumbel
 
 
@@ -77,7 +81,8 @@ def segment_dp(scores: torch.Tensor, lengths: torch.Tensor,
     when 0); lengths [B] int32 (0 allowed).  ``mode`` is "sample" (FFBS) or
     "viterbi".  ``noise`` is the standard Gumbel noise [B, N_max, W] of the
     backward draws -- what the JAX package draws at ``dp.py:196``; when
-    None it is drawn from ``generator``.
+    None it is drawn from ``generator``.  A CUDA tensor takes kernel K2 (one
+    launch), a CPU tensor :func:`segment_dp_plain`.
 
     Returns (log_prob [B], boundaries [B, N_max] bool).
     """
@@ -86,15 +91,31 @@ def segment_dp(scores: torch.Tensor, lengths: torch.Tensor,
     B, N, W = scores.shape
     use_max = mode == "viterbi"
     lengths = lengths.to(torch.int32)
-    rev = _rev_mask_scores(scores, max(int(n_slices_min), 0))
-
-    # 1. forward filter (kernel K2 on the card)
-    alphas_pad = forward_alphas(rev, lengths, log_p_continue, use_max)
-
     if not use_max and noise is None:
         noise = gumbel((B, N, W), generator, scores.device, scores.dtype)
-    return backward_sample(rev, alphas_pad, lengths, anneal_temp, use_max,
-                           noise)
+    if cuda_lib.use_kernel(scores):
+        return cuda_dp.segment_dp(scores.contiguous(), lengths,
+                                  log_p_continue, anneal_temp, n_slices_min,
+                                  use_max, noise)
+    return segment_dp_plain(scores, lengths, log_p_continue, anneal_temp,
+                            n_slices_min, use_max, noise)
+
+
+def segment_dp_plain(scores: torch.Tensor, lengths: torch.Tensor,
+                     log_p_continue, anneal_temp, n_slices_min: int,
+                     use_max: bool, noise: Optional[torch.Tensor],
+                     with_alphas: bool = False):
+    """Plain PyTorch version of the fused K2 (``cuda_dp.segment_dp``), on
+    any device: reverse and mask the scores, the forward filter
+    (``forward_alphas_plain``), then :func:`backward_sample`.  Returns
+    (log_prob [B], boundaries [B, N]), and alphas_pad [B, W + N] third with
+    ``with_alphas``."""
+    rev = _rev_mask_scores(scores, max(int(n_slices_min), 0))
+    alphas_pad = cuda_dp.forward_alphas_plain(rev, lengths, log_p_continue,
+                                              use_max)
+    out = backward_sample(rev, alphas_pad, lengths, anneal_temp, use_max,
+                          noise)
+    return (*out, alphas_pad) if with_alphas else out
 
 
 def backward_sample(rev: torch.Tensor, alphas_pad: torch.Tensor,

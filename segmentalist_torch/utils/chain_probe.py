@@ -1,7 +1,8 @@
-"""Probe the assignment chains K3 / K4 / K6 / K7 on the card: where a
-launch's time goes, as a function of the chain length.
+"""Probe the assignment chains K3 / K4 / K6 / K7 and the segmentation DP
+K2 on the card: where a launch's time goes, as a function of the chain
+length.
 
-    python -m segmentalist_torch.utils.chain_probe [--kernels K3,K4] [--root DIR] [--ptxas]
+    python -m segmentalist_torch.utils.chain_probe [--kernels K2,K3,K4] [--root DIR] [--ptxas]
 
 Every utterance of a launch gets exactly n valid segments (n = 1, 2, 5,
 10, 20), at the flagship shape (B 125, S 20, K 1000, D 13) and at D 130
@@ -12,13 +13,21 @@ launch at each n (``torch.profiler``, the kernel's records alone, mean
 over 10 launches), and the least-squares line through them: the slope is
 the time of one dependent step, the intercept the init and launch.
 
+K2 (the whole DP in one launch; the forward filter alone in a tree from
+before the fusion) runs B 125 utterances with a window of W 6, every
+utterance as long as the launch (N = 10, 20, 40, 80, 120 nodes), scores
+shaped like a sweep's; its slope is the time of a dependent forward step.
+Each of its launches is followed by a kernel that spins a known number of
+cycles (``torch.cuda._sleep``), whose device time gives the SM clock the
+launches ran at, so a step's time converts to cycles.
+
 ``--root DIR`` imports ``segmentalist_torch`` from another checkout (a
 parent tree unpacked beside this one), whose chain wrappers take the same
 arguments, so two versions can be probed in one call; run the file by its
 path then (``python segmentalist_torch/utils/chain_probe.py --root DIR``),
 since ``-m`` imports this checkout's package first.  ``--ptxas`` first
-prints, for each chain kernel of ``fixedvar_chain.cu`` and
-``diag_chain.cu``, its registers, spills and static shared memory
+prints, for each kernel of ``fixedvar_chain.cu``, ``diag_chain.cu`` and
+``forward_dp.cu``, its registers, spills and static shared memory
 (``nvcc -Xptxas -v``) and its SASS instruction mix (``cuobjdump -sass``).
 Needs a CUDA card.
 """
@@ -37,6 +46,9 @@ SHAPES = {"flagship": dict(B=125, S=20, K=1000, D=13),
           "long": dict(B=125, S=120, K=1000, D=130)}
 LENGTHS = (1, 2, 5, 10, 20)
 REPS = 10
+DP_B, DP_W = 125, 6
+DP_LENGTHS = (10, 20, 40, 80, 120)
+SPIN_CYCLES = 20_000
 
 
 def _inputs(rng, B, S, K, D, n, diag, dev):
@@ -98,25 +110,74 @@ def _runner(kernel, data, prior, lm, K):
                                                      **lm_kw)
 
 
-def device_ms(fn):
-    """Mean device ms a launch of the chain kernel (records whose name
-    holds "chain_kernel", K9's left out) over REPS calls of ``fn``."""
+def _dp_runner(N, dev):
+    """A call of K2's wrapper at length N, and the kernel's name: the whole
+    DP where the imported tree has it, else the forward filter alone.
+    Scores: duration-scaled log marginals (~ -20 a slice), -inf past the
+    utterance start, 5 % missing; standard Gumbel noise."""
+    import torch
+    from segmentalist_torch.ops import cuda_dp, dp
+
+    rng = np.random.RandomState(N)
+    B, W = DP_B, DP_W
+    dur = np.arange(1, W + 1)[None, None, :] * 10.0
+    s = (-2.0 + 0.5 * rng.randn(B, N, W)) * dur
+    t, w = np.arange(N)[None, :, None], np.arange(W)[None, None, :]
+    s[(w > t) | (rng.rand(B, N, W) < 0.05)] = -np.inf
+    f32 = torch.float32
+    scores = torch.as_tensor(s, dtype=f32, device=dev)
+    noise = torch.as_tensor(-np.log(-np.log(rng.uniform(1e-30, 1, s.shape))),
+                            dtype=f32, device=dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    lpc = torch.full((), np.log(0.9), dtype=f32, device=dev)
+    if hasattr(cuda_dp, "segment_dp"):
+        return (lambda: cuda_dp.segment_dp(scores, lengths, lpc, 1.0, 0,
+                                           False, noise), "segment_dp_kernel")
+    rev = dp._rev_mask_scores(scores, 0)
+    return (lambda: cuda_dp.forward_alphas(rev, lengths, lpc),
+            "forward_alphas_kernel")
+
+
+def device_ms(fn, kernel="chain_kernel", spin=False):
+    """Mean device ms a launch of the kernel whose records' names hold
+    ``kernel`` (K9's left out) over REPS calls of ``fn``; with ``spin``,
+    each call followed by a spin of SPIN_CYCLES cycles, and (ms, the
+    spin's ms) returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    def call():
+        fn()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
+
+    call()
     torch.cuda.synchronize()
     for _ in range(3):  # a window can come back without kernel records
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(REPS):
-                fn()
+                call()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if "chain_kernel" in e.key
-                and "fullcov" not in e.key]
-        n = sum(e.count for e in hits)
-        if n > REPS // 2:
-            return sum(e.self_device_time_total for e in hits) / n / 1e3
-    return None
+        mean = []
+        for name in (kernel, "spin_kernel")[:1 + spin]:
+            hits = [e for e in prof.key_averages() if name in e.key
+                    and "fullcov" not in e.key]
+            n = sum(e.count for e in hits)
+            if n > REPS // 2:
+                mean.append(sum(e.self_device_time_total
+                                for e in hits) / n / 1e3)
+        if len(mean) == 1 + spin:
+            return tuple(mean) if spin else mean[0]
+    return (None, None) if spin else None
+
+
+def _fit(ms):
+    """µs a step and the intercept (ms) of the least-squares line through
+    the lengths' device ms."""
+    ns = [n for n in ms if ms[n] is not None]
+    slope, icpt = np.polyfit(ns, [ms[n] for n in ns], 1)
+    return {"device_ms": ms, "us_per_step": float(slope) * 1e3,
+            "intercept_ms": float(icpt)}
 
 
 def probe(kernel, shape):
@@ -127,22 +188,34 @@ def probe(kernel, shape):
         data, prior, lm = _inputs(rng, B, S, K, D, n,
                                   kernel in ("K6", "K7"), "cuda")
         ms[n] = device_ms(_runner(kernel, data, prior, lm, K))
-    ns = [n for n in LENGTHS if ms[n] is not None]
-    slope, icpt = np.polyfit(ns, [ms[n] for n in ns], 1)
-    return {"device_ms": ms, "us_per_step": float(slope) * 1e3,
-            "intercept_ms": float(icpt)}
+    return _fit(ms)
+
+
+def probe_dp():
+    """K2 over DP_LENGTHS, with the SM clock of its launches."""
+    ms, spins = {}, []
+    for N in DP_LENGTHS:
+        fn, kernel = _dp_runner(N, "cuda")
+        ms[N], spin_ms = device_ms(fn, kernel, spin=True)
+        if spin_ms is not None:
+            spins.append(spin_ms)
+    out = dict(_fit(ms), kernel_name=kernel)
+    mhz = SPIN_CYCLES / (np.mean(spins) * 1e3) if spins else None
+    out.update(sm_mhz=mhz, cycles_per_step=(
+        None if mhz is None else out["us_per_step"] * mhz))
+    return out
 
 
 def ptxas_report():
-    """One JSON line a chain source: per kernel its ptxas resources and
-    SASS mix (the helpers of ``score_probe``)."""
+    """One JSON line a source (the chains', K2's): per kernel its ptxas
+    resources and SASS mix (the helpers of ``score_probe``)."""
     import tempfile
 
     from segmentalist_torch.ops import cuda_lib
     from segmentalist_torch.utils import score_probe
 
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("fixedvar_chain.cu", "diag_chain.cu"):
+        for src in ("fixedvar_chain.cu", "diag_chain.cu", "forward_dp.cu"):
             obj = os.path.join(tmp, src + ".o")
             res = score_probe.ptxas(os.path.join(cuda_lib.CSRC, src), obj)
             mix = score_probe.sass_mix(obj)
@@ -180,6 +253,12 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     for kernel in args.kernels.split(","):
+        if kernel == "K2":
+            print(json.dumps(dict(
+                probe_dp(), kernel=kernel, shape="B %d, W %d" % (DP_B, DP_W),
+                card=smi.splitlines()[0],
+                package=segmentalist_torch.__file__)), flush=True)
+            continue
         for name, shape in SHAPES.items():
             out = {"kernel": kernel, "shape": name, "D": shape["D"],
                    "card": smi.splitlines()[0],

@@ -7,10 +7,20 @@ D 13 and 50 true words, ``am_K=1000``, ``batch_size=125``, and the priors of
 warm-up sweeps, times sweeps without the profiler, then profiles sweeps
 with ``torch.profiler`` and prints one JSON line: ms/sweep, device time and
 kernel launches per sweep, the active components, the batched
-``torch.linalg`` factorisations', the scorer's and the chain's device time,
-and the operators and kernels that take the most device time.
+``torch.linalg`` factorisations', the scorer's, the DP stage's and the
+chain's device time, and the operators and kernels that take the most
+device time.
 
     python -m segmentalist_torch.utils.profiling --cov {fixed,diag,full} [--bigram]
+
+The DP stage is every kernel launched inside the segmenters'
+``segment_dp`` call (the noise draw and the DP; in a tree whose DP is not
+fused, also its eager backward pass), which the profiled sweeps wrap in a
+profiler range.
+``--root DIR`` imports ``segmentalist_torch`` from another checkout (a
+parent tree unpacked beside this one), so that two trees are measured the
+same way; run the file by its path then (``python
+segmentalist_torch/utils/profiling.py --root DIR ...``).
 
 Needs a CUDA card (the profile is of the card's time).
 """
@@ -18,7 +28,11 @@ Needs a CUDA card (the profile is of the card's time).
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -28,13 +42,17 @@ BENCH_LM = {"type": "smooth", "intrp_lambda": 0.1, "a": 1.0, "b": 1.0}
 WARMUP, SWEEPS = 9, 5  # warm-up sweeps, then sweeps timed and profiled
 # the batched factorisations of the full-covariance family
 LINALG_OPS = ("aten::linalg_cholesky_ex", "aten::linalg_solve_triangular")
+DP_RANGE = "segment_dp (profiled stage)"  # the profiler range of the DP
+# kernel K2: the whole DP, or the forward filter alone in a tree from
+# before the fusion
+K2_KERNELS = ("segment_dp_kernel", "forward_alphas_kernel")
 
 
 def bench_prior(cov: str, D: int, device):
     """The bench priors: FixedVarPrior(var 0.05, mu_0 0, var_0 1) for
     "fixed"; NIW(m_0 0, k_0 0.05, v_0 D + 3, S_0 0.05) with a [D] S_0 for
     "diag" and 0.05 I_D for "full"."""
-    from ..priors import NIW, FixedVarPrior
+    from segmentalist_torch.priors import NIW, FixedVarPrior
 
     f32 = np.float32
     if cov == "fixed":
@@ -48,8 +66,9 @@ def bench_prior(cov: str, D: int, device):
 def bench_segmenter(cov: str = "fixed", bigram: bool = False,
                     n_utterances: int = 1000, device="cuda"):
     """(segmenter, ground-truth boundaries) at the bench configuration."""
-    from .. import BigramAcousticWordseg, FBGMM, UnigramAcousticWordseg
-    from .synth import synthetic_corpus
+    from segmentalist_torch import (BigramAcousticWordseg, FBGMM,
+                                    UnigramAcousticWordseg)
+    from segmentalist_torch.utils.synth import synthetic_corpus
 
     em, vi, du, lm, truth = synthetic_corpus(
         n_utterances=n_utterances, n_landmarks_max=20, D=13, K_true=50,
@@ -69,6 +88,48 @@ def bench_segmenter(cov: str = "fixed", bigram: bool = False,
     return seg, truth
 
 
+@contextlib.contextmanager
+def dp_range():
+    """Run the segmenters' ``segment_dp`` (``segmenters/blocked.py``) inside
+    the profiler range ``DP_RANGE`` while the block is open."""
+    from segmentalist_torch.segmenters import blocked
+
+    inner = blocked.segment_dp
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(DP_RANGE):
+            return inner(*args, **kwargs)
+
+    blocked.segment_dp = wrapped
+    try:
+        yield
+    finally:
+        blocked.segment_dp = inner
+
+
+def dp_stage_events(events) -> list:
+    """The device events (kernels, copies, fills) of the DP stage: those
+    whose launch call on the host (a CUDA API event such as
+    cudaLaunchKernel, matched by its correlation id) falls inside a
+    ``DP_RANGE`` range.  Matching by the launch's time also catches the
+    kernels launched by ctypes, which the profiler does not attach to the
+    range as it attaches aten ops'."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == DP_RANGE and e.device_type.name == "CPU")
+    starts = [a for a, _ in spans]
+
+    def inside(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t <= spans[i][1]
+
+    launched = {e.id for e in events
+                if e.device_type.name == "CPU" and e.name.startswith("cu")
+                and inside(e.time_range.start)}
+    return [e for e in events if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)
+            and e.name != DP_RANGE and e.id in launched]
+
+
 def profile_sweeps(seg) -> dict:
     """Warm up, time ``SWEEPS`` sweeps, then profile as many."""
     from torch.profiler import ProfilerActivity, profile
@@ -80,13 +141,24 @@ def profile_sweeps(seg) -> dict:
     torch.cuda.synchronize()
     ms = (time.time() - t0) / SWEEPS * 1e3
     t0 = time.time()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with dp_range(), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
         last = seg.gibbs_sample(SWEEPS)
         torch.cuda.synchronize()
     ms_prof = (time.time() - t0) / SWEEPS * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    # device kernels (the range's own span on the device timeline is not one)
+    kernels = [e for e in events if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)
+               and e.key != DP_RANGE]
+    dp = dp_stage_events(prof.events())
+    k2 = [e for e in kernels if any(n in e.key for n in K2_KERNELS)]
+    if not any(any(n in e.name for n in K2_KERNELS) for e in dp):
+        # the range wraps blocked.segment_dp: a DP reached another way
+        # would leave the stage's numbers at 0
+        raise RuntimeError("profiling: no K2 launch inside the %r range; "
+                           "the segmenters no longer run their DP through "
+                           "segmenters.blocked.segment_dp" % DP_RANGE)
 
     def per_sweep_ms(us):
         return us / 1e3 / SWEEPS
@@ -111,6 +183,16 @@ def profile_sweeps(seg) -> dict:
         "scorer_ms_per_sweep": per_sweep_ms(sum(
             e.self_device_time_total for e in kernels
             if "scores_kernel" in e.key)),
+        # the DP stage's device time and launches (noise draw, K2 and, in
+        # an unfused tree, the eager backward pass; K2's among them), and
+        # K2's own
+        "dp_ms_per_sweep": per_sweep_ms(sum(
+            e.time_range.end - e.time_range.start for e in dp)),
+        "dp_launches_per_sweep": len(dp) / SWEEPS,
+        "dp_k2_launches_per_sweep": sum(
+            any(n in e.name for n in K2_KERNELS) for e in dp) / SWEEPS,
+        "k2_ms_per_sweep": per_sweep_ms(sum(e.self_device_time_total
+                                            for e in k2)),
         # the assignment chain's (K3 / K4, K6 / K7 or K9) device time and
         # launches
         "chain_ms_per_sweep": per_sweep_ms(sum(
@@ -130,13 +212,26 @@ def main(argv=None) -> int:
     ap.add_argument("--cov", default="full", choices=("fixed", "diag",
                                                      "full"))
     ap.add_argument("--bigram", action="store_true")
+    ap.add_argument("--root", default=None,
+                    help="import segmentalist_torch from this checkout")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling: needs a CUDA card")
+    if args.root:
+        sys.path.insert(0, args.root)
+    import segmentalist_torch
+
+    here = os.path.realpath(segmentalist_torch.__file__)
+    if args.root and not here.startswith(os.path.realpath(args.root)):
+        raise SystemExit("profiling: --root takes the script run by its "
+                         "path (python segmentalist_torch/utils/"
+                         "profiling.py --root DIR): %s was imported already"
+                         % here)
     seg, _ = bench_segmenter(args.cov, args.bigram)
     out = profile_sweeps(seg)
     out.update(cov=args.cov, bigram=args.bigram,
-               device=torch.cuda.get_device_name(0))
+               device=torch.cuda.get_device_name(0),
+               package=os.path.dirname(here))
     print(json.dumps(out))
     return 0
 

@@ -45,20 +45,27 @@ def test_forward_plain_matches_pallas_and_xla(use_max):
     pal = np.asarray(j_forward(rev, lens, -0.1, use_max=use_max,
                                interpret=True))
     xla = np.asarray(jdp._forward_xla(rev, lens, jnp.float64(-0.1), use_max))
-    got = cuda_dp.forward_alphas(torch.as_tensor(np.array(rev)),
-                                 torch.as_tensor(lengths), -0.1,
-                                 use_max).numpy()
+    got = cuda_dp.forward_alphas_plain(torch.as_tensor(np.array(rev)),
+                                       torch.as_tensor(lengths), -0.1,
+                                       use_max).numpy()
     for ref in (pal, xla):
         npt.assert_array_equal(np.isneginf(got), np.isneginf(ref))
         fin = np.isfinite(ref)
         npt.assert_allclose(got[fin], ref[fin], rtol=1e-12)
 
 
-@pytest.mark.parametrize("mode,n_min,temp", [
-    ("sample", 0, 1.0), ("sample", 2, 0.7), ("viterbi", 0, 1.0),
-    ("viterbi", 2, 1.0)])
-def test_segment_dp_matches_jax_on_shared_noise(mode, n_min, temp):
-    scores, lengths = _case(1)
+@pytest.mark.parametrize("mode,n_min,temp,shape", [
+    pytest.param("sample", 0, 1.0, {}, id="sample-0-1.0"),
+    pytest.param("sample", 2, 0.7, {}, id="sample-2-0.7"),
+    pytest.param("viterbi", 0, 1.0, {}, id="viterbi-0-1.0"),
+    pytest.param("viterbi", 2, 1.0, {}, id="viterbi-2-1.0"),
+    # W = N_max > 32: the window wider than a warp's lanes
+    pytest.param("sample", 0, 0.7, dict(B=5, N_max=40, W=40),
+                 id="sample-0-0.7-wide"),
+    pytest.param("viterbi", 3, 1.0, dict(B=5, N_max=40, W=40),
+                 id="viterbi-3-1.0-wide")])
+def test_segment_dp_matches_jax_on_shared_noise(mode, n_min, temp, shape):
+    scores, lengths = _case(1, **shape)
     B, N, W = scores.shape
     key = jax.random.PRNGKey(4)
     lp_j, b_j = jdp.segment_dp(jnp.asarray(scores), jnp.asarray(lengths), key,
@@ -111,3 +118,60 @@ def test_generator_noise_is_reproducible():
                            generator=torch.Generator().manual_seed(8))[1]
             for _ in range(2)]
     assert torch.equal(*runs)
+
+
+def test_segment_dp_on_cpu_takes_the_plain_composition():
+    """A CPU tensor never reaches the kernel: ``segment_dp`` is
+    ``segment_dp_plain`` there, and K2 counts no launch."""
+    scores, lengths = _case(5)
+    B, N, W = scores.shape
+    noise = torch.as_tensor(np.random.RandomState(6).gumbel(size=(B, N, W)))
+    before = cuda_dp.launches
+    got = tdp.segment_dp(torch.as_tensor(scores), torch.as_tensor(lengths),
+                         -0.05, 0.7, n_slices_min=2, n_slices_max=W,
+                         noise=noise)
+    want = tdp.segment_dp_plain(torch.as_tensor(scores),
+                                torch.as_tensor(lengths), -0.05, 0.7, 2,
+                                False, noise)
+    assert cuda_dp.launches == before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fused_entry_takes_only_cuda_tensors():
+    scores, lengths = _case(5)
+    with pytest.raises(ValueError):
+        cuda_dp.segment_dp(torch.as_tensor(scores, dtype=torch.float32),
+                           torch.as_tensor(lengths), 0.0, 1.0, 0, True, None)
+
+
+H100_SMEM_LIMIT = 232_448  # opt-in shared memory a block; no static
+
+
+@pytest.mark.parametrize("N,W,noise,form,warps,smem", [
+    # per warp: the rows 4 round4(N W) (twice with the noise), the padded
+    # rows 4 N 8 (W <= 8), the alphas round4(W + N), the exps round4(W),
+    # four [N + 1] arrays
+    (20, 6, True, "smem", 4, 8_512),       # the flagship: 2,128 a warp
+    (20, 6, False, "smem", 4, 6_592),      # Viterbi draws no noise
+    (120, 6, True, "smem", 4, 48_512),     # the long shape
+    (120, 120, True, "smem", 1, 118_624),  # W = N_max = 120
+    (120, 120, False, "smem", 3, 183_072),  # 61,024 a warp
+    (180, 180, True, "global", 4, 20_416),  # 264 KB of rows a warp
+    (180, 180, False, "smem", 1, 134_704),
+])
+def test_dp_launch_plan(N, W, noise, form, warps, smem):
+    plan = cuda_dp.launch_plan(N, W, noise, H100_SMEM_LIMIT)
+    assert plan == (form, warps, smem)
+    assert plan.smem == warps * cuda_dp.smem_bytes(N, W, form == "smem",
+                                                   noise)
+    assert plan.smem <= H100_SMEM_LIMIT
+
+
+def test_dp_launch_plan_follows_the_limit_and_raises():
+    need = cuda_dp.smem_bytes(120, 120, True, True)
+    assert cuda_dp.launch_plan(120, 120, True, need).form == "smem"
+    assert cuda_dp.launch_plan(120, 120, True, need - 4).form == "global"
+    with pytest.raises(ValueError):  # not even the per-node arrays fit
+        cuda_dp.launch_plan(20, 6, True, 512)
+    with pytest.raises(ValueError):
+        cuda_dp.launch_plan(0, 6, True, H100_SMEM_LIMIT)

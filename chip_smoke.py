@@ -11,7 +11,7 @@ check that does not hold:
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 must be off;
 2. build: compile the hand-written kernels from ``segmentalist_torch/csrc``;
-3. each kernel (K1-K9, both compositions of K5, both modes of K9) against
+3. each kernel (K1-K10, both compositions of K5, both modes of K9) against
    its plain PyTorch version on the card, in float32, at the flagship
    shapes (B=125, N_max=20, W=6, K=1000, D=13) and a long/wide case
    (N_max=120, D=130), with CUDA-event timings, device time (profiler)
@@ -25,18 +25,27 @@ check that does not hold:
    step; K2 as the whole DP in one launch against the plain composition,
    identical alphas and boundaries in both modes, also at W = N_max = 120,
    with the unfused stage's time beside it;
+   K10, the FBGMM's item chain, in both families (fixed variance, exact
+   diag) with the delete on and off, at the toy (N 100, K 4, D 2), the
+   flagship's initial state (6,149 assigned items, K 1000, D 13) and D 130:
+   ks, final counts and running sums identical to its plain version;
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
    unigram and bigram segmenters of the three families (diag and full
-   unigram also in Viterbi, diag's taking K5's exact composition);
+   unigram also in Viterbi, diag's taking K5's exact composition), and
+   FBGMM sweeps of both modes on the card against the CPU;
 5. six paths at bench scale, on the 1000-utterance synthetic corpus, 137
    sweeps each: the unigram and the bigram segmenter with fixed-variance
    components (K1, K2, K3 / K4), diagonal-covariance components (K5, K2,
    K6 / K7) and full-covariance components (K8, K2, K9; the JAX package's
    `bench.py` unigram_full and `benchmarks/all_models.py` rows); for each,
    every kernel's launch count in that run, ms/sweep, log_marg and
-   boundary F1.
+   boundary F1.  Then the FBGMM's own sampler (K10): the notebook toy of
+   `bench.py:455-479` for 100 sweeps in each mode (purity >= 0.95), the
+   FBGMM alone on the flagship corpus's 51,972 candidate spans at K 1000
+   (4 sequential and 4 blocked sweeps, log_marg rising), and
+   unigram_fixed with the one-by-one init and `am_n_iter=1`.
 
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``.
@@ -63,6 +72,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = dict(B=125, N_max=20, W=6, K=1000, D=13)
 LONG = dict(B=125, N_max=120, W=6, K=1000, D=130)
 WIDE_DP = dict(B=125, N_max=120, W=120)  # K2 at W = N_max (n_slices_max 0)
+# K10's chains: the flagship's initial state (its 6,149 initially assigned
+# segments, the chain of an am_n_iter sweep), D 130, and the notebook toy
+ITEMS = {"flagship": dict(N=6149, K=1000, D=13),
+         "long": dict(N=300, K=1000, D=130), "toy": dict(N=100, K=4, D=2)}
+PLAIN_ITEMS = 300       # K10's plain version is timed on this prefix
+PURITY_MIN = 0.95       # the FBGMM toy (tests/test_fbgmm.py asks 0.95)
 SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
 LP_TOL = 1e-6           # K2's log_prob: the plain version's card sum has no
                         # fixed order
@@ -91,6 +106,20 @@ def sync():
 
     if DEVICE == "cuda":
         torch.cuda.synchronize()
+
+
+def once_ms(fn):
+    """Milliseconds of one call of ``fn()`` by CUDA events, no warm-up
+    (for plain versions whose kernels the comparisons have run already)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def cuda_ms(fn, reps):
@@ -953,6 +982,129 @@ def crafted_fullcov_own_pairs():
           "no draw")
 
 
+def item_inputs(family, shape, seed, device):
+    """K10's inputs at ``shape`` (N, K, D): N items around 50 prototypes,
+    each in a uniformly drawn old column (the "rand" init's state), the
+    model's statistics from those columns, prior densities and noise."""
+    import torch
+    from segmentalist_torch.models import cov_module
+    from segmentalist_torch.ops.stats import suff_stats_from_assignments
+    from segmentalist_torch.utils.profiling import bench_prior
+
+    rng = np.random.RandomState(seed)
+    N, K, D = shape["N"], shape["K"], shape["D"]
+    protos = 3.0 * rng.randn(50, D)
+    X = protos[rng.randint(0, 50, N)] + 0.3 * rng.randn(N, D)
+    as_t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        a, dtype=dt, device=device)
+    X = as_t(X)
+    k_old = as_t(rng.randint(0, K, N), torch.int32)
+    prior = bench_prior(family, D, device)
+    return dict(X=X, log_prior=cov_module(family).log_prior_batch(prior, X),
+                noise=as_t(-np.log(-np.log(rng.uniform(1e-30, 1.0, (N, K))))),
+                k_old=k_old, stats=suff_stats_from_assignments(X, k_old, K),
+                prior=prior, K=K)
+
+
+def item_chain_pair(family, d, delete=True, n=None):
+    """(kernel, plain) callables of K10 on ``d`` (its first ``n`` items);
+    each returns (ks, final stats)."""
+    import torch
+    from segmentalist_torch.ops import cuda_item_chain as cic
+
+    n = d["X"].shape[0] if n is None else n
+    k_old = d["k_old"][:n] if delete else torch.full_like(d["k_old"][:n],
+                                                          -1)
+    args = (family, d["X"][:n], d["log_prior"][:n], d["noise"][:n], k_old,
+            d["stats"], d["prior"], 1.0, d["K"], 1.0, 1.0)
+
+    def kernel():
+        return cic.item_chain(*args)
+
+    def plain():
+        return cic.item_chain_result(*cic.item_chain_plain(
+            *cic.item_chain_inputs(*args)))
+
+    return kernel, plain
+
+
+def same_items(what, got, want):
+    """Check a K10 kernel result against its plain version: identical ks,
+    counts and running sums; returns the largest absolute difference."""
+    import torch
+
+    (ks_k, st_k), (ks_p, st_p) = got, want
+    n_same = int((ks_k == ks_p).sum())
+    same_stats = all(torch.equal(a, b) for a, b in zip(st_k, st_p))
+    log("%s: identical ks %d/%d, identical counts and sums %s"
+        % (what, n_same, ks_p.numel(), same_stats))
+    check(n_same == ks_p.numel() and same_stats,
+          "%s: K10 and its plain version disagree" % what)
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(st_k, st_p))
+
+
+def item_bound(family, d):
+    """K10: the noise rows, the items' vectors, prior densities and old
+    columns read once, the statistics read and written once; per step and
+    occupied column (the mean of the start's and the end's) 4 D + 8
+    float32 operations, and for the exact diag form D divisions and D
+    log1p (special-function results)."""
+    from segmentalist_torch.ops import cuda_item_chain as cic
+
+    N, D = d["X"].shape
+    ks, out = cic.item_chain(family, d["X"], d["log_prior"], d["noise"],
+                             d["k_old"], d["stats"], d["prior"], 1.0, d["K"])
+    occ = 0.5 * float((d["stats"].counts > 0).sum() + (out.counts > 0).sum())
+    col_steps = N * occ
+    n_bytes = nbytes(d["noise"], d["X"], d["log_prior"], d["k_old"],
+                     *d["stats"]) + nbytes(ks, *out)
+    return bound(n_bytes, col_steps * (4 * D + 8),
+                 col_steps * 2 * D if family == "diag" else 0)
+
+
+def compare_item_chain(shape, name):
+    """K10 at ``ITEMS[name]`` (the toy too, with the flagship): the kernel
+    against its plain version on the card, both families, delete on and
+    off; at the flagship and long shapes its times (events, device, a
+    step), the plain version's on the first ``PLAIN_ITEMS`` items, and its
+    bound."""
+    from segmentalist_torch.ops import cuda_item_chain as cic
+
+    out = {"max_abs_err": 0.0}
+    names = [name] + (["toy"] if name == "flagship" else [])
+    for nm in names:
+        for family in ("fixed", "diag"):
+            d = item_inputs(family, ITEMS[nm], 10, DEVICE)
+            for delete in (True, False):
+                kernel, plain = item_chain_pair(family, d, delete)
+                err = same_items("K10 %s %s delete=%s" % (family, nm,
+                                                         delete),
+                                 kernel(), plain())
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+            if nm != name:
+                continue
+            N, D = d["X"].shape
+            plan = cic.card_plan(family, D, d["K"])
+            kernel, _ = item_chain_pair(family, d)
+            _, plain = item_chain_pair(family, d, n=PLAIN_ITEMS)
+            r = {"form": plan.form, "steps_max": N,
+                 "ms": cuda_ms(kernel, 5),
+                 "device_ms": device_ms(kernel, "gibbs_items_kernel", 5),
+                 "plain_ms": once_ms(plain), "plain_items": PLAIN_ITEMS}
+            r["us_per_step"] = (None if r["device_ms"] is None
+                                else r["device_ms"] * 1e3 / N)
+            r.update(item_bound(family, d))
+            log("K10 %s %s: plan %s, %d steps, kernel %.4f ms, device %s ms "
+                "(%s us a step), plain %.4f ms for %d items, bound %.4f ms "
+                "(%s)" % (family, name, plan, N, r["ms"], r["device_ms"],
+                          r["us_per_step"], r["plain_ms"], PLAIN_ITEMS,
+                          r["bound_ms"], r["bound_by"]))
+            pre = "" if family == "fixed" else "diag_"
+            out.update({pre + k: v for k, v in r.items()})
+    return out
+
+
 # ------------------------------------------------------------- bounds
 
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -1242,13 +1394,63 @@ def small_block_steps():
         full, covariance_type="full"))
 
 
+def fbgmm_vs_cpu():
+    """FBGMM sweeps on the card against the same sweeps on the CPU, on
+    shared noise, float32: three sequential sweeps (one K10 launch each;
+    the plain version on the CPU) must leave identical assignments and
+    statistics, three blocked sweeps (float32 products in another order on
+    each device) agree to ``AGREE_MIN``."""
+    import torch
+    import segmentalist_torch as pt
+    from segmentalist_torch.ops import cuda_item_chain
+    from segmentalist_torch.utils.profiling import bench_prior
+
+    rng = np.random.RandomState(8)
+    N, D, K = 300, 13, 24
+    X = ((3.0 * rng.randn(6, D))[rng.randint(0, 6, N)]
+         + rng.randn(N, D)).astype(np.float32)
+    asg = rng.randint(-1, 10, N)
+    for family in ("fixed", "diag"):
+        prior = bench_prior(family, D, "cpu")
+        models = {dev: pt.FBGMM(X, prior, 1.0, K, asg, covariance_type=family,
+                                device=dev) for dev in ("cpu", DEVICE)}
+        before = cuda_item_chain.launches
+        for mode in ("sequential", "blocked"):
+            for i in range(3):
+                noise = -np.log(-np.log(rng.uniform(1e-30, 1.0, (N, K))))
+                for dev, am in models.items():
+                    sweep = getattr(am, mode + "_sweep")
+                    sweep(1.0, i != 1, noise=torch.as_tensor(
+                        noise, dtype=torch.float32, device=dev))
+            a_c = models["cpu"].assignments.numpy()
+            a_d = models[DEVICE].assignments.cpu().numpy()
+            same = int((a_c == a_d).sum())
+            log("FBGMM %s %s sweeps, card vs CPU: identical assignments "
+                "%d/%d" % (family, mode, same, N))
+            if mode == "sequential":
+                check(same == N and all(
+                    torch.equal(a.cpu(), b) for a, b in zip(
+                        models[DEVICE].stats, models["cpu"].stats)),
+                      "card and CPU FBGMM %s sequential sweeps disagree"
+                      % family)
+            else:
+                check(same >= AGREE_MIN * N, "card and CPU FBGMM %s blocked "
+                      "sweeps disagree" % family)
+            models["cpu"].setup_components(K, a_d)  # resume from one state
+            models[DEVICE].setup_components(K, a_d)
+        check(cuda_item_chain.launches == before + 3,
+              "the sequential sweeps did not run one K10 launch each")
+
+
 # ------------------------------------------------------------- phase 5
 
 def reset_launches():
     from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
                                         cuda_fullcov_chain,
-                                        cuda_fullcov_score, cuda_score)
+                                        cuda_fullcov_score, cuda_item_chain,
+                                        cuda_score)
 
+    cuda_item_chain.launches = 0
     cuda_score.launches = cuda_score.diag_launches = 0
     cuda_score.diag_exact_launches = cuda_dp.launches = 0
     cuda_chain.launches = cuda_chain.bigram_launches = 0
@@ -1259,10 +1461,11 @@ def reset_launches():
 
 def read_launches():
     """Each kernel's launches since `reset_launches` (K5: both
-    compositions; K9: both weight modes)."""
+    compositions; K9: both weight modes; K10: both families)."""
     from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
                                         cuda_fullcov_chain,
-                                        cuda_fullcov_score, cuda_score)
+                                        cuda_fullcov_score, cuda_item_chain,
+                                        cuda_score)
 
     return {"K1": cuda_score.launches,
             "K2": cuda_dp.launches, "K3": cuda_chain.launches,
@@ -1272,7 +1475,8 @@ def read_launches():
             "K7": cuda_diag_chain.bigram_launches,
             "K8": cuda_fullcov_score.launches,
             "K9": (cuda_fullcov_chain.launches
-                   + cuda_fullcov_chain.bigram_launches)}
+                   + cuda_fullcov_chain.bigram_launches),
+            "K10": cuda_item_chain.launches}
 
 
 PATH_KERNELS = {"unigram_fixed": ("K1", "K2", "K3"),
@@ -1280,7 +1484,9 @@ PATH_KERNELS = {"unigram_fixed": ("K1", "K2", "K3"),
                 "unigram_diag": ("K5", "K2", "K6"),
                 "bigram_diag": ("K5", "K2", "K7"),
                 "unigram_full": ("K8", "K2", "K9"),
-                "bigram_full": ("K8", "K2", "K9")}
+                "bigram_full": ("K8", "K2", "K9"),
+                "fbgmm_toy": ("K10",), "fbgmm_flagship": ("K10",),
+                "unigram_fixed_am": ("K1", "K2", "K3", "K10")}
 
 
 def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
@@ -1342,6 +1548,233 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
     return {k: launches[k] for k in PATH_KERNELS[name]}
 
 
+def purity(assignments, z_true):
+    """Share of items whose cluster's majority true label is their own."""
+    return sum(np.bincount(z_true[assignments == k]).max()
+               for k in np.unique(assignments)) / len(z_true)
+
+
+def run_fbgmm_toy(sweeps=100):
+    """The notebook toy (`bench.py:455-479`: 100 2-D points around four
+    centres, K 4, FixedVarPrior(0.5, 0, 1)) for ``sweeps`` sweeps in each
+    mode; log_marg finite, purity >= ``PURITY_MIN``.  Returns the K10
+    launches and the ms a sweep of each mode."""
+    import segmentalist_torch as pt
+
+    rng = np.random.RandomState(1)
+    X = np.vstack([rng.randn(25, 2) + c for c in
+                   ([0, 0], [4, 4], [-4, 4], [4, -4])]).astype(np.float32)
+    z_true = np.repeat(np.arange(4), 25)
+    prior = pt.FixedVarPrior.create(0.5 * np.ones(2, np.float32),
+                                    np.zeros(2, np.float32),
+                                    np.ones(2, np.float32))
+    reset_launches()
+    out = {}
+    for mode in ("sequential", "blocked"):
+        np.random.seed(1)
+        am = pt.FBGMM(X, prior, 1.0, 4, "rand", covariance_type="fixed",
+                      seed=1, device=DEVICE)
+        am.gibbs_sample(2, mode=mode)  # warm-up
+        sync()
+        t = time.time()
+        rec = am.gibbs_sample(sweeps, mode=mode)
+        sync()
+        ms = (time.time() - t) / sweeps * 1e3
+        p = purity(am.assignments.cpu().numpy(), z_true)
+        log("fbgmm_toy %s: %d sweeps, %.4f ms a sweep, log_marg %.6g -> "
+            "%.6g, purity %.3f, components %d" % (
+                mode, sweeps, ms, rec["log_marg"][0], rec["log_marg"][-1], p,
+                rec["components"][-1]))
+        check(all(math.isfinite(v) for v in rec["log_marg"]),
+              "fbgmm_toy %s: non-finite log_marg" % mode)
+        check(p >= PURITY_MIN, "fbgmm_toy %s: purity %.3f < %.2f"
+              % (mode, p, PURITY_MIN))
+        out[mode + "_ms_per_sweep"] = ms
+    launches = read_launches()
+    check(launches["K10"] > 0, "K10 was not launched on the fbgmm_toy path")
+    # the full family's per-item step in PyTorch (no item kernel), on the
+    # same data: ms an item of a sequential sweep
+    np.random.seed(1)
+    am = pt.FBGMM(X, pt.NIW.create(np.zeros(2), 1.0 / 16, 5.0,
+                                   5.0 * np.eye(2)), 1.0, 4, "rand",
+                  covariance_type="full", seed=1, device=DEVICE)
+    sync()
+    t = time.time()
+    rec = am.gibbs_sample(3)
+    sync()
+    out["full_sequential_ms_per_item"] = (time.time() - t) / 3 / len(X) * 1e3
+    log("fbgmm_toy full (per-item PyTorch step): %.4f ms an item, log_marg "
+        "%.6g -> %.6g" % (out["full_sequential_ms_per_item"],
+                          rec["log_marg"][0], rec["log_marg"][-1]))
+    check(all(math.isfinite(v) for v in rec["log_marg"]),
+          "fbgmm_toy full: non-finite log_marg")
+    return {"K10": launches["K10"]}, out
+
+
+def fbgmm_flagship_vs_cpu(X, sweeps):
+    """The flagship FBGMM on the card against its twin on the CPU, each
+    from the path's "rand" assignments and the card's statistics and prior
+    densities (bit for bit), on noise drawn on the card and copied:
+    one sequential sweep over all the items (the longest K10 launch of any
+    path, on its own data; the plain version on the CPU) must leave
+    identical assignments, counts and sums; ``sweeps`` blocked sweeps run
+    on both, their assignments agree to ``AGREE_MIN`` after each, and the
+    CPU's log_marg trajectory (the semantics that
+    tests/test_torch_fbgmm_sampler.py holds to the JAX package's) is
+    logged beside the card's.  Returns the CPU's blocked trajectory."""
+    import torch
+    import segmentalist_torch as pt
+    from segmentalist_torch.ops.stats import SuffStats
+    from segmentalist_torch.utils.profiling import bench_prior
+
+    def twins():
+        np.random.seed(0)
+        card = pt.FBGMM(X, bench_prior("fixed", 13, "cpu"), 1.0, 1000,
+                        "rand", covariance_type="fixed", seed=0,
+                        device=DEVICE)
+        cpu = pt.FBGMM(X, bench_prior("fixed", 13, "cpu"), 1.0, 1000,
+                       card.assignments.cpu().numpy(),
+                       covariance_type="fixed", device="cpu")
+        cpu.stats = SuffStats(*(t.cpu() for t in card.stats))
+        cpu.log_prior_vec = card.log_prior_vec.cpu()
+        return card, cpu
+
+    N = X.shape[0]
+    card, cpu = twins()
+    noise = card.draw_noise(N)
+    card.sequential_sweep(noise=noise)
+    t = time.time()
+    cpu.sequential_sweep(noise=noise.cpu())
+    cpu_s = time.time() - t
+    same_stats = all(torch.equal(a.cpu(), b)
+                     for a, b in zip(card.stats, cpu.stats))
+    n_same = int((card.assignments.cpu() == cpu.assignments).sum())
+    log("fbgmm_flagship sequential sweep, card (one K10 launch over %d "
+        "items) vs CPU (the plain version, %.1f s): identical assignments "
+        "%d/%d, identical counts and sums %s"
+        % (N, cpu_s, n_same, N, same_stats))
+    check(n_same == N and same_stats, "fbgmm_flagship: K10 and its plain "
+          "version disagree on the flagship sequential sweep")
+
+    card, cpu = twins()
+    traj = {"card": [card.log_marg()], "cpu": [cpu.log_marg()]}
+    agree = []
+    for _ in range(sweeps):
+        noise = card.draw_noise(N)
+        card.blocked_sweep(noise=noise)
+        cpu.blocked_sweep(noise=noise.cpu())
+        agree.append(int((card.assignments.cpu() == cpu.assignments).sum()))
+        for dev, am in (("card", card), ("cpu", cpu)):
+            traj[dev].append(am.log_marg())
+    log("fbgmm_flagship blocked sweeps on shared noise: log_marg (init "
+        "first) card %s, CPU %s, identical assignments %s of %d"
+        % ([round(v, 1) for v in traj["card"]],
+           [round(v, 1) for v in traj["cpu"]], agree, N))
+    check(min(agree) >= AGREE_MIN * N, "fbgmm_flagship: card and CPU "
+          "blocked sweeps disagree")
+    return traj["cpu"]
+
+
+def run_fbgmm_flagship(sweeps=4):
+    """The FBGMM alone on the flagship corpus's 51,972 candidate spans
+    (every span an item), K 1000, ``sweeps`` sequential and ``sweeps``
+    blocked sweeps, each mode from the same "rand" assignments, after
+    :func:`fbgmm_flagship_vs_cpu`; log_marg finite, the sequential one
+    rising from sweep to sweep, the blocked one above the init (it
+    oscillates after its first sweep, as the CPU's trajectory on shared
+    noise does).  Returns the K10 launches and the ms a sweep."""
+    import segmentalist_torch as pt
+    from segmentalist_torch.segmenters.blocked import process_embeddings
+    from segmentalist_torch.utils.profiling import bench_prior
+    from segmentalist_torch.utils.synth import synthetic_corpus
+
+    em, vi, _, _, _ = synthetic_corpus(
+        n_utterances=1000, n_landmarks_max=20, D=13, K_true=50,
+        n_slices_max=6, seed=0)
+    X = process_embeddings({k: v.astype(np.float32) for k, v in em.items()},
+                           vi)[0]
+    cpu_blocked = fbgmm_flagship_vs_cpu(X, sweeps)
+    reset_launches()
+    out = {"items": int(X.shape[0]), "cpu_blocked_log_marg": cpu_blocked}
+    for mode in ("sequential", "blocked"):  # each from the same "rand" init
+        np.random.seed(0)
+        am = pt.FBGMM(X, bench_prior("fixed", 13, "cpu"), 1.0, 1000, "rand",
+                      covariance_type="fixed", seed=0, device=DEVICE)
+        lm0 = am.log_marg()
+        sync()
+        t = time.time()
+        rec = am.gibbs_sample(sweeps, mode=mode)
+        sync()
+        ms = (time.time() - t) / sweeps * 1e3
+        lm = rec["log_marg"]
+        log("fbgmm_flagship %s: %d items, K 1000, %d sweeps, %.3f ms a "
+            "sweep, log_marg %.1f (init) -> %s, components %d" % (
+                mode, X.shape[0], sweeps, ms, lm0, [round(v, 1) for v in lm],
+                rec["components"][-1]))
+        # the blocked sweep at K 1000 oscillates after its first sweep, as
+        # the reference does (the CPU's trajectory above; the JAX
+        # package's on the corpus's first 300 spans,
+        # tests/test_torch_fbgmm_sampler.py), so each mode is held to
+        # rising from the init: every sweep above it, the sequential one
+        # rising from sweep to sweep as well
+        rising = all(v > lm0 for v in lm) and (
+            mode == "blocked" or all(b > a for a, b in zip(lm, lm[1:])))
+        check(all(math.isfinite(v) for v in lm) and rising,
+              "fbgmm_flagship %s: log_marg not finite and rising" % mode)
+        out[mode + "_ms_per_sweep"] = ms
+    launches = read_launches()
+    check(launches["K10"] == sweeps,
+          "fbgmm_flagship: %d K10 launches for %d sequential sweeps"
+          % (launches["K10"], sweeps))
+    return {"K10": launches["K10"]}, out
+
+
+def run_am_slice(sweeps=(1, 3)):
+    """unigram_fixed at bench scale with the one-by-one init (one K10
+    launch over the initial segments) and ``am_n_iter=1`` (one K10 launch
+    an acoustic-model sweep before each sweep).  Returns the launches of
+    K1, K2, K3 and K10 and the ms a sweep of the last call."""
+    from segmentalist_torch.ops import cuda_item_chain
+    from segmentalist_torch.utils.profiling import bench_segmenter
+    from segmentalist_torch.utils.synth import boundary_f_score
+
+    t0 = time.time()
+    before = cuda_item_chain.launches
+    seg, truth = bench_segmenter("fixed", False, 1000, DEVICE,
+                                 init_am_assignments="one-by-one")
+    n_init = int((seg.acoustic_model.assignments >= 0).sum())
+    check(cuda_item_chain.launches == before + 1,
+          "the one-by-one init did not run one K10 launch")
+    log("unigram_fixed_am: one-by-one init of %d segments in %.1f s "
+        "(setup included)" % (n_init, time.time() - t0))
+    reset_launches()
+    records, sweep_ms = [], []
+    for n in sweeps:
+        sync()
+        t = time.time()
+        records.append(seg.gibbs_sample(n, am_n_iter=1))
+        sync()
+        sweep_ms.append((time.time() - t) / n * 1e3)
+    launches = read_launches()
+    lm = [v for r in records for v in r["log_marg"]]
+    pred = {u: seg.utterances.boundaries[i]
+            for i, u in enumerate(seg.ids_to_utterance_labels)}
+    f1 = boundary_f_score(pred, truth)[2]
+    log("unigram_fixed_am: %d sweeps with am_n_iter=1, ms/sweep per call %s, "
+        "log_marg %s, F1 %.4f, launches %s" % (
+            len(lm), [round(v, 3) for v in sweep_ms],
+            [round(v, 1) for v in lm], f1, launches))
+    check(all(math.isfinite(v) for v in lm), "non-finite log_marg")
+    check(launches["K10"] == len(lm),
+          "unigram_fixed_am: %d K10 launches for %d sweeps"
+          % (launches["K10"], len(lm)))
+    for k in PATH_KERNELS["unigram_fixed_am"]:
+        check(launches[k] > 0, "kernel %s was not launched on the "
+              "unigram_fixed_am path" % k)
+    return ({k: launches[k] for k in PATH_KERNELS["unigram_fixed_am"]},
+            {"ms_per_sweep": sweep_ms[-1], "init_items": n_init, "f1": f1})
+
+
 def parse_args(argv):
     import argparse
 
@@ -1383,7 +1816,8 @@ def main(argv=None) -> int:
     compare = {"K1": compare_score, "K2": compare_dp, "K3": compare_chain,
                "K4": compare_bigram_chain, "K5": compare_diag_score,
                "K6": compare_diag_chain, "K7": compare_bigram_diag_chain,
-               "K8": compare_fullcov_score, "K9": compare_fullcov_chain}
+               "K8": compare_fullcov_score, "K9": compare_fullcov_chain,
+               "K10": compare_item_chain}
     if args.only:
         compare = {k: compare[k] for k in args.only.split(",")}
     results = {(k, name): fn(shape, name)
@@ -1400,12 +1834,18 @@ def main(argv=None) -> int:
 
     toy_reference()
     small_block_steps()
+    fbgmm_vs_cpu()
     paths = {"unigram_fixed": run_slice(),
              "bigram": run_slice(bigram=True),
              "unigram_diag": run_slice(cov="diag"),
              "bigram_diag": run_slice(bigram=True, cov="diag"),
              "unigram_full": run_slice(cov="full"),
              "bigram_full": run_slice(bigram=True, cov="full")}
+    fbgmm = {}
+    for name, run in (("fbgmm_toy", run_fbgmm_toy),
+                      ("fbgmm_flagship", run_fbgmm_flagship),
+                      ("unigram_fixed_am", run_am_slice)):
+        paths[name], fbgmm[name] = run()
 
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
@@ -1427,6 +1867,8 @@ def main(argv=None) -> int:
                "segmentalist_tpu/ops/pallas_score.py:630"),
         "K9": ("fullcov_chain", "segmentalist_torch/csrc/fullcov_chain.cu",
                "segmentalist_tpu/ops/pallas_chain.py:1725"),
+        "K10": ("gibbs_items", "segmentalist_torch/csrc/diag_family_chain.cuh",
+                "segmentalist_tpu/models/fbgmm.py:517-570 (lax.scan)"),
     }
     kernels = []
     for k, (fn, src, tpu) in meta.items():
@@ -1476,6 +1918,13 @@ def main(argv=None) -> int:
             if "stream_bound_ms" in lo:  # the global form's table traffic
                 entry.update(long_stream_bound_ms=lo["stream_bound_ms"],
                              long_col_steps=lo["col_steps"])
+        if k == "K10":  # the exact diag policy, the plain version's prefix,
+            # and the FBGMM paths' times
+            entry.update({pre + "diag_" + f: r["diag_" + f] for pre, r in (
+                ("", fl), ("long_", lo)) for f in (
+                    "ms", "device_ms", "us_per_step", "plain_ms", "bound_ms",
+                    "bound_by", "form")})
+            entry.update(plain_items=fl["plain_items"], paths=fbgmm)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

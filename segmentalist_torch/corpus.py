@@ -212,3 +212,34 @@ class Utterances:
             indices.append((j_prev, int(j) + 1))
             j_prev = int(j) + 1
         return indices
+
+    def get_segmented_durations_i(self, i: int) -> List[float]:
+        """Durations of utterance ``i``'s current segments (the JAX
+        package's ``corpus.py:255-263``)."""
+        row = self.boundaries[i]
+        durations = []
+        j_prev = 0
+        for j in range(self.lengths[i]):
+            if row[j]:
+                durations.append(self.durations[i, tri_index(j + 1, j_prev)])
+                j_prev = j + 1
+        return durations
+
+    def get_original_segmented_embeds_i(self, i: int) -> List[int]:
+        """Utterance ``i``'s segment ids relative to its smallest embedding
+        id (the JAX package's ``corpus.py:265-268``)."""
+        vec_ids = self.vec_ids[i]
+        vec_ids_min = np.min(vec_ids[vec_ids != -1])
+        return [int(e - vec_ids_min) for e in self.get_segmented_embeds_i(i)]
+
+    def get_segmented_landmarks(self, i: int):
+        """(start, end) landmark values of utterance ``i``'s segments (the
+        JAX package's ``corpus.py:278-283``)."""
+        if self.landmarks is None:
+            raise ValueError("the corpus has no landmarks")
+        indices = []
+        j_prev = 0
+        for _, j in self.get_segmented_landmark_indices(i):
+            indices.append((j_prev, self.landmarks[i][j - 1]))
+            j_prev = self.landmarks[i][j - 1]
+        return indices

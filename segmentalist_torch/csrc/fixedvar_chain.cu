@@ -24,6 +24,13 @@
 // the bytes a step streams (at D 130, 33 against 56 us a step).  The
 // divisions give IEEE `/`'s bits through div_fast inside its range and `/`
 // outside it (common.cuh), checked once a batch of dims.
+//
+// The same policy with kSq (the sums sx and ssq, ssq carried for the
+// model's statistics) runs the item chain K10 of the fixed-variance FBGMM
+// (gibbs_items_kernel, diag_family_chain.cuh), the JAX package's
+// sequential sweep (segmentalist_tpu/models/fbgmm.py:517-570, a lax.scan)
+// with components_fixedvar's predictive: the same fit as K3 to the
+// rounding of the operation order.
 
 #include <cstdint>
 
@@ -36,6 +43,7 @@ using diag_family_chain::Cols;
 
 struct FixedVarParams {
     const float *sum_xT;  // [B, D, K]
+    const float *sum_sqT;  // [B, D, K] (kSq only)
     const float *prec;    // [D] 1 / var
     const float *prec0;   // [D] 1 / var_0
     const float *p0m0;    // [D] prec0 mu_0
@@ -47,18 +55,19 @@ struct FixedVarParams {
 constexpr int kBatch = 8;
 
 // The fixed-variance column model: tables mu (kStorePP: and pp); the term
-// c0 + 0.5 lpp; prior vectors prec, prec0, p0m0; running sums sx.
-template <bool kStorePP>
+// c0 + 0.5 lpp; prior vectors prec, prec0, p0m0; running sums sx (kSq:
+// and ssq).
+template <bool kStorePP, bool kSq = false>
 struct FixedVarChain {
     static constexpr int kTables = kStorePP ? 2 : 1;
-    static constexpr int kTerms = 1, kPrior = 3, kSums = 1;
+    static constexpr int kTerms = 1, kPrior = 3, kSums = kSq ? 2 : 1;
     using Params = FixedVarParams;
     struct Upd {
         float c_new;
     };
 
-    __device__ static const float *sums(const Params &p, int) {
-        return p.sum_xT;
+    __device__ static const float *sums(const Params &p, int r) {
+        return r ? p.sum_sqT : p.sum_xT;
     }
 
     __device__ static void load_prior(const Params &p, float *prior, int D,
@@ -203,12 +212,16 @@ struct FixedVarChain {
         return Upd{c_new};
     }
 
+    // kDel: x leaves the column (sum - x, the JAX package's sum + (-1) x).
+    template <bool kDel>
     __device__ static void update_dim(const float *prior, const Cols &c,
                                       const Upd &u, int k, int d, float xd,
                                       float (&v)[kSums], float *vlog) {
-        v[0] = v[0] + xd;
+        v[0] = kDel ? v[0] - xd : v[0] + xd;
+        if constexpr (kSq) v[1] = kDel ? v[1] - xd * xd : v[1] + xd * xd;
+        const float sx[1] = {v[0]};
         float lpp = 0.0f;
-        derive_batch<1>(prior, c, k, d, u.c_new, v, lpp);
+        derive_batch<1>(prior, c, k, d, u.c_new, sx, lpp);
         vlog[d] = lpp;
     }
 
@@ -224,6 +237,8 @@ struct FixedVarChain {
 // the bytes a step streams).
 using SmemChain = FixedVarChain<true>;
 using GlobalChain = FixedVarChain<false>;
+using SmemItems = FixedVarChain<true, true>;
+using GlobalItems = FixedVarChain<false, true>;
 
 // The smem form with SmemChain, the global form with GlobalChain.
 template <bool kBigram>
@@ -261,7 +276,7 @@ extern "C" int fixedvar_chain_launch(
     int global, int threads, float alpha_over_K, float lms, float temp,
     float c0, int use_argmax, cudaStream_t stream) {
     return launch<false>(
-        FixedVarParams{sum_xT, prec, prec0, p0m0, c0}, embeds, Xe,
+        FixedVarParams{sum_xT, nullptr, prec, prec0, p0m0, c0}, embeds, Xe,
         log_prior_e, gumbel, counts, touched, tab_g, col_g, ks, B, S, D, K,
         global, threads, alpha_over_K, lms, temp, use_argmax, BigramLM{},
         stream);
@@ -277,7 +292,7 @@ extern "C" int bigram_fixedvar_chain_launch(
     float b, float lam, float one_minus_lam, float lms, float temp, float c0,
     cudaStream_t stream) {
     return launch<true>(
-        FixedVarParams{sum_xT, prec, prec0, p0m0, c0}, embeds, Xe,
+        FixedVarParams{sum_xT, nullptr, prec, prec0, p0m0, c0}, embeds, Xe,
         log_prior_e, gumbel, counts, touched, tab_g, col_g, ks, B, S, D, K,
         global, threads, 0.0f, lms, temp, 0,
         BigramLM{uni, big, corr_j, corr_i, a_over_K, a, b_over_K, b, lam,
@@ -306,4 +321,51 @@ extern "C" int fixedvar_chain_smem_limit() {
          (const void *)chain_kernel<SmemChain, true, false>,
          (const void *)chain_kernel<GlobalChain, false, true>,
          (const void *)chain_kernel<GlobalChain, true, true>});
+}
+
+// Kernel K10 (fixed variance): the item chain over S items of one model
+// (B = 1).  k_old [B, S] each item's old column (-1: none); counts,
+// sum_xT, sum_sqT its statistics; outputs ks [B, S], cnt_out [B, K] and
+// sums_out [B, 2, D, K] (sx, ssq); touched [B, 2 S, 2, D] scratch.
+extern "C" int fixedvar_items_launch(
+    const float *Xe, const float *log_prior_e, const float *gumbel,
+    const int *k_old, const int *counts, const float *sum_xT,
+    const float *sum_sqT, const float *prec, const float *prec0,
+    const float *p0m0, float *touched, float *tab_g, float *col_g, int *ks,
+    int *cnt_out, float *sums_out, int B, int S, int D, int K, int global,
+    int threads, float alpha_over_K, float lms, float temp, float c0,
+    int use_argmax, cudaStream_t stream) {
+    namespace dfc = diag_family_chain;
+    const FixedVarParams pr{sum_xT, sum_sqT, prec, prec0, p0m0, c0};
+    if (global) {
+        Args<GlobalItems> a{nullptr, Xe, log_prior_e, gumbel, counts, pr,
+                            touched, tab_g, col_g, ks, S, D, K,
+                            alpha_over_K, lms, temp, use_argmax, BigramLM{},
+                            k_old, cnt_out, sums_out};
+        return (int)dfc::launch_items<GlobalItems, true>(a, B, threads,
+                                                         stream);
+    }
+    Args<SmemItems> a{nullptr, Xe, log_prior_e, gumbel, counts, pr, touched,
+                      tab_g, col_g, ks, S, D, K, alpha_over_K, lms, temp,
+                      use_argmax, BigramLM{}, k_old, cnt_out, sums_out};
+    return (int)dfc::launch_items<SmemItems, false>(a, B, threads, stream);
+}
+
+// K10's dynamic shared memory in bytes in the given form (the launch
+// plan's smem_bytes must give exactly this).
+extern "C" long long fixedvar_items_smem_bytes(int global, int D, int K) {
+    namespace dfc = diag_family_chain;
+    return 4 * (global ? dfc::smem_words<GlobalItems>(true, false, D, 0, K,
+                                                      true)
+                       : dfc::smem_words<SmemItems>(false, false, D, 0, K,
+                                                    true));
+}
+
+// The dynamic shared memory a CTA of K10 (fixed variance) may take on the
+// current device (minus a CUDA error code on error).
+extern "C" int fixedvar_items_smem_limit() {
+    using diag_family_chain::gibbs_items_kernel;
+    return diag_family_chain::smem_limit(
+        {(const void *)gibbs_items_kernel<SmemItems, false>,
+         (const void *)gibbs_items_kernel<GlobalItems, true>});
 }

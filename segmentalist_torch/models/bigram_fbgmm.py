@@ -14,11 +14,12 @@ from .fbgmm import FBGMM
 
 class BigramFBGMM(FBGMM):
     def __init__(self, X, prior, K, assignments="rand",
-                 covariance_type="fixed", lms=1.0, lm=None, device="cuda"):
+                 covariance_type="fixed", lms=1.0, lm=None, seed=0,
+                 device="cuda"):
         # alpha is unused by the bigram model (weights come from the LM); the
         # value 0 makes accidental use of the Dirichlet path conspicuous.
         super().__init__(X, prior, alpha=0.0, K=K, assignments=assignments,
-                         covariance_type=covariance_type, lms=lms,
+                         covariance_type=covariance_type, lms=lms, seed=seed,
                          device=device)
         self.lm = lm
 

@@ -146,3 +146,23 @@ def log_marg_k_vec(prior: NIW, stats: SuffStats) -> torch.Tensor:
 def log_marg(prior: NIW, stats: SuffStats) -> torch.Tensor:
     """Scalar p(X | z)."""
     return log_marg_k_vec(prior, stats).sum()
+
+
+def rand_k(generator: torch.Generator, prior: NIW, stats: SuffStats, k):
+    """Posterior (mean, var) draw of slot ``k`` (reference ``rand_k``,
+    ``gaussian_components_diag.py:305-323``): var from the scaled
+    inverse-chi-squared ``1 / Gamma(v_n/2, rate s_n/2)``, then the mean
+    from N(m_n, var / k_n); the gamma draws [D] first, then the normals
+    [D], the JAX package's order."""
+    n = stats.counts[k].to(stats.sum_x.dtype)
+    k_n = prior.k_0 + n
+    v_n = prior.v_0 + n
+    m_n = (prior.k_0 * prior.m_0 + stats.sum_x[k]) / k_n
+    s_n = (prior.S_0 + prior.k_0 * torch.square(prior.m_0) + stats.sum_sq[k]
+           - k_n * torch.square(m_n))
+    shape = torch.broadcast_to(v_n / 2.0, m_n.shape).contiguous()
+    gamma_draw = torch._standard_gamma(shape, generator=generator)
+    var = (s_n / 2.0) / gamma_draw
+    mean = m_n + torch.sqrt(var / k_n) * torch.randn(
+        m_n.shape, generator=generator, dtype=m_n.dtype, device=m_n.device)
+    return mean, var

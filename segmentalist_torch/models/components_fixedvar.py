@@ -137,3 +137,18 @@ def log_marg(prior: FixedVarPrior, stats: SuffStats) -> torch.Tensor:
     """Scalar p(X | z) (reference ``log_marg``,
     ``gaussian_components_fixedvar.py:285-296``)."""
     return log_marg_k_vec(prior, stats).sum()
+
+
+def rand_k(generator: torch.Generator, prior: FixedVarPrior,
+           stats: SuffStats, k) -> torch.Tensor:
+    """Posterior draw of slot ``k``'s mean (reference ``rand_k``,
+    ``gaussian_components_fixedvar.py:298-308``): one normal draw [D]."""
+    mu_pred, _ = _derive(prior, stats.counts[k], stats.sum_x[k])
+    precision = 1.0 / prior.var
+    precision_0 = 1.0 / prior.var_0
+    prec_n = (precision_0
+              + stats.counts[k].to(stats.sum_x.dtype) * precision)
+    std = torch.sqrt(1.0 / prec_n)
+    return mu_pred + std * torch.randn(mu_pred.shape, generator=generator,
+                                       dtype=mu_pred.dtype,
+                                       device=mu_pred.device)

@@ -25,6 +25,7 @@ import torch
 
 from ..ops.stats import SuffStats, packed_outer, sym_pack
 from ..priors import NIW
+from ..wishart import bartlett
 
 _LOG_PI = math.log(math.pi)
 
@@ -198,3 +199,29 @@ def map_k(prior: NIW, stats: SuffStats, k):
     s_n = (prior.S_0 + prior.k_0 * _outer(prior.m_0, prior.m_0)
            + stats.sum_sq[k] - k_n * _outer(m_n, m_n))
     return m_n, s_n / (v_n + D + 2.0)
+
+
+def rand_k(generator: torch.Generator, prior: NIW, stats: SuffStats, k):
+    """Posterior NIW draw of slot ``k``'s (mean, covariance) (reference
+    ``rand_k``, ``gaussian_components.py:291-303`` with ``wishart.py``):
+    Sigma = L A^-T A^-1 L^T with L = chol(S_n) and A the Bartlett factor of
+    v_n degrees of freedom, then mu ~ N(m_n, Sigma / k_n); the chi-square
+    draws [D], the normals [D, D] and the mean's normals [D], in the JAX
+    package's order."""
+    n = stats.counts[k].to(stats.sum_x.dtype)
+    k_n = prior.k_0 + n
+    v_n = prior.v_0 + n
+    m_n = (prior.k_0 * prior.m_0 + stats.sum_x[k]) / k_n
+    D = stats.sum_x.shape[-1]
+    s_n = (prior.S_0 + prior.k_0 * _outer(prior.m_0, prior.m_0)
+           + stats.sum_sq[k] - k_n * _outer(m_n, m_n))
+    A = bartlett(generator, D, v_n, s_n.dtype, s_n.device)
+    L = torch.linalg.cholesky(s_n)
+    eye = torch.eye(D, dtype=s_n.dtype, device=s_n.device)
+    inv_A = torch.linalg.solve_triangular(A, eye, upper=False)
+    factor = L @ inv_A.T
+    sigma = factor @ factor.T
+    mean_chol = torch.linalg.cholesky(sigma / k_n)
+    mu = m_n + mean_chol @ torch.randn(D, generator=generator,
+                                        dtype=s_n.dtype, device=s_n.device)
+    return mu, sigma

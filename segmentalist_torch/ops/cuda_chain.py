@@ -106,60 +106,104 @@ def _derive(prec, prec0, p0m0, cnt, sx):
     return (p0m0 + prec * sx) / prec_n, prec_n * prec / (prec_n + prec)
 
 
-def _sum_log_d(pp):
-    """sum over axis 1 of log(pp), accumulated in ascending d (the
-    kernel's order); non-positive entries count as log(1) = 0."""
-    acc = torch.zeros_like(pp[:, 0])
-    for d in range(pp.shape[1]):
-        r = pp[:, d]
-        acc = acc + torch.log(torch.where(r > 0, r, 1.0))
+def sum_d(terms):
+    """sum over axis 1, accumulated in ascending d from 0 (the kernels'
+    order; the terms themselves are formed elementwise, all d at once)."""
+    acc = torch.zeros_like(terms[:, 0])
+    for d in range(terms.shape[1]):
+        acc = acc + terms[:, d]
     return acc
 
 
-def _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec,
-                 prec0, p0m0, temp, use_argmax, weights):
-    """The chain loop both plain versions share, all utterances advancing
-    one segment per step; utterances past their last segment see
-    ``embeds < 0`` and change nothing.  ``weights(cnt, j_prev)`` gives the
-    [B, K] mixture-weight term of a step from the running counts [B, K] and
-    the previous valid segment's draw [B] (-1 before the first)."""
+def _sum_log_d(pp):
+    """sum over axis 1 of log(pp), accumulated in ascending d (the
+    kernel's order); non-positive entries count as log(1) = 0."""
+    return sum_d(torch.log(torch.where(pp > 0, pp, 1.0)))
+
+
+class FixedVarCols:
+    """The fixed-variance column model of the plain chains (K3 / K4 and
+    K10's fixed policy, ``csrc/fixedvar_chain.cu``): per column mu and pp
+    [B, D, K] from the count and sx, and lpp [B, K] = sum_d log pp; the fit
+    is ``(c0 + 0.5 lpp) - 0.5 sum_d (x_d - mu[d])^2 pp[d]`` in ascending
+    d.  ``init`` derives every column, ``update`` the columns (b, k)."""
+
+    def __init__(self, prec, prec0, p0m0):
+        self.prec, self.prec0, self.p0m0 = prec, prec0, p0m0
+
+    def init(self, cnt, sums):
+        self.mu, self.pp = _derive(self.prec[:, None], self.prec0[:, None],
+                                   self.p0m0[:, None], cnt[:, None, :],
+                                   sums[0])
+        self.lpp = _sum_log_d(self.pp)
+
+    def post(self, x, cnt):
+        dl = x[:, :, None] - self.mu
+        maha = sum_d(dl * dl * self.pp)
+        return (-0.5 * x.shape[-1] * _LOG_2PI + 0.5 * self.lpp) - 0.5 * maha
+
+    def update(self, b, k, c_new, sums_k):
+        mu_k, pp_k = _derive(self.prec, self.prec0, self.p0m0,
+                             c_new[:, None], sums_k[0])
+        self.mu[b, :, k] = mu_k
+        self.pp[b, :, k] = pp_k
+        self.lpp[b, k] = _sum_log_d(pp_k)
+
+
+def _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sums, cols, temp,
+                 use_argmax, weights, k_old=None):
+    """The chain loop of every plain chain version (K3 / K4, K6 / K7 and
+    K10), all utterances advancing one segment per step; utterances past
+    their last segment see ``embeds < 0`` and change nothing.
+
+    ``sums`` are the running sums [B, D, K] (sx, and ssq where given),
+    each item adding x (and x x); ``cols`` is the column model (``init``,
+    ``post``, ``update``: :class:`FixedVarCols`,
+    ``cuda_diag_chain.DiagCols``); ``weights(cnt, j_prev)`` gives the [B,
+    K] mixture-weight term of a step from the running counts [B, K] and the
+    previous valid segment's draw [B] (-1 before the first).  ``k_old``
+    [B, S] (K10's delete): before step s is scored its item leaves column
+    ``k_old[:, s]`` where that is >= 0, by ``sum - x`` (the JAX package's
+    ``sum + (-1) x``, the same bits).  Returns (ks [B, S] int32, -1 pads;
+    the final counts [B, K] and sums)."""
     B, S = embeds.shape
-    D = Xe.shape[-1]
-    pc, p0c, pmc = prec[:, None], prec0[:, None], p0m0[:, None]  # [D, 1]
     cnt = counts.to(Xe.dtype).clone()                           # [B, K]
-    sx = sum_xT.clone()                                         # [B, D, K]
-    mu, pp = _derive(pc, p0c, pmc, cnt[:, None, :], sx)
-    lpp = _sum_log_d(pp)                                        # [B, K]
+    sums = [t.clone() for t in sums]                            # [B, D, K]
+    cols.init(cnt, sums)
     ks = torch.full((B, S), -1, dtype=torch.int32, device=Xe.device)
     j_prev = torch.full((B,), -1, dtype=torch.long, device=Xe.device)
     steps = torch.arange(1, S + 1, device=Xe.device)
     n_steps = int(torch.where(embeds >= 0, steps, 0).amax()) if S else 0
-    c0 = -0.5 * D * _LOG_2PI
     rows = torch.arange(B, device=Xe.device)
+
+    def move(sel, k, x, add):
+        """Columns k of the rows ``sel`` take (add) or give up x."""
+        b = rows[sel]
+        k, xo = k[b], x[b]
+        cnt[b, k] += 1.0 if add else -1.0
+        for r, t in enumerate(sums):
+            term = xo if r == 0 else xo * xo
+            if add:
+                t[b, :, k] += term
+            else:
+                t[b, :, k] -= term
+        cols.update(b, k, cnt[b, k], [t[b, :, k] for t in sums])
+
     for s in range(n_steps):
         ok = embeds[:, s] >= 0
         x = Xe[:, s, :]
-        maha = torch.zeros_like(cnt)
-        for d in range(D):
-            dl = x[:, d, None] - mu[:, d, :]
-            maha = maha + dl * dl * pp[:, d, :]
-        post = (c0 + 0.5 * lpp) - 0.5 * maha
+        if k_old is not None:
+            kd = k_old[:, s].long()
+            move(ok & (kd >= 0), kd.clamp_min(0), x, add=False)
         logits = weights(cnt, j_prev) + torch.where(
-            cnt > 0, post, log_prior_e[:, s, None])
+            cnt > 0, cols.post(x, cnt), log_prior_e[:, s, None])
         k_draw = (torch.argmax(logits, dim=-1) if use_argmax else
                   annealed_gumbel_max(logits, gumbel[:, s], temp))
         k_new = canonicalize_new_component(cnt, k_draw)
         ks[:, s] = torch.where(ok, k_new, -1).to(torch.int32)
         j_prev = torch.where(ok, k_new, j_prev)
-        b, k = rows[ok], k_new[ok]
-        cnt[b, k] += 1.0
-        sx[b, :, k] += x[ok]
-        mu_k, pp_k = _derive(prec, prec0, p0m0, cnt[b, k][:, None],
-                             sx[b, :, k])
-        mu[b, :, k] = mu_k
-        pp[b, :, k] = pp_k
-        lpp[b, k] = _sum_log_d(pp_k)
-    return ks
+        move(ok, k_new, x, add=True)
+    return ks, cnt, sums
 
 
 def fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
@@ -168,8 +212,9 @@ def fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
     def weights(cnt, j_prev):
         return lms * torch.log(alpha / K + cnt)
 
-    return _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
-                        prec, prec0, p0m0, temp, use_argmax, weights)
+    return _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, (sum_xT,),
+                        FixedVarCols(prec, prec0, p0m0), temp, use_argmax,
+                        weights)[0]
 
 
 def bigram_lm_weights(uni_lo, big_table, corr_j, corr_i, consts, K, lms,
@@ -209,8 +254,9 @@ def bigram_fixedvar_chain_plain(embeds, Xe, log_prior_e, gumbel, counts,
     the rest as K3."""
     weights = bigram_lm_weights(uni_lo, big_table, corr_j, corr_i, consts,
                                 K, lms, Xe.dtype)
-    return _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
-                        prec, prec0, p0m0, temp, False, weights)
+    return _chain_plain(embeds, Xe, log_prior_e, gumbel, counts, (sum_xT,),
+                        FixedVarCols(prec, prec0, p0m0), temp, False,
+                        weights)[0]
 
 
 class ChainPlan(NamedTuple):

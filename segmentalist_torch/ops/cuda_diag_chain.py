@@ -29,11 +29,9 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_lib
-from .cuda_chain import (ChainPlan, bigram_constants, bigram_lm_weights,
-                         pick_form)
-from .random import annealed_gumbel_max
+from .cuda_chain import (ChainPlan, _chain_plain, bigram_constants,
+                         bigram_lm_weights, pick_form, sum_d)
 from .special import lgamma_ratio
-from .stats import canonicalize_new_component
 
 _HALF_LOG_PI = 0.5 * math.log(math.pi)
 _GROUPS = 4  # stride of the Student-t group products
@@ -109,24 +107,25 @@ def _derive(k0m0, snp0, k0, v0, cnt, sx, ssq):
 def _sum_log_d(var, positive_only: bool):
     """sum over axis 1 of log(var) in ascending d (the kernel's order);
     with ``positive_only`` non-positive entries count as log(1) = 0."""
-    acc = torch.zeros_like(var[:, 0])
-    for d in range(var.shape[1]):
-        r = var[:, d]
-        acc = acc + torch.log(torch.where(r > 0, r, 1.0) if positive_only
-                              else r)
-    return acc
+    return sum_d(torch.log(torch.where(var > 0, var, 1.0) if positive_only
+                           else var))
+
+
+def _quotients(x, mu, var, v_n):
+    """[B, D, K] ``(x - mu)^2 / (var v_n)``, elementwise."""
+    dl = x[:, :, None] - mu
+    return (dl * dl) / (var * v_n[:, None, :])
 
 
 def _student_t_groups(x, mu, var, v_n):
     """t1 [B, K]: the logs of the four stride-4 group products of
     ``1 + (x - mu)^2 / (var v_n)``, each product in ascending d, the logs
     summed in group order."""
+    r = 1.0 + _quotients(x, mu, var, v_n)
     prods = [None] * _GROUPS
     for d in range(x.shape[1]):
-        dl = x[:, d, None] - mu[:, d, :]
-        r = 1.0 + (dl * dl) / (var[:, d, :] * v_n)
         j = d % _GROUPS
-        prods[j] = r if prods[j] is None else prods[j] * r
+        prods[j] = r[:, d] if prods[j] is None else prods[j] * r[:, d]
     t1 = torch.zeros_like(v_n)
     for p in prods:
         if p is not None:
@@ -134,52 +133,62 @@ def _student_t_groups(x, mu, var, v_n):
     return t1
 
 
-def _diag_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
-                      sum_sqT, k0m0, snp0, k0, v0, temp, use_argmax, weights):
-    """The chain loop both plain versions share, all utterances advancing
-    one segment per step; utterances past their last segment see
-    ``embeds < 0`` and change nothing.  ``weights(cnt, j_prev)`` gives the
-    [B, K] mixture-weight term of a step."""
-    B, S = embeds.shape
-    D = Xe.shape[-1]
-    m0c, s0c = k0m0[:, None], snp0[:, None]                     # [D, 1]
-    cnt = counts.to(Xe.dtype).clone()                           # [B, K]
-    sx, ssq = sum_xT.clone(), sum_sqT.clone()                   # [B, D, K]
-    mu, var = _derive(m0c, s0c, k0, v0, cnt[:, None, :], sx, ssq)
-    lpv = _sum_log_d(var, positive_only=False)                  # [B, K]
-    gr = lgamma_ratio(v0 + cnt)
-    ks = torch.full((B, S), -1, dtype=torch.int32, device=Xe.device)
-    j_prev = torch.full((B,), -1, dtype=torch.long, device=Xe.device)
-    steps = torch.arange(1, S + 1, device=Xe.device)
-    n_steps = int(torch.where(embeds >= 0, steps, 0).amax()) if S else 0
-    rows = torch.arange(B, device=Xe.device)
-    for s in range(n_steps):
-        ok = embeds[:, s] >= 0
-        x = Xe[:, s, :]
-        v_n = v0 + cnt
-        t1 = _student_t_groups(x, mu, var, v_n)
-        post = ((D * ((gr - 0.5 * torch.log(v_n)) - _HALF_LOG_PI)
-                 - 0.5 * lpv) - ((v_n + 1.0) / 2.0) * t1)
-        logits = weights(cnt, j_prev) + torch.where(
-            cnt > 0, post, log_prior_e[:, s, None])
-        k_draw = (torch.argmax(logits, dim=-1) if use_argmax else
-                  annealed_gumbel_max(logits, gumbel[:, s], temp))
-        k_new = canonicalize_new_component(cnt, k_draw)
-        ks[:, s] = torch.where(ok, k_new, -1).to(torch.int32)
-        j_prev = torch.where(ok, k_new, j_prev)
-        b, k = rows[ok], k_new[ok]
-        xo = x[ok]
-        cnt[b, k] += 1.0
-        sx[b, :, k] += xo
-        ssq[b, :, k] += xo * xo
-        c_new = cnt[b, k]
-        mu_k, var_k = _derive(k0m0, snp0, k0, v0, c_new[:, None],
-                              sx[b, :, k], ssq[b, :, k])
-        mu[b, :, k] = mu_k
-        var[b, :, k] = var_k
-        lpv[b, k] = _sum_log_d(var_k, positive_only=True)
-        gr[b, k] = lgamma_ratio(v0 + c_new)
-    return ks
+def _student_t_exact(x, mu, var, v_n):
+    """t [B, K]: ``sum_d log1p((x - mu)^2 / (var v_n))`` in ascending d,
+    the exact form of ``components_diag._log_prod_students_t``."""
+    return sum_d(torch.log1p(_quotients(x, mu, var, v_n)))
+
+
+def gr_table(v_0: float, max_count: int, dtype, device) -> torch.Tensor:
+    """[max_count + 1] ``lgamma((v0 + c + 1)/2) - lgamma((v0 + c)/2)`` of
+    every count c up to ``max_count``: the exact count-dependent Student-t
+    constant that K10's diag policy and its plain version both read."""
+    v = float(v_0) + torch.arange(max_count + 1, dtype=dtype, device=device)
+    return torch.lgamma((v + 1.0) / 2.0) - torch.lgamma(v / 2.0)
+
+
+class DiagCols:
+    """The normal-inverse-chi-squared column model of the plain chains:
+    per column mu and var [B, D, K], lpv [B, K] = sum_d log var and gr [B,
+    K] = lgamma((v_n + 1)/2) - lgamma(v_n/2); the fit is ``D ((gr -
+    log(v_n)/2) - log(pi)/2) - lpv/2 - ((v_n + 1)/2) t``.  K6 / K7
+    (``gr_tab`` None): t the grouped form, gr the Stirling series, an
+    updated column's lpv over its positive variances.  K10's exact policy
+    (``gr_tab`` from :func:`gr_table`): t the per-dimension log1p sum, gr
+    from the table, lpv over every variance."""
+
+    def __init__(self, k0m0, snp0, k0, v0, gr_tab=None):
+        self.k0m0, self.snp0, self.k0, self.v0 = k0m0, snp0, k0, v0
+        self.gr_tab = gr_tab
+
+    def _gr(self, cnt):
+        if self.gr_tab is None:
+            return lgamma_ratio(self.v0 + cnt)
+        return self.gr_tab[cnt.long()]
+
+    def init(self, cnt, sums):
+        self.mu, self.var = _derive(self.k0m0[:, None], self.snp0[:, None],
+                                    self.k0, self.v0, cnt[:, None, :],
+                                    sums[0], sums[1])
+        self.lpv = _sum_log_d(self.var, positive_only=False)
+        self.gr = self._gr(cnt)
+
+    def post(self, x, cnt):
+        D = x.shape[-1]
+        v_n = self.v0 + cnt
+        t = (_student_t_groups if self.gr_tab is None else _student_t_exact)(
+            x, self.mu, self.var, v_n)
+        return ((D * ((self.gr - 0.5 * torch.log(v_n)) - _HALF_LOG_PI)
+                 - 0.5 * self.lpv) - ((v_n + 1.0) / 2.0) * t)
+
+    def update(self, b, k, c_new, sums_k):
+        mu_k, var_k = _derive(self.k0m0, self.snp0, self.k0, self.v0,
+                              c_new[:, None], sums_k[0], sums_k[1])
+        self.mu[b, :, k] = mu_k
+        self.var[b, :, k] = var_k
+        self.lpv[b, k] = _sum_log_d(var_k,
+                                    positive_only=self.gr_tab is None)
+        self.gr[b, k] = self._gr(c_new)
 
 
 def diag_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
@@ -189,9 +198,9 @@ def diag_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
     def weights(cnt, j_prev):
         return lms * torch.log(alpha / K + cnt)
 
-    return _diag_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
-                             sum_sqT, k0m0, snp0, k0, v0, temp, use_argmax,
-                             weights)
+    return _chain_plain(embeds, Xe, log_prior_e, gumbel, counts,
+                        (sum_xT, sum_sqT), DiagCols(k0m0, snp0, k0, v0),
+                        temp, use_argmax, weights)[0]
 
 
 def bigram_diag_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
@@ -200,9 +209,9 @@ def bigram_diag_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
     """Plain PyTorch version of K7: K4's LM weights, the rest as K6."""
     weights = bigram_lm_weights(uni_lo, big_table, corr_j, corr_i, consts,
                                 K, lms, Xe.dtype)
-    return _diag_chain_plain(embeds, Xe, log_prior_e, gumbel, counts, sum_xT,
-                             sum_sqT, k0m0, snp0, k0, v0, temp, False,
-                             weights)
+    return _chain_plain(embeds, Xe, log_prior_e, gumbel, counts,
+                        (sum_xT, sum_sqT), DiagCols(k0m0, snp0, k0, v0),
+                        temp, False, weights)[0]
 
 
 N_COL_ARRAYS = 6  # the global form's [B, 6, K] column arrays

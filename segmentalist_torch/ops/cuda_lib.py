@@ -85,6 +85,21 @@ _SIGNATURES = {
     "diag_chain_smem_bytes": [_I] * 5,
     # -> bytes (or minus a CUDA error code)
     "diag_chain_smem_limit": [],
+    # Xe, log_prior_e, gumbel, k_old, counts, sum_xT, sum_sqT, prec, prec0,
+    # p0m0, touched, tab_g, col_g, ks, cnt_out, sums_out, B, S, D, K,
+    # global, threads, alpha_over_K, lms, temp, c0, use_argmax, stream
+    "fixedvar_items_launch": [_P] * 16 + [_I] * 6 + [_F] * 4 + [_I, _P],
+    # Xe, log_prior_e, gumbel, k_old, counts, sum_xT, sum_sqT, k0m0, snp0,
+    # gr, k0, v0, touched, tab_g, col_g, ks, cnt_out, sums_out, B, S, D, K,
+    # global, threads, alpha_over_K, lms, temp, half_log_pi, use_argmax,
+    # stream
+    "diag_items_launch": [_P] * 10 + [_F] * 2 + [_P] * 6 + [_I] * 6
+                         + [_F] * 4 + [_I, _P],
+    # global, D, K -> bytes; -> bytes (or minus a CUDA error code)
+    "fixedvar_items_smem_bytes": [_I] * 3,
+    "fixedvar_items_smem_limit": [],
+    "diag_items_smem_bytes": [_I] * 3,
+    "diag_items_smem_limit": [],
     # Xc, prior_c, g_{LT, LmuT, ck, vinv, vh}, t_{L, Lmu, ck, vinv, vh},
     # tslot, w, counts, valid_m, out, B, M, D, K, S, rows, stream
     "fullcov_scores_launch": [_P] * 17 + [_I] * 6 + [_P],
@@ -113,6 +128,8 @@ _SIGNATURES = {
 _RESTYPES = {"diag_family_smem_bytes": ctypes.c_longlong,
              "diag_chain_smem_bytes": ctypes.c_longlong,
              "fixedvar_chain_smem_bytes": ctypes.c_longlong,
+             "fixedvar_items_smem_bytes": ctypes.c_longlong,
+             "diag_items_smem_bytes": ctypes.c_longlong,
              "fullcov_chain_smem_bytes": ctypes.c_longlong,
              "fullcov_scores_smem_bytes": ctypes.c_longlong,
              "segment_dp_smem_bytes": ctypes.c_longlong}

@@ -161,3 +161,25 @@ def canonicalize_new_component(counts: torch.Tensor,
     (``counts`` [..., K], ``k`` [...])."""
     at_k = counts.gather(-1, k[..., None].long())[..., 0]
     return torch.where(at_k > 0, k, first_empty_slot(counts).to(k.dtype))
+
+
+def decollide_new_items(counts: torch.Tensor,
+                        k_new: torch.Tensor) -> torch.Tensor:
+    """Give every item that drew an EMPTY slot its own empty slot, by rank
+    in item order onto the empty slots in index order (the JAX package's
+    ``ops.stats.decollide_new_items``).  A blocked per-item sweep draws all
+    items against frozen counts, and the first-empty birth rule would fuse
+    every simultaneous new-component draw into one component; empty slots
+    are exchangeable (equal weight alpha/K), so the relabelling leaves each
+    item's conditional as it was.  Creators beyond the empty slots keep
+    their drawn slot (saturation).  ``counts`` [K], ``k_new`` [N]."""
+    K = counts.shape[0]
+    lane = torch.arange(K, device=counts.device)
+    empty = counts <= 0
+    is_new = empty[k_new.long()]
+    new_i = is_new.to(torch.int64)
+    rank = torch.cumsum(new_i, 0) - new_i
+    empty_order = torch.argsort(torch.where(empty, lane, K), stable=True)
+    tgt = empty_order[rank.clamp_max(K - 1)]
+    return torch.where(is_new & (rank < empty.sum()), tgt.to(k_new.dtype),
+                       k_new)

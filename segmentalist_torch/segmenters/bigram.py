@@ -133,7 +133,7 @@ class BigramAcousticWordseg(BlockedWordseg):
         self.acoustic_model = BigramFBGMM(
             torch.as_tensor(embeddings, device=self.device), am_param_prior,
             am_K, assignments, covariance_type=covariance_type, lms=lms,
-            lm=self.lm, device=self.device)
+            lm=self.lm, seed=seed, device=self.device)
         self._init_sampler(batch_size, seed)
         self.set_lm_counts()
 

@@ -118,12 +118,16 @@ class BlockedWordseg:
                      seed_assignments_dict, n_slices_min, n_slices_max,
                      min_duration, p_boundary_init, beta_sent_boundary, wip,
                      time_power_term, init_am_assignments, seed,
-                     decollide_new, device):
+                     decollide_new, device, one_by_one=False):
         """Build the corpus and the initial assignments; returns
         ``(embeddings [N, D], assignments [N], am_K)``.
 
         ``seed`` seeds the host RNG of the initialisation (the draws the JAX
-        package takes from numpy's global RNG, in the same order)."""
+        package takes from numpy's global RNG, in the same order).  With
+        ``one_by_one`` (the unigram segmenter) ``init_am_assignments`` may be
+        "one-by-one": every initial segment stays unassigned and its
+        embedding id is kept in ``_init_embeds`` (in corpus order), for the
+        segmenter to assign one by one once its model exists."""
         if seed_assignments_dict is not None and seed_boundaries_dict is None:
             raise ValueError(
                 "seed_assignments_dict needs seed_boundaries_dict")
@@ -161,6 +165,9 @@ class BlockedWordseg:
             init_embeds = all_embeds[all_embeds >= 0]
             assignments[init_embeds] = init_rng.randint(0, am_K,
                                                         len(init_embeds))
+        elif init_am_assignments == "one-by-one" and one_by_one:
+            all_embeds = self.utterances.all_segmented_embeds()
+            self._init_embeds = all_embeds[all_embeds >= 0]
         else:
             raise ValueError("invalid value for `init_am_assignments`: "
                              + str(init_am_assignments))
@@ -168,12 +175,14 @@ class BlockedWordseg:
 
     def _init_sampler(self, batch_size: Optional[int], seed: int):
         """Block size, the host RNG of the per-sweep utterance order, the
-        device generator of the sampling noise, and the DP-windowed
-        candidate tables."""
+        device generator of the sampling noise (the acoustic model's, which
+        its constructor seeded with ``seed``: one stream for the block
+        steps and the model's own draws), and the DP-windowed candidate
+        tables."""
         self.batch_size = (int(batch_size) if batch_size
                            else min(64, self.utterances.D))
         self._rng = np.random.RandomState(seed)
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._gen = self.acoustic_model.generator
         utt = self.utterances
         self.W_dp = (min(self.n_slices_max, utt.N_max)
                      if self.n_slices_max > 0 else utt.N_max)
@@ -221,13 +230,18 @@ class BlockedWordseg:
         return list(self.acoustic_model.assignments.cpu().numpy()[embeds])
 
     def _sample_sweeps(self, temps, anneal_gibbs_am: bool,
-                       **step_kwargs) -> dict:
+                       am_n_iter: int = 0, **step_kwargs) -> dict:
         """Blocked Gibbs sweeps at temperatures ``temps``: every sweep visits
         the utterances in a fresh host permutation, in blocks of
-        ``batch_size``.  Returns the reference's 8-key record dict."""
+        ``batch_size``, after ``am_n_iter`` sweeps of the acoustic model
+        alone over the assigned items (``FBGMM.gibbs_sample``, sequential).
+        Returns the reference's 8-key record dict."""
         record = {k: [] for k in RECORD_KEYS}
         for temp in temps:
             t0 = time.time()
+            if am_n_iter > 0:
+                self.acoustic_model.gibbs_sample(am_n_iter,
+                                                 consider_unassigned=False)
             temp = float(temp)
             assign_temp = temp if anneal_gibbs_am else 1.0
             blocks = pad_utterance_order(

@@ -69,21 +69,23 @@ class UnigramAcousticWordseg(BlockedWordseg):
                  batch_size: Optional[int] = None, seed: int = 0,
                  decollide_new: bool = True, device="cuda"):
         self.set_fb_type(fb_type)
-        if (init_am_assignments == "one-by-one"
-                and seed_assignments_dict is None):
-            raise NotImplementedError(
-                "init_am_assignments='one-by-one' needs FBGMM's sequential "
-                "Gibbs step, which segmentalist_torch does not port yet")
+        self._init_embeds = None
         embeddings, assignments, am_K = self._init_corpus(
             am_K, embedding_mats, vec_ids_dict, durations_dict,
             landmarks_dict, seed_boundaries_dict, seed_assignments_dict,
             n_slices_min, n_slices_max, min_duration, p_boundary_init,
             beta_sent_boundary, wip, time_power_term, init_am_assignments,
-            seed, decollide_new, device)
+            seed, decollide_new, device, one_by_one=True)
         self.acoustic_model = FBGMM(
             torch.as_tensor(embeddings, device=self.device), am_param_prior,
             am_alpha, am_K, assignments, covariance_type=covariance_type,
-            lms=lms, device=self.device)
+            lms=lms, seed=seed, device=self.device)
+        if self._init_embeds is not None:
+            # "one-by-one": each initial segment drawn against the ones
+            # before it, in corpus order (the JAX package's
+            # gibbs_sample_inside_loop_i loop, unigram.py:238-245): one K10
+            # launch with the delete off
+            self.acoustic_model.reassign_items(self._init_embeds)
         self._init_sampler(batch_size, seed)
 
     # ------------------------------------------------------------------ API
@@ -125,18 +127,44 @@ class UnigramAcousticWordseg(BlockedWordseg):
         """Blocked Gibbs sampling over all utterances (reference
         ``gibbs_sample``, unigram_acoustic_wordseg.py:362-472): every sweep
         visits the utterances in a fresh host permutation, in blocks of
-        ``batch_size``.  Returns the reference's 8-key record dict.
-        ``am_n_iter`` > 0 (acoustic-model-only sweeps before each sweep)
-        needs FBGMM's sequential Gibbs step, which is not ported yet."""
-        if am_n_iter > 0:
-            raise NotImplementedError(
-                "am_n_iter > 0 needs FBGMM.gibbs_sample "
-                "(segmentalist_tpu/models/fbgmm.py:391), which "
-                "segmentalist_torch does not port yet")
+        ``batch_size``, after ``am_n_iter`` sequential sweeps of the
+        acoustic model alone over its assigned items (the JAX package's
+        ``unigram.py:449-452``; one K10 launch each for the fixed and diag
+        families).  Returns the reference's 8-key record dict."""
         temps = anneal_temperatures(n_iter, anneal_schedule,
                                     anneal_start_temp_inv,
                                     anneal_end_temp_inv, n_anneal_steps)
-        return self._sample_sweeps(temps, anneal_gibbs_am)
+        return self._sample_sweeps(temps, anneal_gibbs_am, am_n_iter)
+
+    def segment(self, *args, **kwargs) -> dict:
+        """Alias of :meth:`gibbs_sample` (the JAX package's ``segment``,
+        unigram.py:493)."""
+        return self.gibbs_sample(*args, **kwargs)
+
+    def gibbs_sample_i(self, i: int, anneal_temp: float = 1.0,
+                       anneal_gibbs_am: bool = False) -> float:
+        """Resample the boundaries and components of utterance ``i`` alone:
+        a block of one (reference ``gibbs_sample_i``,
+        unigram_acoustic_wordseg.py:252-360; the JAX package's
+        ``unigram.py:376-382``).  Returns its DP log probability."""
+        assign_temp = anneal_temp if anneal_gibbs_am else 1.0
+        return float(self.block_step(np.array([int(i)]), anneal_temp,
+                                     assign_temp))
+
+    def get_log_margs_i(self, i: int):
+        """Log marginals of utterance ``i``'s segments with the utterance
+        held out (reference ``get_log_margs_i``,
+        unigram_acoustic_wordseg.py:539-564): its segments leave the model,
+        are scored, and the state is put back."""
+        embeds = [e for e in self.utterances.get_segmented_embeds_i(i)
+                  if e != -1]
+        am = self.acoustic_model
+        saved = (am.stats, am._assign_pad.clone())
+        for e in embeds:
+            am.del_item(e)
+        out = [float(v) for v in am.log_marg_batch(embeds)]
+        am.stats, am._assign_pad = saved
+        return out
 
     def block_step(self, idx_blk, anneal_temp: float = 1.0,
                    assign_temp: float = 1.0,

@@ -11,12 +11,18 @@ kernel launches per sweep, the active components, the batched
 chain's device time, and the operators and kernels that take the most
 device time.
 
-    python -m segmentalist_torch.utils.profiling --cov {fixed,diag,full} [--bigram]
+    python -m segmentalist_torch.utils.profiling --cov {fixed,diag,full} [--bigram] [--am-n-iter N]
 
 The DP stage is every kernel launched inside the segmenters'
 ``segment_dp`` call (the noise draw and the DP; in a tree whose DP is not
 fused, also its eager backward pass), which the profiled sweeps wrap in a
-profiler range.
+profiler range.  ``--am-n-iter N`` runs N acoustic-model sweeps before
+each sweep (the unigram segmenter's ``am_n_iter``, kernel K10: its device
+time and launches a sweep).  Each path's own kernels (the scorer, K2 in the
+DP range, the chain, and K10 with ``--am-n-iter``) must show launches in
+the profiled sweeps, by the profiler and by the wrappers' launch counters,
+or the run raises: a stage that the profiler no longer finds would read
+0.
 ``--root DIR`` imports ``segmentalist_torch`` from another checkout (a
 parent tree unpacked beside this one), so that two trees are measured the
 same way; run the file by its path then (``python
@@ -30,6 +36,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import contextlib
+import importlib
 import json
 import os
 import sys
@@ -46,6 +53,7 @@ DP_RANGE = "segment_dp (profiled stage)"  # the profiler range of the DP
 # kernel K2: the whole DP, or the forward filter alone in a tree from
 # before the fusion
 K2_KERNELS = ("segment_dp_kernel", "forward_alphas_kernel")
+ITEM_KERNEL = "gibbs_items_kernel"  # K10, the FBGMM's item chain
 
 
 def bench_prior(cov: str, D: int, device):
@@ -64,8 +72,9 @@ def bench_prior(cov: str, D: int, device):
 
 
 def bench_segmenter(cov: str = "fixed", bigram: bool = False,
-                    n_utterances: int = 1000, device="cuda"):
-    """(segmenter, ground-truth boundaries) at the bench configuration."""
+                    n_utterances: int = 1000, device="cuda", **kw):
+    """(segmenter, ground-truth boundaries) at the bench configuration;
+    ``kw`` go to the segmenter (e.g. ``init_am_assignments``)."""
     from segmentalist_torch import (BigramAcousticWordseg, FBGMM,
                                     UnigramAcousticWordseg)
     from segmentalist_torch.utils.synth import synthetic_corpus
@@ -79,7 +88,7 @@ def bench_segmenter(cov: str = "fixed", bigram: bool = False,
         embedding_mats=em, vec_ids_dict=vi, durations_dict=du,
         landmarks_dict=lm, covariance_type=cov, p_boundary_init=0.5,
         beta_sent_boundary=-1, n_slices_max=6, batch_size=125, seed=0,
-        device=device)
+        device=device, **kw)
     if bigram:
         seg = BigramAcousticWordseg(lm_params=BENCH_LM, fb_type="unigram",
                                     **common)
@@ -130,22 +139,47 @@ def dp_stage_events(events) -> list:
             and e.name != DP_RANGE and e.id in launched]
 
 
-def profile_sweeps(seg) -> dict:
-    """Warm up, time ``SWEEPS`` sweeps, then profile as many."""
+def launch_counts() -> dict:
+    """The wrappers' launch counters of the scorers, K2, the chains and
+    K10 (a module a tree lacks is skipped)."""
+    counts = {}
+    for mod, names in (("cuda_score", ("launches", "diag_launches",
+                                       "diag_exact_launches")),
+                       ("cuda_fullcov_score", ("launches",)),
+                       ("cuda_dp", ("launches",)),
+                       ("cuda_chain", ("launches", "bigram_launches")),
+                       ("cuda_diag_chain", ("launches", "bigram_launches")),
+                       ("cuda_fullcov_chain", ("launches",
+                                               "bigram_launches")),
+                       ("cuda_item_chain", ("launches",))):
+        try:
+            m = importlib.import_module("segmentalist_torch.ops." + mod)
+        except ImportError:
+            continue
+        for n in names:
+            counts["%s.%s" % (mod, n)] = getattr(m, n, 0)
+    return counts
+
+
+def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
+    """Warm up, time ``SWEEPS`` sweeps, then profile as many (each after
+    ``am_n_iter`` acoustic-model sweeps)."""
     from torch.profiler import ProfilerActivity, profile
 
-    warm = seg.gibbs_sample(WARMUP)
+    warm = seg.gibbs_sample(WARMUP, am_n_iter)
     torch.cuda.synchronize()
     t0 = time.time()
-    seg.gibbs_sample(SWEEPS)
+    seg.gibbs_sample(SWEEPS, am_n_iter)
     torch.cuda.synchronize()
     ms = (time.time() - t0) / SWEEPS * 1e3
     t0 = time.time()
+    counted = launch_counts()
     with dp_range(), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-        last = seg.gibbs_sample(SWEEPS)
+        last = seg.gibbs_sample(SWEEPS, am_n_iter)
         torch.cuda.synchronize()
     ms_prof = (time.time() - t0) / SWEEPS * 1e3
+    counted = {k: v - counted.get(k, 0) for k, v in launch_counts().items()}
     events = prof.key_averages()
     # device kernels (the range's own span on the device timeline is not one)
     kernels = [e for e in events if e.device_type.name == "CUDA"
@@ -153,15 +187,35 @@ def profile_sweeps(seg) -> dict:
                and e.key != DP_RANGE]
     dp = dp_stage_events(prof.events())
     k2 = [e for e in kernels if any(n in e.key for n in K2_KERNELS)]
-    if not any(any(n in e.name for n in K2_KERNELS) for e in dp):
-        # the range wraps blocked.segment_dp: a DP reached another way
-        # would leave the stage's numbers at 0
-        raise RuntimeError("profiling: no K2 launch inside the %r range; "
-                           "the segmenters no longer run their DP through "
-                           "segmenters.blocked.segment_dp" % DP_RANGE)
 
     def per_sweep_ms(us):
         return us / 1e3 / SWEEPS
+
+    def launches(pred):
+        return sum(e.count for e in kernels if pred(e.key)) / SWEEPS
+
+    items = [e for e in kernels if ITEM_KERNEL in e.key]
+    seen = {
+        "scorer": launches(lambda k: "scores_kernel" in k),
+        "K2 in the DP range": sum(any(n in e.name for n in K2_KERNELS)
+                                  for e in dp) / SWEEPS,
+        "chain": launches(lambda k: "chain_kernel" in k
+                          and ITEM_KERNEL not in k),
+    }
+    if am_n_iter > 0:
+        seen["K10"] = launches(lambda k: ITEM_KERNEL in k)
+    by_counter = {
+        "scorer": sum(v for k, v in counted.items() if "score." in k),
+        "K2 in the DP range": counted.get("cuda_dp.launches", 0),
+        "chain": sum(v for k, v in counted.items() if "chain." in k
+                     and not k.startswith("cuda_item_chain")),
+        "K10": counted.get("cuda_item_chain.launches", 0)}
+    missing = sorted(k for k, v in seen.items()
+                     if v == 0 or by_counter[k] == 0)
+    if missing:
+        raise RuntimeError("profiling: no launch of %s in the profiled "
+                           "sweeps (profiler %s, counters %s)"
+                           % (missing, seen, by_counter))
 
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     ops = sorted((e for e in events if e.device_type.name == "CPU"
@@ -197,9 +251,14 @@ def profile_sweeps(seg) -> dict:
         # launches
         "chain_ms_per_sweep": per_sweep_ms(sum(
             e.self_device_time_total for e in kernels
-            if "chain_kernel" in e.key)),
-        "chain_launches_per_sweep": sum(
-            e.count for e in kernels if "chain_kernel" in e.key) / SWEEPS,
+            if "chain_kernel" in e.key and ITEM_KERNEL not in e.key)),
+        "chain_launches_per_sweep": seen["chain"],
+        # K10, the acoustic-model sweeps' item chain (am_n_iter > 0)
+        "item_chain_ms_per_sweep": per_sweep_ms(sum(
+            e.self_device_time_total for e in items)),
+        "item_chain_launches_per_sweep": sum(e.count for e in items)
+        / SWEEPS,
+        "am_n_iter": am_n_iter,
         "top_kernels_ms_per_sweep": {
             e.key[:80]: per_sweep_ms(e.self_device_time_total) for e in top},
         "top_ops_ms_per_sweep": {
@@ -212,6 +271,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cov", default="full", choices=("fixed", "diag",
                                                      "full"))
     ap.add_argument("--bigram", action="store_true")
+    ap.add_argument("--am-n-iter", type=int, default=0,
+                    help="acoustic-model sweeps before each sweep (K10)")
     ap.add_argument("--root", default=None,
                     help="import segmentalist_torch from this checkout")
     args = ap.parse_args(argv)
@@ -228,7 +289,7 @@ def main(argv=None) -> int:
                          "profiling.py --root DIR): %s was imported already"
                          % here)
     seg, _ = bench_segmenter(args.cov, args.bigram)
-    out = profile_sweeps(seg)
+    out = profile_sweeps(seg, args.am_n_iter)
     out.update(cov=args.cov, bigram=args.bigram,
                device=torch.cuda.get_device_name(0),
                package=os.path.dirname(here))

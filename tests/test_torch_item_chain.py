@@ -1,0 +1,196 @@
+"""Kernel K10's plain version (``ops/cuda_item_chain.py``) against the JAX
+package's FBGMM step, and K10's launch plan.
+
+K10 is the FBGMM's sequential Gibbs sweep as one chain over items: the JAX
+``step`` of ``segmentalist_tpu/models/fbgmm.py:529-563`` with the delete on
+(the sweep) and off (``reassign_items``, ``:351-381``).  On shared noise the
+plain version draws the JAX package's components and ends on its
+statistics; it is the plain chain loop of K3 / K6 with the delete, so with
+the delete off it is K3's chain.  The kernel itself runs on the card
+(``tests/test_torch_cuda.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import numpy.testing as npt
+import pytest
+import torch
+from scipy.special import gammaln
+
+import segmentalist_tpu as jtpu
+
+import segmentalist_torch as pt
+from segmentalist_torch.ops import cuda_chain, cuda_item_chain
+from segmentalist_torch.ops.cuda_diag_chain import gr_table
+
+
+def _prior(pkg, cov, D):
+    if cov == "fixed":
+        return pkg.FixedVarPrior.create(0.3 + np.arange(D) / D, np.zeros(D),
+                                        np.ones(D))
+    return pkg.NIW.create(0.1 * np.ones(D), 0.5, D + 3.0,
+                          0.4 + np.arange(D) / D)
+
+
+def _case(cov, N, D, K, dtype, seed):
+    rng = np.random.RandomState(seed)
+    X = ((2.0 * rng.randn(4, D))[rng.randint(0, 4, N)]
+         + 0.8 * rng.randn(N, D)).astype(dtype)
+    asg = rng.randint(-1, min(K, 5), N)
+    jp = _prior(jtpu, cov, D)
+    if dtype == np.float32:
+        jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), jp)
+    jam = jtpu.FBGMM(X, jp, 0.9, K, asg, covariance_type=cov, lms=1.2,
+                     key=jax.random.PRNGKey(seed))
+    tam = pt.FBGMM(X, _prior(pt, cov, D), 0.9, K, asg, covariance_type=cov,
+                   lms=1.2, device="cpu")
+    return jam, tam
+
+
+def _run_plain(tam, ids, k_old, noise, temp):
+    before = cuda_item_chain.launches
+    ks, stats = cuda_item_chain.item_chain(
+        tam.covariance_type, tam.X[ids], tam.log_prior_vec[ids],
+        torch.as_tensor(noise), k_old, tam.stats, tam.prior, tam.alpha,
+        tam.K_max, tam.lms, temp)
+    assert cuda_item_chain.launches == before  # a CPU tensor: no kernel
+    return ks, stats
+
+
+def _check(jam, ks, stats, ids, tol):
+    npt.assert_array_equal(ks.numpy(), np.asarray(jam.assignments)[ids])
+    npt.assert_array_equal(stats.counts.numpy(), np.asarray(jam.stats.counts))
+    for a, b in ((jam.stats.sum_x, stats.sum_x),
+                 (jam.stats.sum_sq, stats.sum_sq)):
+        npt.assert_allclose(b.numpy(), np.asarray(a), rtol=tol, atol=tol)
+
+
+CASES = [(cov, dtype, D) for cov in ("fixed", "diag")
+         for dtype, D in ((np.float64, 2), (np.float64, 13),
+                          (np.float32, 13))]
+
+
+def _tol(dtype):
+    return 1e-12 if dtype == np.float64 else 1e-4
+
+
+@pytest.mark.parametrize("cov,dtype,D", CASES)
+def test_plain_with_delete_equals_the_jax_sweep(cov, dtype, D):
+    """Delete on: one chain over every item (old columns, -1 for the
+    unassigned) equals one ``_build_sequential_sweep`` on shared noise."""
+    jam, tam = _case(cov, 48, D, 7, dtype, seed=D)
+    N, K = jam.N, jam.K_max
+    _, sub = jax.random.split(jam.key)
+    keys = jax.random.split(sub, N)
+    noise = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (K,), dtype))(
+        keys))
+    fn = jam._get_sweep_fn("sequential", True)
+    jam.stats, jam.assignments, jam.key = fn(
+        jam.stats, jam.assignments, jam.key, np.asarray(0.8, dtype))
+    ids = torch.arange(N)
+    ks, stats = _run_plain(tam, ids, tam.assignments.clone(), noise, 0.8)
+    _check(jam, ks, stats, np.arange(N), _tol(dtype))
+
+
+@pytest.mark.parametrize("cov,dtype,D", CASES)
+def test_plain_without_delete_equals_jax_reassign_items(cov, dtype, D):
+    """Delete off: a chain over unassigned items equals ``reassign_items``
+    (its fold_in noise) on shared noise."""
+    jam, tam = _case(cov, 40, D, 6, dtype, seed=D + 1)
+    ids = np.flatnonzero(np.asarray(jam.assignments) < 0)
+    K = jam.K_max
+    _, sub = jax.random.split(jam.key)
+    noise = np.stack([np.asarray(jax.random.gumbel(
+        jax.random.fold_in(sub, j), (K,), dtype)) for j in range(len(ids))])
+    jam.reassign_items(ids, anneal_temp=1.1)
+    ks, stats = _run_plain(tam, torch.as_tensor(ids),
+                           torch.full((len(ids),), -1, dtype=torch.int32),
+                           noise, 1.1)
+    _check(jam, ks, stats, ids, _tol(dtype))
+
+
+def test_plain_without_delete_is_the_k3_chain():
+    """With the delete off, K10's fixed plain version is K3's plain chain
+    on one utterance: the same loop, the same ks."""
+    rng = np.random.RandomState(3)
+    n, D, K = 30, 5, 9
+    X = torch.as_tensor(rng.randn(n, D), dtype=torch.float32)
+    prior = _prior(pt, "fixed", D).to(dtype=torch.float32)
+    noise = torch.as_tensor(-np.log(-np.log(rng.rand(n, K))),
+                            dtype=torch.float32)
+    counts = torch.as_tensor(rng.randint(0, 3, K), dtype=torch.int32)
+    sum_x = counts[:, None] * torch.as_tensor(rng.randn(K, D),
+                                              dtype=torch.float32)
+    stats = pt.models.fbgmm.SuffStats(counts, sum_x, sum_x * sum_x)
+    lp = pt.components_fixedvar.log_prior_batch(prior, X)
+    ks, _ = cuda_item_chain.item_chain(
+        "fixed", X, lp, noise, torch.full((n,), -1, dtype=torch.int32),
+        stats, prior, 1.0, K, 1.0, 0.8)
+    prec0 = 1.0 / prior.var_0
+    want = cuda_chain.fixedvar_chain_plain(
+        torch.zeros((1, n), dtype=torch.int32), X[None], lp[None],
+        noise[None], counts[None], sum_x.T[None], 1.0 / prior.var, prec0,
+        prec0 * prior.mu_0, 0.8, 1.0, K, 1.0, False)
+    npt.assert_array_equal(ks.numpy(), want[0].numpy())
+
+
+def test_gr_table_is_the_exact_lgamma_difference():
+    got = gr_table(5.5, 40, torch.float64, "cpu").numpy()
+    v = 5.5 + np.arange(41)
+    npt.assert_allclose(got, gammaln((v + 1) / 2) - gammaln(v / 2),
+                        rtol=1e-13, atol=1e-13)
+
+
+def test_item_chain_refuses_what_it_does_not_run():
+    X = torch.zeros((3, 2))
+    stats = pt.models.fbgmm.SuffStats(torch.zeros(4, dtype=torch.int32),
+                                      torch.zeros(4, 2), torch.zeros(4, 2))
+    k_old = torch.full((3,), -1, dtype=torch.int32)
+    prior = _prior(pt, "fixed", 2)
+    with pytest.raises(ValueError, match="full"):
+        cuda_item_chain.item_chain("full", X, X[:, 0], None, k_old, stats,
+                                   prior, 1.0, 4)
+    with pytest.raises(ValueError, match="noise"):
+        cuda_item_chain.item_chain("fixed", X, X[:, 0], None, k_old, stats,
+                                   prior, 1.0, 4)
+    ks, out = cuda_item_chain.item_chain(
+        "fixed", X[:0], X[:0, 0], None, k_old[:0], stats, prior, 1.0, 4,
+        use_argmax=True)
+    assert ks.shape == (0,)
+    npt.assert_array_equal(out.sum_x.numpy(), stats.sum_x.numpy())
+
+
+LIMIT = 232448 - 1024  # an H100's opt-in shared memory less static arrays
+
+
+@pytest.mark.parametrize("family", ["fixed", "diag"])
+def test_launch_plans(family):
+    """The toy (K 4, D 2) and flagship (K 1000, D 13) shapes keep their
+    tables on chip, D 130 takes the global form, a D no form fits is
+    refused; threads cover K in whole warps up to 1024."""
+    toy = cuda_item_chain.launch_plan(family, 2, 4, LIMIT)
+    assert (toy.form, toy.threads) == ("smem", 32)
+    flag = cuda_item_chain.launch_plan(family, 13, 1000, LIMIT)
+    assert (flag.form, flag.threads) == ("smem", 1024)
+    assert flag.smem == cuda_item_chain.smem_bytes(family, False, 13, 1000)
+    long = cuda_item_chain.launch_plan(family, 130, 1000, LIMIT)
+    assert long.form == "global"
+    assert long.smem == cuda_item_chain.smem_bytes(family, True, 130, 1000)
+    assert cuda_item_chain.launch_plan(family, 13, 1000, 48 * 1024).form \
+        == "global"
+    with pytest.raises(ValueError, match="no %s item chain form" % family):
+        cuda_item_chain.launch_plan(family, 8000, 1000, LIMIT)
+
+
+def test_smem_bytes_by_hand():
+    """The carving of ``smem_words`` in item mode, counted by hand: fixed
+    per column mu, pp, cnt, term, weight, slot and two noise words; diag
+    one term more; both x and the log prior [3, D + 1], the prior vectors
+    and two (logs, sx, ssq) sets [D]."""
+    assert cuda_item_chain.smem_bytes("fixed", False, 13, 1000) == 4 * (
+        (2 * 13 + 6) * 1000 + 3 * 14 + (3 + 6) * 13)
+    assert cuda_item_chain.smem_bytes("diag", False, 13, 1000) == 4 * (
+        (2 * 13 + 7) * 1000 + 3 * 14 + (2 + 6) * 13)
+    assert cuda_item_chain.smem_bytes("diag", True, 130, 1000) == 4 * (
+        3 * 131 + 8 * 130)

@@ -171,13 +171,27 @@ def test_annealed_viterbi_sampling_runs():
 
 def test_gibbs_sample_takes_am_n_iter_second():
     """The reference's positional order (n_iter, am_n_iter,
-    anneal_schedule, ...): "linear" binds to the schedule; acoustic-model
-    sweeps are not ported and raise."""
+    anneal_schedule, ...): "linear" binds to the schedule, and am_n_iter
+    runs that many acoustic-model sweeps (sequential, assigned items only)
+    before each sweep: the unassigned candidate spans stay unassigned and
+    log_marg stays finite."""
     _, tseg = _pair()
     rec = tseg.gibbs_sample(1, 0, "linear")
     npt.assert_allclose(rec["anneal_temp"], [10.0])
-    with pytest.raises(NotImplementedError, match="am_n_iter"):
-        tseg.gibbs_sample(1, 1)
+    am = tseg.acoustic_model
+    calls = []
+    inner = am.gibbs_sample
+
+    def counted(n_iter, consider_unassigned=True, **kw):
+        calls.append((n_iter, consider_unassigned))
+        return inner(n_iter, consider_unassigned, **kw)
+
+    am.gibbs_sample = counted
+    rec = tseg.gibbs_sample(2, 1)
+    assert calls == [(1, False), (1, False)]
+    assert np.isfinite(rec["log_marg"]).all()
+    assigned = am.assignments.numpy() >= 0
+    assert assigned.sum() == int(am.stats.counts.sum()) == rec["n_tokens"][-1]
 
 
 def _toy_segmenter():
@@ -219,11 +233,53 @@ def test_log_marg_matches_reference_pinned_states():
 
 
 def test_one_by_one_init_is_refused():
-    with pytest.raises(NotImplementedError):
-        pt.UnigramAcousticWordseg(pt.FBGMM, am_param_prior=_prior(pt),
-                                  init_am_assignments="one-by-one",
-                                  device="cpu",
-                                  **_kwargs())
+    """The name is kept from when the port refused "one-by-one"; the init
+    now runs: every initial segment is assigned, in corpus order, against
+    the statistics of the segments before it, and nothing else is."""
+    seg = pt.UnigramAcousticWordseg(pt.FBGMM, am_param_prior=_prior(pt),
+                                    init_am_assignments="one-by-one",
+                                    device="cpu", **_kwargs())
+    am = seg.acoustic_model
+    embeds = seg.utterances.all_segmented_embeds()
+    embeds = embeds[embeds >= 0]
+    assigned = np.flatnonzero(am.assignments.numpy() >= 0)
+    npt.assert_array_equal(np.sort(embeds), assigned)
+    assert int(am.stats.counts.sum()) == len(embeds)
+    rec = seg.gibbs_sample(2, 1)
+    assert np.isfinite(rec["log_marg"]).all()
+
+
+def test_one_by_one_init_matches_jax(monkeypatch):
+    """``init_am_assignments="one-by-one"`` draws every initial segment in
+    corpus order against the segments before it (JAX:
+    ``gibbs_sample_inside_loop_i`` a segment on ``split(key)`` noise; the
+    port: one ``reassign_items`` chain).  On the JAX noise the port's
+    model is the JAX model: identical assignments and counts, sums to
+    float64 rounding."""
+    seed = 5
+    np.random.seed(seed)
+    jseg = JaxWordseg(jtpu.FBGMM, am_param_prior=_prior(jtpu),
+                      init_am_assignments="one-by-one", **_kwargs())
+    embeds = jseg.utterances.all_segmented_embeds()
+    n = int((embeds >= 0).sum())
+    key, noise = jax.random.PRNGKey(seed), []
+    for _ in range(n):
+        key, sub = jax.random.split(key)
+        noise.append(np.asarray(jax.random.gumbel(sub, (K,), jnp.float64)))
+    monkeypatch.setattr(pt.FBGMM, "draw_noise",
+                        lambda self, rows: torch.as_tensor(np.stack(noise)))
+    tseg = pt.UnigramAcousticWordseg(pt.FBGMM, am_param_prior=_prior(pt),
+                                     init_am_assignments="one-by-one",
+                                     device="cpu", **_kwargs())
+    jam, tam = jseg.acoustic_model, tseg.acoustic_model
+    npt.assert_array_equal(tam.assignments.numpy(),
+                           np.asarray(jam.assignments))
+    npt.assert_array_equal(tam.stats.counts.numpy(),
+                           np.asarray(jam.stats.counts))
+    for a, b in ((jam.stats.sum_x, tam.stats.sum_x),
+                 (jam.stats.sum_sq, tam.stats.sum_sq)):
+        npt.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-12,
+                            atol=1e-12)
 
 
 def test_cuda_device_raises_without_cuda():

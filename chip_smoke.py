@@ -23,8 +23,10 @@ check that does not hold:
    correction decides draws; the launch plans of K3 / K4, K6 / K7, K8 and
    K9, and K3 / K4 / K6 / K7's longest chain and device time a dependent
    step; K2 as the whole DP in one launch against the plain composition,
-   identical alphas and boundaries in both modes, also at W = N_max = 120,
-   with the unfused stage's time beside it;
+   identical alphas and boundaries in both modes, also at W = N_max = 120
+   and, in Viterbi mode, on tied scores (integer scores, half the
+   utterances costing the same a slice in every window), with the unfused
+   stage's time beside it;
    K10, the FBGMM's item chain, in both families (fixed variance, exact
    diag) with the delete on and off, at the toy (N 100, K 4, D 2), the
    flagship's initial state (6,149 assigned items, K 1000, D 13) and D 130:
@@ -33,8 +35,11 @@ check that does not hold:
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
    unigram and bigram segmenters of the three families (diag and full
-   unigram also in Viterbi, diag's taking K5's exact composition), and
-   FBGMM sweeps of both modes on the card against the CPU;
+   unigram also in Viterbi, diag's taking K5's exact composition), FBGMM
+   sweeps of both modes on the card against the CPU, three segmental
+   k-means block steps (K2's Viterbi mode) on the bench corpus against
+   the CPU from one state, and the module-level
+   ``forward_backward_kmeans_viterbi`` on one utterance;
 5. six paths at bench scale, on the 1000-utterance synthetic corpus, 137
    sweeps each: the unigram and the bigram segmenter with fixed-variance
    components (K1, K2, K3 / K4), diagonal-covariance components (K5, K2,
@@ -44,8 +49,11 @@ check that does not hold:
    boundary F1.  Then the FBGMM's own sampler (K10): the notebook toy of
    `bench.py:455-479` for 100 sweeps in each mode (purity >= 0.95), the
    FBGMM alone on the flagship corpus's 51,972 candidate spans at K 1000
-   (4 sequential and 4 blocked sweeps, log_marg rising), and
-   unigram_fixed with the one-by-one init and `am_n_iter=1`.
+   (4 sequential and 4 blocked sweeps, log_marg rising),
+   unigram_fixed with the one-by-one init and `am_n_iter=1`, and
+   kmeans_wordseg, the segmental k-means segmenter of `bench.py:442-452`
+   (K2 in its Viterbi mode, one launch a block) for 137 sweeps: its
+   objective rising, boundary F1 >= 0.64.
 
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``.
@@ -82,9 +90,12 @@ SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
 LP_TOL = 1e-6           # K2's log_prob: the plain version's card sum has no
                         # fixed order
 AGREE_MIN = 0.999       # share of identical boundaries / assignments
+KMEANS_OBJ_RTOL = 1e-5  # a k-means block's objective, card against CPU
+                        # (float32 products and sums in another order)
 F1_MIN = 0.67           # fixed-variance paths (JAX on a TPU: 0.696)
 F1_MIN_DIAG = 0.72      # diag paths (JAX on a TPU: 0.750)
 F1_MIN_FULL = 0.72      # full-covariance paths (JAX on a TPU: 0.751)
+F1_MIN_KMEANS = 0.64    # segmental k-means (JAX on a TPU: 0.670)
 DEVICE = "cuda"
 
 
@@ -195,6 +206,26 @@ def dp_inputs(shape, seed, device):
     as_t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
         a, dtype=dt, device=device)
     return as_t(scores), as_t(lengths, torch.int32), as_t(gumbel)
+
+
+def tied_dp_scores(shape, seed, device):
+    """Integer-valued candidate scores, so windows tie exactly: the even
+    utterances cost the same a slice in every window (every segmentation
+    ties, the tie rule picks one-slice segments throughout), the odd ones
+    take rounded random values; -inf past the utterance start or end."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    B, N, W = shape["B"], shape["N_max"], shape["W"]
+    lengths = rng.randint(2, N + 1, B)
+    dur = np.arange(1, W + 1)[None, None, :]
+    scores = np.round(rng.randn(B, N, W) * 2.0) - dur
+    scores[::2] = np.round(rng.randn(B, 1, 1) * 2.0)[::2] * dur
+    t = np.arange(N)[None, :, None]
+    w = np.arange(W)[None, None, :]
+    scores[(w > t) | (t >= lengths[:, None, None])] = -np.inf
+    return (torch.as_tensor(scores, dtype=torch.float32, device=device),
+            torch.as_tensor(lengths, dtype=torch.int32, device=device))
 
 
 def chain_inputs(shape, seed, device):
@@ -379,6 +410,24 @@ def compare_dp(shape, name):
         check(rel <= LP_TOL, "K2 %s: log_prob relative error %.3g"
               % (name, rel))
         out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
+    t_scores, t_lengths = tied_dp_scores(shape, 3, DEVICE)
+    lp_k, b_k, a_k = cuda_dp.segment_dp(t_scores, t_lengths, lpc, 1.0, 0,
+                                        True, None, with_alphas=True)
+    lp_p, b_p, a_p = dp.segment_dp_plain(t_scores, t_lengths, lpc, 1.0, 0,
+                                         True, None, with_alphas=True)
+    sync()
+    err = (lp_k - lp_p).abs().max().item()
+    one_slice = bool(b_k[::2].sum(1).eq(t_lengths[::2]).all())
+    log("K2 segment_dp %s Viterbi on tied scores: alphas identical %s, "
+        "identical boundary rows %d/%d, log_prob max|d|=%.3g, the tied "
+        "utterances all in one-slice segments %s" % (
+            name, torch.equal(a_k, a_p), int((b_k == b_p).all(1).sum()), B,
+            err, one_slice))
+    check(torch.equal(a_k, a_p) and torch.equal(b_k, b_p) and err == 0.0,
+          "K2 %s: Viterbi on tied scores differs from the plain version"
+          % name)
+    check(one_slice, "K2 %s: ties did not break toward shorter segments"
+          % name)
 
     def fused():
         return cuda_dp.segment_dp(scores, lengths, lpc, 1.0, 0, False, noise)
@@ -1442,6 +1491,71 @@ def fbgmm_vs_cpu():
               "the sequential sweeps did not run one K10 launch each")
 
 
+def kmeans_block_steps_vs_cpu():
+    """Three segmental k-means block steps on the card (one K2 launch
+    each, its Viterbi mode) against the same steps on the CPU (the plain
+    DP), float32, from one state: the bench corpus and configuration, the
+    first three blocks of a sweep's order.  Boundaries and assignments
+    agree to ``AGREE_MIN``, each block's objective to
+    ``KMEANS_OBJ_RTOL``.  Then ``forward_backward_kmeans_viterbi`` on the
+    longest utterance, card against CPU: identical boundaries."""
+    import torch
+    from segmentalist_torch.models.kmeans import KMeansState
+    from segmentalist_torch.ops import cuda_dp
+    from segmentalist_torch.segmenters.common import pad_utterance_order
+    from segmentalist_torch.segmenters.kmeans_seg import (
+        forward_backward_kmeans_viterbi)
+    from segmentalist_torch.utils.profiling import bench_kmeans_segmenter
+
+    t0 = time.time()
+    segs = {dev: bench_kmeans_segmenter(device=dev)[0]
+            for dev in ("cpu", DEVICE)}
+    cpu, card = segs["cpu"], segs[DEVICE]
+    card.acoustic_model.state = KMeansState(
+        *(t.to(DEVICE) for t in cpu.acoustic_model.state))
+    U = cpu.utterances.D
+    blocks = pad_utterance_order(np.random.RandomState(0).permutation(U),
+                                 cpu.batch_size)[:3]
+    before = cuda_dp.launches
+    rel = []
+    for blk in blocks:
+        obj_c = float(cpu.block_step(blk))
+        obj_d = float(card.block_step(blk))
+        rel.append(abs(obj_d - obj_c) / max(1.0, abs(obj_c)))
+    b_c, b_d = cpu.utterances.boundaries, card.utterances.boundaries
+    a_c = cpu.acoustic_model.assignments.numpy()
+    a_d = card.acoustic_model.assignments.cpu().numpy()
+    same_b, same_a = int((b_c == b_d).all(1).sum()), int((a_c == a_d).sum())
+    log("kmeans block steps, card vs CPU (bench corpus, 3 blocks of %d): "
+        "identical boundary rows %d/%d, identical assignments %d/%d, "
+        "objective rel. diff a block %s, K2 launches %d (%.1f s)" % (
+            cpu.batch_size, same_b, U, same_a, a_c.size,
+            ["%.3g" % r for r in rel], cuda_dp.launches - before,
+            time.time() - t0))
+    check(cuda_dp.launches == before + 3,
+          "the k-means block steps did not run one K2 launch each")
+    check(same_b >= AGREE_MIN * U and same_a >= AGREE_MIN * a_c.size
+          and max(rel) <= KMEANS_OBJ_RTOL,
+          "card and CPU k-means block steps disagree")
+    utt = cpu.utterances
+    i = int(np.argmax(utt.lengths))  # the longest utterance
+    N = utt.lengths[i]
+    T = N * (N + 1) // 2
+    vec = cpu.get_vec_embed_neg_len_sqrd_norms(utt.vec_ids[i, :T],
+                                               utt.durations[i, :T])
+    got = forward_backward_kmeans_viterbi(vec, N, n_slices_max=6,
+                                          device=DEVICE)
+    want = forward_backward_kmeans_viterbi(vec, N, n_slices_max=6,
+                                           device="cpu")
+    log("forward_backward_kmeans_viterbi, utterance %d (N %d), card vs CPU: "
+        "boundaries identical %s, objective %.9g / %.9g" % (
+            i, N, np.array_equal(got[1], want[1]), got[0], want[0]))
+    check(np.array_equal(got[1], want[1])
+          and abs(got[0] - want[0]) <= KMEANS_OBJ_RTOL * max(1.0,
+                                                            abs(want[0])),
+          "forward_backward_kmeans_viterbi: card and CPU disagree")
+
+
 # ------------------------------------------------------------- phase 5
 
 def reset_launches():
@@ -1486,7 +1600,8 @@ PATH_KERNELS = {"unigram_fixed": ("K1", "K2", "K3"),
                 "unigram_full": ("K8", "K2", "K9"),
                 "bigram_full": ("K8", "K2", "K9"),
                 "fbgmm_toy": ("K10",), "fbgmm_flagship": ("K10",),
-                "unigram_fixed_am": ("K1", "K2", "K3", "K10")}
+                "unigram_fixed_am": ("K1", "K2", "K3", "K10"),
+                "kmeans_wordseg": ("K2",)}
 
 
 def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
@@ -1775,6 +1890,65 @@ def run_am_slice(sweeps=(1, 3)):
             {"ms_per_sweep": sweep_ms[-1], "init_items": n_init, "f1": f1})
 
 
+def run_kmeans_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
+    """kmeans_wordseg at bench scale: the segmental k-means segmenter of
+    `bench.py:442-452` on the `bench.py` corpus, timed as `run_slice`
+    times its paths.  The record must be finite every sweep, the last
+    sweep's objective above the first's, F1 >= ``F1_MIN_KMEANS``, and K2
+    launched once a block (8 a sweep).  Returns K2's launches and the
+    path's numbers."""
+    from segmentalist_torch.utils.profiling import bench_kmeans_segmenter
+    from segmentalist_torch.utils.synth import boundary_f_score
+
+    t0 = time.time()
+    seg, truth = bench_kmeans_segmenter(n_utterances, DEVICE)
+    log("kmeans_wordseg slice: %d utterances, %d candidate spans, setup "
+        "%.1f s" % (n_utterances, int((seg.utterances.seg_ids >= 0).sum()),
+                    time.time() - t0))
+
+    def f1():
+        pred = {u: seg.utterances.boundaries[i]
+                for i, u in enumerate(seg.ids_to_utterance_labels)}
+        return boundary_f_score(pred, truth)[2]
+
+    f1_0 = f1()
+    reset_launches()
+    records, sweep_ms = [], []
+    for n in sweeps:  # bench.py's sequence: warm-up 1 + 8, timed 2 x 64
+        sync()
+        t = time.time()
+        records.append(seg.segment(n))
+        sync()
+        sweep_ms.append((time.time() - t) / n * 1e3)
+    launches = read_launches()
+    rec = {k: [v for r in records for v in r[k]] for k in records[0]}
+    obj, comps = rec["sum_neg_len_sqrd_norm"], rec["components"]
+    f1_end = f1()
+    blocks = -(-seg.utterances.D // seg.batch_size)
+    log("kmeans_wordseg slice: %d sweeps, ms/sweep per call %s (timed %s, "
+        "best %.3f), sum_neg_len_sqrd_norm first %.9g last %.9g, "
+        "sum_neg_sqrd_norm first %.9g last %.9g, components first %d last "
+        "%d of %d, F1 sweep 0 %.4f -> end %.4f, launches %s" % (
+            len(obj), [round(v, 3) for v in sweep_ms],
+            [round(v, 3) for v in sweep_ms[2:]], min(sweep_ms[2:]), obj[0],
+            obj[-1], rec["sum_neg_sqrd_norm"][0],
+            rec["sum_neg_sqrd_norm"][-1], comps[0], comps[-1],
+            seg.acoustic_model.K_max, f1_0, f1_end, launches))
+    check(len(obj) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
+    check(all(math.isfinite(v) for v in obj + rec["sum_neg_sqrd_norm"]),
+          "kmeans_wordseg: a non-finite record")
+    check(obj[-1] > obj[0], "kmeans_wordseg: the objective did not rise")
+    check(launches["K2"] == blocks * len(obj),
+          "kmeans_wordseg: %d K2 launches for %d sweeps of %d blocks"
+          % (launches["K2"], len(obj), blocks))
+    check(f1_end >= F1_MIN_KMEANS, "kmeans_wordseg: final F1 %.4f < %.2f"
+          % (f1_end, F1_MIN_KMEANS))
+    return ({"K2": launches["K2"]},
+            {"ms_per_sweep": min(sweep_ms[2:]), "f1": f1_end,
+             "objective_first": obj[0], "objective_last": obj[-1],
+             "components_first": comps[0], "components_last": comps[-1]})
+
+
 def parse_args(argv):
     import argparse
 
@@ -1835,6 +2009,7 @@ def main(argv=None) -> int:
     toy_reference()
     small_block_steps()
     fbgmm_vs_cpu()
+    kmeans_block_steps_vs_cpu()
     paths = {"unigram_fixed": run_slice(),
              "bigram": run_slice(bigram=True),
              "unigram_diag": run_slice(cov="diag"),
@@ -1846,6 +2021,7 @@ def main(argv=None) -> int:
                       ("fbgmm_flagship", run_fbgmm_flagship),
                       ("unigram_fixed_am", run_am_slice)):
         paths[name], fbgmm[name] = run()
+    paths["kmeans_wordseg"], kmeans = run_kmeans_slice()
 
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
@@ -1896,6 +2072,7 @@ def main(argv=None) -> int:
                     "unfused_kernels")})
             entry.update({"wide_" + k: wd[k] for k in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")})
+            entry.update(paths={"kmeans_wordseg": kmeans})
         if "exact_ms" in fl:  # K5's exact composition (diag Viterbi)
             entry.update({pre + k: r["exact_" + k] for pre, r in (
                 ("exact_", fl), ("exact_long_", lo)) for k in (

@@ -48,6 +48,7 @@ from ..ops.stats import add_item, canonicalize_new_component, num_active
 from ..utils.annealing import anneal_temperatures
 from .blocked import BlockedWordseg
 from .common import gather_block_segments
+from .unigram import _dense_to_tri
 
 
 def _self_ranks(keys: torch.Tensor) -> torch.Tensor:
@@ -229,6 +230,14 @@ class BigramAcousticWordseg(BlockedWordseg):
         ok = valid & ~nan_dur
         out[ok] = out[ok] * durations[ok] ** self.time_power_term
         return out + self.wip
+
+    def get_vec_embed_log_probs_unigram_all(self, utt_ids=None) -> list:
+        """:meth:`get_vec_embed_log_probs_unigram` for many utterances at
+        once (the JAX package's ``bigram.py:296``), as
+        ``UnigramAcousticWordseg.get_vec_embed_log_probs_all`` with the
+        LM's unigram weights."""
+        return _dense_to_tri(*self._dense_candidate_scores(
+            utt_ids, self._unigram_lm_weights()))
 
     def get_vec_embed_log_probs_bigram(self, vec_ids, durations):
         """The reference's bigram candidate scorer is an unimplemented stub

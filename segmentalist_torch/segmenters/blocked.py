@@ -39,7 +39,7 @@ from ..models.components_full import PredParams
 from ..ops.cuda_fullcov_score import fullcov_log_margs
 from ..ops.cuda_score import diag_log_margs_T, fixedvar_log_margs_T
 from ..ops.dp import segment_dp
-from ..ops.random import gumbel
+from ..ops.random import gumbel, logsumexp
 from .common import (
     cand_tables,
     counts_contrib,
@@ -51,6 +51,7 @@ from .common import (
     masked_candidate_scores,
     merge_flat,
     pad_utterance_order,
+    put_assignments,
     seed_assignments_to_vector,
 )
 from .fullcov import (Touched, fullcov_chain, fullcov_score_inputs,
@@ -76,6 +77,28 @@ def process_embeddings(embedding_mats, vec_ids_dict):
         embeddings.append(mat)
         i_embed += mat.shape[0]
     return np.concatenate(embeddings, axis=0), vec_ids, labels
+
+
+def build_corpus(embedding_mats, vec_ids_dict, durations_dict,
+                 landmarks_dict, seed_boundaries_dict, n_slices_min,
+                 n_slices_max, min_duration, p_boundary_init,
+                 rng: np.random.RandomState, device: torch.device):
+    """The corpus of the per-utterance dicts: ``(embeddings [N, D],
+    utterance labels in corpus order, Utterances)``, the boundaries drawn
+    from ``rng`` unless ``seed_boundaries_dict`` gives them."""
+    embeddings, vec_ids, labels = process_embeddings(embedding_mats,
+                                                     vec_ids_dict)
+    seed_boundaries = (None if seed_boundaries_dict is None else
+                       [seed_boundaries_dict[i] for i in labels])
+    utterances = Utterances(
+        [len(landmarks_dict[i]) for i in labels], vec_ids,
+        [durations_dict[i] for i in labels],
+        [landmarks_dict[i] for i in labels],
+        seed_boundaries=seed_boundaries, p_boundary_init=p_boundary_init,
+        n_slices_min=n_slices_min, n_slices_max=n_slices_max,
+        min_duration=min_duration, rng=rng, device=device,
+    )
+    return embeddings, labels, utterances
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -139,21 +162,13 @@ class BlockedWordseg:
         self.time_power_term = float(time_power_term)
         self.decollide_new = bool(decollide_new)
 
-        embeddings, vec_ids, labels = process_embeddings(embedding_mats,
-                                                         vec_ids_dict)
+        init_rng = np.random.RandomState(seed)
+        embeddings, labels, self.utterances = build_corpus(
+            embedding_mats, vec_ids_dict, durations_dict, landmarks_dict,
+            seed_boundaries_dict, n_slices_min, n_slices_max, min_duration,
+            p_boundary_init, init_rng, self.device)
         self.ids_to_utterance_labels = labels
         N = embeddings.shape[0]
-        init_rng = np.random.RandomState(seed)
-        seed_boundaries = (None if seed_boundaries_dict is None else
-                           [seed_boundaries_dict[i] for i in labels])
-        self.utterances = Utterances(
-            [len(landmarks_dict[i]) for i in labels], vec_ids,
-            [durations_dict[i] for i in labels],
-            [landmarks_dict[i] for i in labels],
-            seed_boundaries=seed_boundaries, p_boundary_init=p_boundary_init,
-            n_slices_min=n_slices_min, n_slices_max=n_slices_max,
-            min_duration=min_duration, rng=init_rng, device=self.device,
-        )
 
         assignments = -1 * np.ones(N, dtype=np.int64)
         if seed_assignments_dict is not None:
@@ -228,6 +243,41 @@ class BlockedWordseg:
         embeds = np.asarray(self.utterances.get_segmented_embeds_i(i),
                             dtype=np.int64)
         return list(self.acoustic_model.assignments.cpu().numpy()[embeds])
+
+    def _dense_candidate_scores(self, utt_ids, wvec: torch.Tensor):
+        """Duration-scaled candidate scores of the utterances ``utt_ids``
+        (None: all, in corpus order) against the global statistics, with
+        mixture-weight terms ``wvec`` [K]: ``(scores [n, N_max, W_store]
+        as numpy, the n lengths)``, -inf where a span is missing or masked.
+
+        The fixed-variance family scores through kernel K1 (its plain
+        version on a CPU tensor), the block step's scorer, given one table
+        of global statistics for every row.  The diag and full families
+        score in plain tensor code (``cov.log_post_pred_batch``), as the
+        JAX package does outside Pallas: K5 takes a Stirling lgamma and K8
+        a float32 touched-slot form, so neither is that function."""
+        am, utt = self.acoustic_model, self.utterances
+        utt_ids = np.asarray(np.arange(utt.D) if utt_ids is None
+                             else utt_ids, dtype=np.int64)
+        rows = _to_device(utt_ids, self.device)
+        ids = utt.seg_ids[rows]  # [n, N_max, W_store]
+        flat = ids.clamp_min(0).reshape(-1).long()
+        x, lpv, counts = am.X[flat], am.log_prior_vec[flat], am.stats.counts
+        if self._family == "fixed":
+            muT, precT = am.cov.predictive_params_T(
+                am.prior, counts[None], am.stats.sum_x.T[None])
+            margs = fixedvar_log_margs_T(
+                x[None], lpv[None], muT.contiguous(), precT.contiguous(),
+                wvec[None].contiguous(), counts[None])[0]
+        else:
+            post = am.cov.log_post_pred_batch(
+                am.cov.predictive_params(am.prior, am.stats), x)
+            margs = logsumexp(wvec[None, :] + torch.where(
+                (counts > 0)[None, :], post, lpv[:, None]), dim=-1)
+        scores = masked_candidate_scores(
+            margs.reshape(ids.shape), ids, utt.seg_durations[rows],
+            self.time_power_term, self.wip)
+        return scores.cpu().numpy(), [utt.lengths[i] for i in utt_ids]
 
     def _sample_sweeps(self, temps, anneal_gibbs_am: bool,
                        am_n_iter: int = 0, **step_kwargs) -> dict:
@@ -398,13 +448,6 @@ class BlockedWordseg:
                                 full_cov=am.full_cov)
         am.stats = merge_flat(stats, old_flat, new_flat)
         utt.boundaries_dev[blk.idx[blk.live]] = new_bounds[blk.live]
-        pad, N = am._assign_pad, am.N
-        vm = valid[:, None]
-        clear = torch.where(vm & (blk.old_embeds >= 0), blk.old_embeds,
-                            N).reshape(-1).long()
-        pad.index_put_((clear,), pad.new_full(clear.shape, -1))
-        put = torch.where(vm & (new_embeds >= 0), new_embeds, N)
-        pad.index_put_((put.reshape(-1).long(),),
-                       new_ks.reshape(-1).to(pad.dtype))
-        pad[N] = -1
+        put_assignments(am._assign_pad, valid, blk.old_embeds, new_embeds,
+                        new_ks)
         return new_ks

@@ -110,10 +110,12 @@ def leave_out_moments_T(stats: SuffStats, X: torch.Tensor,
 def flat_contrib(X: torch.Tensor, embeds: torch.Tensor, ks: torch.Tensor,
                  K_max: int, valid: torch.Tensor,
                  rows: torch.Tensor | None = None,
-                 full_cov: bool = False) -> SuffStats:
+                 full_cov: bool = False,
+                 second_moments: bool = True) -> SuffStats:
     """Summed statistics of all (utterance, segment) pairs of a block, as
     one-hot matrix products [K, B*S] @ [B*S, D]; full second moments
-    through the packed lanes, unpacked by the mirror map."""
+    through the packed lanes, unpacked by the mirror map.  Without
+    ``second_moments`` (k-means) ``sum_sq`` is None."""
     ok = (embeds >= 0) & (ks >= 0) & valid[:, None]
     D = X.shape[-1]
     x = X[embeds.clamp_min(0).long()] if rows is None else rows
@@ -122,8 +124,25 @@ def flat_contrib(X: torch.Tensor, embeds: torch.Tensor, ks: torch.Tensor,
     return SuffStats(
         counts=oh.sum(0).to(torch.int32),
         sum_x=oh.T @ x,
-        sum_sq=moment_sums(oh.T, x, full_cov),
+        sum_sq=moment_sums(oh.T, x, full_cov) if second_moments else None,
     )
+
+
+def put_assignments(pad: torch.Tensor, valid: torch.Tensor,
+                    old_embeds: torch.Tensor, new_embeds: torch.Tensor,
+                    new_ks: torch.Tensor):
+    """In ``pad``, an [N + 1] assignment vector whose last slot is a sink,
+    clear a block's old segments and set its new ones (rows of padding
+    write to the sink, so no host sync picks the live rows)."""
+    N = pad.shape[0] - 1
+    vm = valid[:, None]
+    clear = torch.where(vm & (old_embeds >= 0), old_embeds,
+                        N).reshape(-1).long()
+    pad.index_put_((clear,), pad.new_full(clear.shape, -1))
+    put = torch.where(vm & (new_embeds >= 0), new_embeds, N)
+    pad.index_put_((put.reshape(-1).long(),),
+                   new_ks.reshape(-1).to(pad.dtype))
+    pad[N] = -1
 
 
 def merge_flat(global_stats: SuffStats, old_flat: SuffStats,
@@ -202,16 +221,17 @@ def dp_window(a: torch.Tensor, W_dp: int) -> torch.Tensor:
 
 
 def cand_tables(seg_ids_dp: torch.Tensor, X: torch.Tensor,
-                log_prior_vec: torch.Tensor):
+                log_prior_vec: torch.Tensor | None = None):
     """Sweep-static candidate tensors ``X[seg_ids]`` [U, N_max * W_dp, D] and
-    ``log_prior_vec[seg_ids]`` [U, N_max * W_dp] from the DP-windowed
-    ``seg_ids_dp`` [U, N_max, W_dp], in the flat layout the scoring kernel
-    reads (rows at ``seg_ids == -1`` hold row 0; every consumer masks on the
-    id sign)."""
+    ``log_prior_vec[seg_ids]`` [U, N_max * W_dp] (None without
+    ``log_prior_vec``) from the DP-windowed ``seg_ids_dp`` [U, N_max, W_dp],
+    in the flat layout the scoring kernel reads (rows at ``seg_ids == -1``
+    hold row 0; every consumer masks on the id sign)."""
     U, N_max, W_dp = seg_ids_dp.shape
     ids = seg_ids_dp.clamp_min(0).long()
     return (X[ids].reshape(U, N_max * W_dp, -1),
-            log_prior_vec[ids].reshape(U, N_max * W_dp))
+            None if log_prior_vec is None
+            else log_prior_vec[ids].reshape(U, N_max * W_dp))
 
 
 def pad_utterance_order(order, batch_size: int) -> np.ndarray:

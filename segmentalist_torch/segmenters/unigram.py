@@ -21,6 +21,12 @@ Within a sweep each utterance is visited once and reads only its own
 assignments, so the ``[N]`` assignment vector is updated in place after
 every block (the JAX package defers that merge to the end of the sweep;
 the result is the same).
+
+The module-level DP of the reference (:func:`forward_backward`,
+:func:`forward_backward_viterbi`) takes one utterance's scores in the
+reference's packed triangular layout (:func:`_tri_to_dense`,
+:func:`_dense_to_tri`) and runs ``ops.dp.segment_dp`` on a batch of one:
+kernel K2 on the card.
 """
 
 from __future__ import annotations
@@ -30,13 +36,99 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.fbgmm import FBGMM, log_weights
 from ..ops.cuda_chain import fixedvar_chain
 from ..ops.cuda_diag_chain import diag_chain
+from ..ops.dp import segment_dp
 from ..utils.annealing import anneal_temperatures
 from .blocked import RECORD_KEYS, BlockedWordseg
 
-__all__ = ["RECORD_KEYS", "UnigramAcousticWordseg"]
+__all__ = ["RECORD_KEYS", "UnigramAcousticWordseg", "forward_backward",
+           "forward_backward_viterbi"]
+
+
+def _tri_to_dense(vec, N, W):
+    """One utterance's packed triangular score vector (``corpus.py``'s
+    layout) -> dense [1, N, W] float64 scores, -inf where the span would
+    start before the utterance."""
+    vec = np.asarray(vec, dtype=float)
+    out = np.full((1, N, W), -np.inf)
+    tg, wg = np.mgrid[0:N, 0:W]
+    ok = wg <= tg
+    idx = (tg + 1) * tg // 2 + tg - wg
+    out[0][ok] = vec[idx[ok]]
+    return out
+
+
+def _dense_to_tri(dense, lengths):
+    """Dense [U, N_max, W] scores -> a packed triangular vector an
+    utterance (the reference's layout, ``utterances.py:59-65``); slots of
+    spans wider than the ``W`` window come back -inf."""
+    dense = np.asarray(dense, dtype=float)
+    _, N_max, W = dense.shape
+    t = np.arange(N_max)
+    tt = np.repeat(t, t + 1)  # packed slot -> span end t
+    jj = np.concatenate([np.arange(k + 1) for k in t])  # -> span start
+    ww = tt - jj  # -> window index (duration - 1)
+    ok = ww < W
+    out = []
+    for u, N in enumerate(lengths):
+        T = N * (N + 1) // 2
+        vec = np.full(T, -np.inf)
+        m = ok[:T]
+        vec[m] = dense[u, tt[:T][m], ww[:T][m]]
+        out.append(vec)
+    return out
+
+
+def utterance_dp(vec, log_p_continue, N, n_slices_min, n_slices_max,
+                 anneal_temp, mode, noise=None, generator=None,
+                 device="cuda", dtype=torch.float32):
+    """``ops.dp.segment_dp`` on one utterance's packed triangular scores:
+    ``(log_prob, boundaries [N] bool numpy)``.  ``noise`` [N, W] is the
+    backward draws' standard Gumbel noise (sample mode; drawn from
+    ``generator`` when None, or from torch's default generator when that
+    is None too)."""
+    W = min(n_slices_max, N) if n_slices_max > 0 else N
+    dev = resolve_device(device)
+    scores = torch.as_tensor(_tri_to_dense(vec, N, W), dtype=dtype,
+                             device=dev)
+    if noise is not None:
+        noise = torch.as_tensor(noise, dtype=dtype,
+                                device=dev).reshape(1, N, W)
+    log_prob, bounds = segment_dp(
+        scores, torch.tensor([N], dtype=torch.int32, device=dev),
+        log_p_continue, anneal_temp, n_slices_min=n_slices_min,
+        n_slices_max=W, mode=mode, noise=noise, generator=generator)
+    return float(log_prob[0]), bounds[0].cpu().numpy()
+
+
+def forward_backward(vec_embed_log_probs, log_p_continue, N, n_slices_min=0,
+                     n_slices_max=0, i_utt=None, anneal_temp=1, noise=None,
+                     generator=None, device="cuda", dtype=torch.float32):
+    """Module-level forward filtering, backward sampling over one
+    utterance's packed triangular scores (reference ``forward_backward``,
+    unigram_acoustic_wordseg.py:653-756): ``(log_prob, boundaries)``.  The
+    JAX package's ``key`` becomes ``noise`` [N, W] (e.g.
+    ``jax.random.gumbel`` of that key at that shape) or a
+    ``torch.Generator``.  Runs on the card (kernel K2, float32) unless
+    ``device`` is "cpu"."""
+    return utterance_dp(vec_embed_log_probs, log_p_continue, N,
+                        n_slices_min, n_slices_max, anneal_temp, "sample",
+                        noise, generator, device, dtype)
+
+
+def forward_backward_viterbi(vec_embed_log_probs, log_p_continue, N,
+                             n_slices_min=0, n_slices_max=0, i_utt=None,
+                             anneal_temp=None, device="cuda",
+                             dtype=torch.float32):
+    """Module-level Viterbi twin (reference ``forward_backward_viterbi``,
+    unigram_acoustic_wordseg.py:759-864): ``(log_prob, boundaries)``, ties
+    toward shorter segments."""
+    return utterance_dp(vec_embed_log_probs, log_p_continue, N,
+                        n_slices_min, n_slices_max, 1.0, "viterbi",
+                        device=device, dtype=dtype)
 
 
 class UnigramAcousticWordseg(BlockedWordseg):
@@ -112,6 +204,19 @@ class UnigramAcousticWordseg(BlockedWordseg):
         ok = valid & ~nan_dur
         out[ok] = out[ok] * durations[ok] ** self.time_power_term
         return out + self.wip
+
+    def get_vec_embed_log_probs_all(self, utt_ids=None) -> list:
+        """:meth:`get_vec_embed_log_probs` for many utterances at once (the
+        JAX package's batch scorer, ``unigram.py:326-374``): one pass over
+        the dense corpus tensors (``BlockedWordseg._dense_candidate_scores``:
+        kernel K1 for the fixed-variance family, plain tensor code for the
+        others), returned in the packed triangular layout, one vector an
+        utterance of ``utt_ids`` (default: all, in corpus order).  Spans
+        wider than the stored window come back -inf."""
+        am = self.acoustic_model
+        w = log_weights(am.stats.counts, am.alpha, am.K_max, am.lms,
+                        include_denominator=True, dtype=am.X.dtype)
+        return _dense_to_tri(*self._dense_candidate_scores(utt_ids, w))
 
     def sweep_metrics(self) -> dict:
         return self.acoustic_model.sweep_metrics()

@@ -1,9 +1,11 @@
-"""Where a segmenter's Gibbs sweeps spend their time on the card.
+"""Where a segmenter's sweeps spend their time on the card.
 
 Builds a segmenter at the bench configuration (``bench_segmenter``: the
 JAX package's ``bench.py`` corpus, 1000 synthetic utterances with N_max 20,
 D 13 and 50 true words, ``am_K=1000``, ``batch_size=125``, and the priors of
-``bench.py:379-411`` and ``benchmarks/all_models.py:124-171``), runs
+``bench.py:379-411`` and ``benchmarks/all_models.py:124-171``; with
+``--kmeans`` the segmental k-means segmenter of ``bench.py:442-452``,
+``bench_kmeans_segmenter``), runs
 warm-up sweeps, times sweeps without the profiler, then profiles sweeps
 with ``torch.profiler`` and prints one JSON line: ms/sweep, device time and
 kernel launches per sweep, the active components, the batched
@@ -12,6 +14,7 @@ chain's device time, and the operators and kernels that take the most
 device time.
 
     python -m segmentalist_torch.utils.profiling --cov {fixed,diag,full} [--bigram] [--am-n-iter N]
+    python -m segmentalist_torch.utils.profiling --kmeans
 
 The DP stage is every kernel launched inside the segmenters'
 ``segment_dp`` call (the noise draw and the DP; in a tree whose DP is not
@@ -19,10 +22,10 @@ fused, also its eager backward pass), which the profiled sweeps wrap in a
 profiler range.  ``--am-n-iter N`` runs N acoustic-model sweeps before
 each sweep (the unigram segmenter's ``am_n_iter``, kernel K10: its device
 time and launches a sweep).  Each path's own kernels (the scorer, K2 in the
-DP range, the chain, and K10 with ``--am-n-iter``) must show launches in
-the profiled sweeps, by the profiler and by the wrappers' launch counters,
-or the run raises: a stage that the profiler no longer finds would read
-0.
+DP range, the chain, and K10 with ``--am-n-iter``; for k-means K2 alone)
+must show launches in the profiled sweeps, by the profiler and by the
+wrappers' launch counters, or the run raises: a stage that the profiler no
+longer finds would read 0.
 ``--root DIR`` imports ``segmentalist_torch`` from another checkout (a
 parent tree unpacked beside this one), so that two trees are measured the
 same way; run the file by its path then (``python
@@ -71,18 +74,40 @@ def bench_prior(cov: str, D: int, device):
     return NIW.create(np.zeros(D, f32), 0.05, D + 3.0, S_0, device=device)
 
 
-def bench_segmenter(cov: str = "fixed", bigram: bool = False,
-                    n_utterances: int = 1000, device="cuda", **kw):
-    """(segmenter, ground-truth boundaries) at the bench configuration;
-    ``kw`` go to the segmenter (e.g. ``init_am_assignments``)."""
-    from segmentalist_torch import (BigramAcousticWordseg, FBGMM,
-                                    UnigramAcousticWordseg)
+def bench_corpus(n_utterances: int = 1000):
+    """The ``bench.py`` corpus (float32 embeddings): ``(embedding_mats,
+    vec_ids_dict, durations_dict, landmarks_dict, true boundaries)``."""
     from segmentalist_torch.utils.synth import synthetic_corpus
 
     em, vi, du, lm, truth = synthetic_corpus(
         n_utterances=n_utterances, n_landmarks_max=20, D=13, K_true=50,
         n_slices_max=6, seed=0)
     em = {k: v.astype(np.float32) for k, v in em.items()}
+    return em, vi, du, lm, truth
+
+
+def bench_kmeans_segmenter(n_utterances: int = 1000, device="cuda"):
+    """(segmenter, ground-truth boundaries): the segmental k-means
+    segmenter of ``bench.py:442-452`` (``am_K=1000``,
+    ``p_boundary_init=0.5``, ``n_slices_max=6``, ``batch_size=125``,
+    ``seed=0``: the initial draws the JAX package makes after
+    ``np.random.seed(0)``) on the bench corpus."""
+    from segmentalist_torch import SegmentalKMeansWordseg
+
+    em, vi, du, lm, truth = bench_corpus(n_utterances)
+    return SegmentalKMeansWordseg(
+        1000, em, vi, du, lm, p_boundary_init=0.5, n_slices_max=6,
+        batch_size=125, seed=0, device=device), truth
+
+
+def bench_segmenter(cov: str = "fixed", bigram: bool = False,
+                    n_utterances: int = 1000, device="cuda", **kw):
+    """(segmenter, ground-truth boundaries) at the bench configuration;
+    ``kw`` go to the segmenter (e.g. ``init_am_assignments``)."""
+    from segmentalist_torch import (BigramAcousticWordseg, FBGMM,
+                                    UnigramAcousticWordseg)
+
+    em, vi, du, lm, truth = bench_corpus(n_utterances)
     common = dict(
         am_K=1000, am_param_prior=bench_prior(cov, 13, "cpu"),
         embedding_mats=em, vec_ids_dict=vi, durations_dict=du,
@@ -99,21 +124,29 @@ def bench_segmenter(cov: str = "fixed", bigram: bool = False,
 
 @contextlib.contextmanager
 def dp_range():
-    """Run the segmenters' ``segment_dp`` (``segmenters/blocked.py``) inside
-    the profiler range ``DP_RANGE`` while the block is open."""
-    from segmentalist_torch.segmenters import blocked
-
-    inner = blocked.segment_dp
+    """Run the segmenters' ``segment_dp`` (``segmenters/blocked.py``, and
+    ``segmenters/kmeans_seg.py`` where the tree has it) inside the profiler
+    range ``DP_RANGE`` while the block is open."""
+    mods = []
+    for name in ("blocked", "kmeans_seg"):
+        try:
+            mods.append(importlib.import_module(
+                "segmentalist_torch.segmenters." + name))
+        except ImportError:
+            continue
+    inner = mods[0].segment_dp
 
     def wrapped(*args, **kwargs):
         with torch.profiler.record_function(DP_RANGE):
             return inner(*args, **kwargs)
 
-    blocked.segment_dp = wrapped
+    for mod in mods:
+        mod.segment_dp = wrapped
     try:
         yield
     finally:
-        blocked.segment_dp = inner
+        for mod in mods:
+            mod.segment_dp = inner
 
 
 def dp_stage_events(events) -> list:
@@ -163,20 +196,28 @@ def launch_counts() -> dict:
 
 def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     """Warm up, time ``SWEEPS`` sweeps, then profile as many (each after
-    ``am_n_iter`` acoustic-model sweeps)."""
+    ``am_n_iter`` acoustic-model sweeps; a k-means segmenter's
+    ``segment``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    warm = seg.gibbs_sample(WARMUP, am_n_iter)
+    kmeans = not hasattr(seg, "gibbs_sample")
+    if kmeans:
+        def sweeps(n):
+            return seg.segment(n)
+    else:
+        def sweeps(n):
+            return seg.gibbs_sample(n, am_n_iter)
+    warm = sweeps(WARMUP)
     torch.cuda.synchronize()
     t0 = time.time()
-    seg.gibbs_sample(SWEEPS, am_n_iter)
+    sweeps(SWEEPS)
     torch.cuda.synchronize()
     ms = (time.time() - t0) / SWEEPS * 1e3
     t0 = time.time()
     counted = launch_counts()
     with dp_range(), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-        last = seg.gibbs_sample(SWEEPS, am_n_iter)
+        last = sweeps(SWEEPS)
         torch.cuda.synchronize()
     ms_prof = (time.time() - t0) / SWEEPS * 1e3
     counted = {k: v - counted.get(k, 0) for k, v in launch_counts().items()}
@@ -195,13 +236,12 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
         return sum(e.count for e in kernels if pred(e.key)) / SWEEPS
 
     items = [e for e in kernels if ITEM_KERNEL in e.key]
-    seen = {
-        "scorer": launches(lambda k: "scores_kernel" in k),
-        "K2 in the DP range": sum(any(n in e.name for n in K2_KERNELS)
-                                  for e in dp) / SWEEPS,
-        "chain": launches(lambda k: "chain_kernel" in k
-                          and ITEM_KERNEL not in k),
-    }
+    seen = {"K2 in the DP range": sum(any(n in e.name for n in K2_KERNELS)
+                                      for e in dp) / SWEEPS}
+    if not kmeans:  # k-means runs no scorer kernel and no chain
+        seen["scorer"] = launches(lambda k: "scores_kernel" in k)
+        seen["chain"] = launches(lambda k: "chain_kernel" in k
+                                 and ITEM_KERNEL not in k)
     if am_n_iter > 0:
         seen["K10"] = launches(lambda k: ITEM_KERNEL in k)
     by_counter = {
@@ -217,6 +257,8 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
                            "sweeps (profiler %s, counters %s)"
                            % (missing, seen, by_counter))
 
+    utt = seg.utterances
+    blocks = -(-utt.D // seg.batch_size)  # block steps a sweep
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     ops = sorted((e for e in events if e.device_type.name == "CPU"
                   and e.device_time_total > 0),
@@ -226,6 +268,7 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
         "device_ms_per_sweep": per_sweep_ms(
             sum(e.self_device_time_total for e in kernels)),
         "kernels_per_sweep": sum(e.count for e in kernels) / SWEEPS,
+        "blocks_per_sweep": blocks,
         # active components (the scorers' active columns) of K_max
         "components": {"after_warmup": warm["components"][-1],
                        "last": last["components"][-1],
@@ -252,7 +295,7 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
         "chain_ms_per_sweep": per_sweep_ms(sum(
             e.self_device_time_total for e in kernels
             if "chain_kernel" in e.key and ITEM_KERNEL not in e.key)),
-        "chain_launches_per_sweep": seen["chain"],
+        "chain_launches_per_sweep": seen.get("chain", 0),
         # K10, the acoustic-model sweeps' item chain (am_n_iter > 0)
         "item_chain_ms_per_sweep": per_sweep_ms(sum(
             e.self_device_time_total for e in items)),
@@ -273,6 +316,8 @@ def main(argv=None) -> int:
     ap.add_argument("--bigram", action="store_true")
     ap.add_argument("--am-n-iter", type=int, default=0,
                     help="acoustic-model sweeps before each sweep (K10)")
+    ap.add_argument("--kmeans", action="store_true",
+                    help="the segmental k-means segmenter (K2, Viterbi)")
     ap.add_argument("--root", default=None,
                     help="import segmentalist_torch from this checkout")
     args = ap.parse_args(argv)
@@ -288,9 +333,13 @@ def main(argv=None) -> int:
                          "path (python segmentalist_torch/utils/"
                          "profiling.py --root DIR): %s was imported already"
                          % here)
-    seg, _ = bench_segmenter(args.cov, args.bigram)
+    if args.kmeans:
+        seg, _ = bench_kmeans_segmenter()
+    else:
+        seg, _ = bench_segmenter(args.cov, args.bigram)
     out = profile_sweeps(seg, args.am_n_iter)
-    out.update(cov=args.cov, bigram=args.bigram,
+    out.update(cov=None if args.kmeans else args.cov, bigram=args.bigram,
+               kmeans=args.kmeans,
                device=torch.cuda.get_device_name(0),
                package=os.path.dirname(here))
     print(json.dumps(out))

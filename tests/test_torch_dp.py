@@ -7,6 +7,8 @@ same scores and the same backward-draw noise -- the noise JAX draws from
 its key at ``dp.py:196`` -- and must give exactly the same boundaries.
 """
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -175,3 +177,182 @@ def test_dp_launch_plan_follows_the_limit_and_raises():
         cuda_dp.launch_plan(20, 6, True, 512)
     with pytest.raises(ValueError):
         cuda_dp.launch_plan(0, 6, True, H100_SMEM_LIMIT)
+
+
+# ------------------------------------------ oracles on the port's own path
+# tests/test_dp.py's oracles, run on the port's ``segment_dp`` and its
+# module-level API with the port's own noise (a ``torch.Generator``):
+# shared-noise parity cannot see a fault in the port's own draws.
+
+def oracle_viterbi(scores, length, n_min, n_max):
+    """Max-product segmentation on dense scores[t, w], ties toward shorter
+    segments; returns (score, bounds) (tests/test_dp.py)."""
+    n_min = max(n_min, 1)
+    alpha = np.full(length + 1, -np.inf)
+    alpha[0] = 0.0
+    back = np.zeros(length + 1, dtype=int)
+    for t in range(1, length + 1):
+        best, best_k = -np.inf, 0
+        for k in range(n_min, min(n_max, t) + 1):
+            v = scores[t - 1, k - 1] + alpha[t - k]
+            if v > best:
+                best, best_k = v, k
+        alpha[t], back[t] = best, best_k
+    bounds = np.zeros(scores.shape[0], dtype=bool)
+    bounds[length - 1] = True
+    t, total = length, 0.0
+    while t > 0:
+        k = back[t]
+        total += scores[t - 1, k - 1]
+        if t - k - 1 >= 0:
+            bounds[t - k - 1] = True
+        t -= k
+    return total, bounds
+
+
+def _oracle_scores(rng, B, N_max, W, lengths):
+    s = rng.randn(B, N_max, W) * 3.0
+    t = np.arange(N_max)[None, :, None]
+    w = np.arange(W)[None, None, :]
+    s[(w > t) | (t >= np.asarray(lengths)[:, None, None])] = -np.inf
+    return s
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(dict(seed=0, W=4, n_min=0, lengths=[9, 7, 4, 1, 6]),
+                 id="viterbi_matches_oracle"),
+    pytest.param(dict(seed=1, W=5, n_min=2, lengths=[8, 8, 5, 3]),
+                 id="viterbi_with_min_slices"),
+    pytest.param(dict(seed=2, W=4, n_min=0, lengths=[9, 7, 4, 1, 6, 9],
+                      ties=True), id="viterbi_tied_scores")])
+def test_viterbi_matches_oracle(case):
+    """tests/test_dp.py's Viterbi oracles (without and with n_slices_min)
+    on the port; ``ties``: integer scores, half of them equal a slice
+    across every window (every segmentation of those utterances ties), so
+    the tie rule decides the path."""
+    rng = np.random.RandomState(case["seed"])
+    lengths, W, n_min = np.array(case["lengths"]), case["W"], case["n_min"]
+    B, N_max = len(lengths), int(lengths.max())
+    scores = _oracle_scores(rng, B, N_max, W, lengths)
+    if case.get("ties"):
+        per_slice = np.round(rng.randn(B, 1, 1) * 2.0)
+        tied = per_slice * (np.arange(W) + 1)[None, None, :]
+        scores = np.where(np.isfinite(scores), np.round(scores), scores)
+        scores[::2] = np.where(np.isfinite(scores[::2]), tied[::2], -np.inf)
+    lp, bounds = tdp.segment_dp(torch.as_tensor(scores),
+                                torch.as_tensor(lengths), n_slices_min=n_min,
+                                n_slices_max=W, mode="viterbi")
+    lp_j, b_j = jdp.segment_dp(jnp.asarray(scores), jnp.asarray(lengths),
+                               jax.random.PRNGKey(0), n_slices_min=n_min,
+                               n_slices_max=W, mode="viterbi")
+    npt.assert_array_equal(bounds.numpy(), np.asarray(b_j))
+    for b in range(B):
+        want_lp, want_b = oracle_viterbi(scores[b], lengths[b], n_min, W)
+        npt.assert_allclose(float(lp[b]), want_lp, rtol=1e-12)
+        npt.assert_array_equal(bounds[b].numpy(), want_b)
+        idx = np.where(bounds[b].numpy()[:lengths[b]])[0]
+        spans = np.diff(np.concatenate([[-1], idx]))
+        assert np.all(spans[1:] >= max(n_min, 1))
+        if case.get("ties") and b % 2 == 0:  # all one-slice segments
+            assert bounds[b, :lengths[b]].all()
+
+
+def test_ffbs_boundary_distribution():
+    """tests/test_dp.py: two landmarks, the split's odds in closed form,
+    4000 draws of the port's own noise; log_prob is the chosen path's
+    score."""
+    s01, s12, s02 = 1.0, 0.3, 1.5
+    scores = np.full((1, 2, 2), -np.inf)
+    scores[0, 0, 0], scores[0, 1, 0], scores[0, 1, 1] = s01, s12, s02
+    p_split = np.exp(s01 + s12) / (np.exp(s01 + s12) + np.exp(s02))
+    n = 4000
+    lp, bounds = tdp.segment_dp(
+        torch.as_tensor(np.repeat(scores, n, axis=0)),
+        torch.full((n,), 2, dtype=torch.int32), n_slices_max=2,
+        mode="sample", generator=torch.Generator().manual_seed(7))
+    split = bounds[:, 0].numpy()
+    assert abs(split.mean() - p_split) < 0.03, (split.mean(), p_split)
+    npt.assert_allclose(lp.numpy(), np.where(split, s01 + s12, s02),
+                        rtol=1e-12)
+
+
+def test_ffbs_full_distribution_three_landmarks():
+    """tests/test_dp.py: the sampled frequencies of all four segmentations
+    of a 3-landmark utterance match the exact posterior."""
+    rng = np.random.RandomState(5)
+    N = W = 3
+    scores = rng.randn(N, W)
+    scores[np.arange(W)[None, :] > np.arange(N)[:, None]] = -np.inf
+    logp = {}
+    for b0, b1 in itertools.product((False, True), repeat=2):
+        total, start = 0.0, 0
+        for t, is_b in enumerate((b0, b1, True)):
+            if is_b:
+                total += scores[t, t - start]
+                start = t + 1
+        logp[(b0, b1)] = total
+    Z = sum(np.exp(v) for v in logp.values())
+    n = 8000
+    _, bounds = tdp.segment_dp(
+        torch.as_tensor(np.repeat(scores[None], n, axis=0)),
+        torch.full((n,), N, dtype=torch.int32), n_slices_max=W,
+        mode="sample", generator=torch.Generator().manual_seed(3))
+    bounds = bounds.numpy()
+    for (b0, b1), v in logp.items():
+        frac = np.mean((bounds[:, 0] == b0) & (bounds[:, 1] == b1))
+        assert abs(frac - np.exp(v) / Z) < 0.025, ((b0, b1), frac)
+
+
+def test_module_level_forward_backward_triangular_api():
+    """tests/test_dp.py: the packed-triangular module functions of the
+    port (``segmenters.unigram.forward_backward`` /
+    ``forward_backward_viterbi``, ``segmenters.kmeans_seg.
+    forward_backward_kmeans_viterbi``) against brute-force enumeration;
+    ``forward_backward`` draws 3000 times from the port's generator."""
+    from segmentalist_torch.segmenters.kmeans_seg import (
+        forward_backward_kmeans_viterbi)
+    from segmentalist_torch.segmenters.unigram import (
+        forward_backward, forward_backward_viterbi)
+
+    rng = np.random.RandomState(0)
+    N, W = 4, 3
+    vec = rng.randn(N * (N + 1) // 2) * 2.0
+
+    def seg_score(pattern):  # boundary bools, the last True
+        total, j_prev, n_seg = 0.0, 0, 0
+        for j, b in enumerate(pattern):
+            if b:
+                if j - j_prev + 1 > W:
+                    return -np.inf, 0
+                total += vec[(j + 1) * j // 2 + j_prev]
+                j_prev, n_seg = j + 1, n_seg + 1
+        return total, n_seg
+
+    patterns = [p + (True,) for p in
+                itertools.product([False, True], repeat=N - 1)]
+    scored = {p: seg_score(p) for p in patterns}
+    best = max(patterns, key=lambda p: scored[p][0])
+    f64 = dict(device="cpu", dtype=torch.float64)
+    lp, bounds = forward_backward_viterbi(vec, 0.0, N, n_slices_max=W, **f64)
+    assert tuple(bounds[:N].tolist()) == best
+    npt.assert_allclose(lp, scored[best][0], rtol=1e-12)
+    obj, bounds = forward_backward_kmeans_viterbi(vec, N, n_slices_max=W,
+                                                  **f64)
+    assert tuple(bounds[:N].tolist()) == best
+    npt.assert_allclose(obj, scored[best][0], rtol=1e-12)
+
+    lpc = np.log(0.7)
+    logp = np.array([scored[p][0] + scored[p][1] * lpc
+                     if np.isfinite(scored[p][0]) else -np.inf
+                     for p in patterns])
+    target = np.exp(logp - logp.max())
+    target /= target.sum()
+    gen = torch.Generator().manual_seed(1)
+    freq = dict.fromkeys(patterns, 0)
+    n_draws = 3000
+    for _ in range(n_draws):
+        _, b = forward_backward(vec, lpc, N, n_slices_max=W, generator=gen,
+                                **f64)
+        freq[tuple(b[:N].tolist())] += 1
+    emp = np.array([freq[p] / n_draws for p in patterns])
+    assert 0.5 * np.abs(emp - target).sum() < 0.05, (emp, target)

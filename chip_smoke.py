@@ -55,8 +55,26 @@ check that does not hold:
    (K2 in its Viterbi mode, one launch a block) for 137 sweeps: its
    objective rising, boundary F1 >= 0.64.
 
-The second-to-last line is a JSON summary of the kernels, the last line
-``{"ok": true, "device": {...}}``.
+6. auxiliary, at the flagship's full width (the same corpus and
+   configurations): (a) resume: for the six Gibbs paths, unigram_fixed_am
+   and kmeans_wordseg, a segmenter runs 2 sweeps, is saved
+   (``utils/checkpoint.py``), runs 2 more; a fresh segmenter (another
+   host RNG, another generator seed) restores and runs the same 2; the
+   two must be identical in every array of the checkpoint (assignments,
+   boundaries, statistics, LM tables, k-means state, the generator's
+   state bytes), with each path's kernels launched; the save and restore
+   times and the checkpoint's bytes; (b) sweeps with ``validate=True,
+   monitor_i=0`` on unigram_fixed, bigram and kmeans_wordseg, timed
+   against sweeps without in turns, and the monitor on the card against
+   the CPU's from one state (scores within ``SCORE_TOL``); (c)
+   ``debug_gibbs_only`` leaves the other boundary rows untouched, and a
+   NaN in ``sum_x[0, 0]`` raises ``ValidationError`` naming sum_x with no
+   fault of the card; (d) every demo of ``segmentalist_torch/demos.py``
+   and ``examples/segmentation_example.py`` on the card.
+
+The third-to-last line is phase 6's JSON summary, the second-to-last a
+JSON summary of the kernels, the last line ``{"ok": true, "device":
+{...}}``.
 
 To time some kernels alone (phases 1-3 of the named kernels, with their
 kernels line and no result line):
@@ -1949,6 +1967,248 @@ def run_kmeans_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
              "components_first": comps[0], "components_last": comps[-1]})
 
 
+# ------------------------------------------------------------- phase 6
+
+AUX_SWEEPS = 2          # phase 6: sweeps before and after the save
+CARD = ""               # the card's name and power limit (nvidia-smi)
+
+
+def aux_builders(n_utterances=1000):
+    """Phase 6's segmenters at the flagship's full width (the bench corpus,
+    1000 utterances, K 1000, D 13, batch_size 125): name -> (build on a
+    device, run n sweeps with keywords)."""
+    from segmentalist_torch.utils.profiling import (bench_kmeans_segmenter,
+                                                    bench_segmenter)
+
+    def gibbs(cov, bigram, **kw):
+        return (lambda dev: bench_segmenter(cov, bigram, n_utterances, dev,
+                                            **kw)[0],
+                lambda seg, n, **k: seg.gibbs_sample(n, **k))
+
+    out = {name: gibbs(cov, bigram) for name, cov, bigram in (
+        ("unigram_fixed", "fixed", False), ("bigram", "fixed", True),
+        ("unigram_diag", "diag", False), ("bigram_diag", "diag", True),
+        ("unigram_full", "full", False), ("bigram_full", "full", True))}
+    build_am, _ = gibbs("fixed", False, init_am_assignments="one-by-one")
+    out["unigram_fixed_am"] = (
+        build_am, lambda seg, n, **k: seg.gibbs_sample(n, am_n_iter=1, **k))
+    out["kmeans_wordseg"] = (
+        lambda dev: bench_kmeans_segmenter(n_utterances, dev)[0],
+        lambda seg, n, **k: seg.segment(n, **k))
+    return out
+
+
+def ckpt_dir(name):
+    return os.path.join(ROOT, "segmentalist_torch", "_build",
+                        "chip_smoke_checkpoints", name)
+
+
+def resume_path(name, build, sweep):
+    """Segmenter B runs AUX_SWEEPS sweeps, is saved, and runs AUX_SWEEPS
+    more; a fresh segmenter C (another host RNG, another generator seed)
+    restores the checkpoint and runs the same sweeps.  B and C must end
+    identical in every array of the checkpoint: assignments, boundaries,
+    counts, sum_x, sum_sq, the LM tables, the k-means state and the
+    generator's state bytes.  Returns the launches of the path's kernels
+    and (save ms, restore ms, checkpoint bytes)."""
+    import shutil
+
+    from segmentalist_torch.utils import checkpoint as ckpt
+
+    t0 = time.time()
+    reset_launches()
+    seg_b = build(DEVICE)
+    sweep(seg_b, AUX_SWEEPS)
+    path = ckpt_dir(name)
+    sync()
+    t = time.time()
+    ckpt.save_checkpoint(path, seg_b, AUX_SWEEPS)
+    save_ms = (time.time() - t) * 1e3
+    n_bytes = os.path.getsize(ckpt.checkpoint_file(path, AUX_SWEEPS))
+    sweep(seg_b, AUX_SWEEPS)
+    seg_c = build(DEVICE)
+    seg_c._rng = np.random.RandomState(999)
+    if hasattr(seg_c, "_gen"):
+        seg_c._gen.manual_seed(999)
+    sync()
+    t = time.time()
+    ckpt.restore_checkpoint(path, seg_c, AUX_SWEEPS)
+    sync()
+    restore_ms = (time.time() - t) * 1e3
+    shutil.rmtree(path)
+    sweep(seg_c, AUX_SWEEPS)
+    launches = read_launches()
+    want = ckpt._flatten(ckpt.segmenter_state(seg_b))
+    got = ckpt._flatten(ckpt.segmenter_state(seg_c))
+    differ = [k for k in want if k not in got
+              or not np.array_equal(got[k], want[k])]
+    log("resume %s: %d + save + %d sweeps against a fresh segmenter "
+        "restored after %d, %d arrays compared, differing %s, launches %s "
+        "(%.1f s)" % (name, AUX_SWEEPS, AUX_SWEEPS, AUX_SWEEPS, len(want),
+                      differ, launches, time.time() - t0))
+    check(got.keys() == want.keys() and not differ,
+          "resume %s: the restored segmenter left the chain in %s"
+          % (name, differ))
+    if hasattr(seg_b, "_gen"):
+        check("torch_generator/state" in want,
+              "resume %s: no generator state saved" % name)
+    for k in PATH_KERNELS[name]:
+        check(launches[k] > 0, "kernel %s was not launched on the resumed "
+              "%s path" % (k, name))
+    return ({k: launches[k] for k in PATH_KERNELS[name]},
+            (save_ms, restore_ms, n_bytes))
+
+
+def monitored_path(name, build, sweep):
+    """Sweeps with ``validate=True, monitor_i=0`` against sweeps without,
+    in turns (off, on, on, off, off, on; AUX_SWEEPS each); the flags must
+    pass.  One monitor call and one validate call are timed alone.
+    Then the monitor on the card against the same computation on the CPU
+    from one state: scores within SCORE_TOL, boundary row and components
+    identical.  Returns the launches of the monitored sweeps, the ms a
+    sweep off and on, and the segmenter."""
+    from segmentalist_torch.utils import checkpoint as ckpt
+
+    seg = build(DEVICE)
+    sweep(seg, 1)  # warm-up
+    ms = {False: [], True: []}
+    launches = dict.fromkeys(PATH_KERNELS[name], 0)
+    for on in (False, True, True, False, False, True):
+        kw = {"validate": True, "monitor_i": 0} if on else {}
+        reset_launches()
+        sync()
+        t = time.time()
+        sweep(seg, AUX_SWEEPS, **kw)
+        sync()
+        ms[on].append((time.time() - t) / AUX_SWEEPS * 1e3)
+        if on:
+            n = read_launches()
+            launches = {k: launches[k] + n[k] for k in launches}
+    hook_ms = {}
+    for hook in ("_monitor_device", "_validate_device"):
+        fn = (lambda: seg._monitor_device(0)) if hook == "_monitor_device" \
+            else seg._validate_device
+        fn()
+        sync()
+        t = time.time()
+        for _ in range(10):
+            fn()
+        sync()
+        hook_ms[hook] = (time.time() - t) / 10 * 1e3
+    cpu = build("cpu")
+    state = ckpt.segmenter_state(seg)
+    state.pop("torch_generator", None)  # a CUDA generator's, not the CPU's
+    ckpt.load_segmenter_state(cpu, state)
+    got = [t.cpu().numpy() for t in seg._monitor_device(0)]
+    want = [t.numpy() for t in cpu._monitor_device(0)]
+    fin = np.isfinite(want[0])
+    err = float((np.abs(got[0][fin] - want[0][fin])
+                 / np.maximum(1.0, np.abs(want[0][fin]))).max())
+    same = (np.array_equal(np.isinf(got[0]), np.isinf(want[0]))
+            and np.array_equal(got[1], want[1])
+            and np.array_equal(got[2], want[2]))
+    off, on = float(np.mean(ms[False])), float(np.mean(ms[True]))
+    log("%s validate and monitor: ms/sweep off %s, on %s (means %.3f / "
+        "%.3f, +%.3f); monitor utterance 0, card vs CPU: score rel. err "
+        "%.3g, masks, boundaries and components identical %s; one "
+        "monitor call %.3f ms, one validate call %.3f ms (host clock, "
+        "synchronized); launches on %s [%s]" % (
+            name, [round(v, 3) for v in ms[False]],
+            [round(v, 3) for v in ms[True]], off, on, on - off, err, same,
+            hook_ms["_monitor_device"], hook_ms["_validate_device"],
+            launches, CARD))
+    check(same and err <= SCORE_TOL,
+          "%s: the monitor on the card differs from the CPU's" % name)
+    for k in PATH_KERNELS[name]:
+        check(launches[k] > 0, "kernel %s was not launched on the "
+              "monitored %s path" % (k, name))
+    return launches, {"ms_off": off, "ms_on": on, "monitor_rel_err": err,
+                      "monitor_ms": hook_ms["_monitor_device"],
+                      "validate_ms": hook_ms["_validate_device"]}, seg
+
+
+def poisoned_state(seg):
+    """``debug_gibbs_only`` leaves every boundary row but the monitored
+    one untouched; then a NaN in ``sum_x[0, 0]`` raises ValidationError
+    naming sum_x after a sweep through K1, K2 and K3, and the card has no
+    fault (the next synchronize passes)."""
+    from segmentalist_torch.utils.debug import ValidationError
+
+    before = seg.utterances.boundaries
+    seg.gibbs_sample(2, monitor_i=0, debug_gibbs_only=True)
+    after = seg.utterances.boundaries
+    check(np.array_equal(after[1:], before[1:]),
+          "debug_gibbs_only changed another utterance's boundaries")
+    am = seg.acoustic_model
+    sum_x = am.stats.sum_x.clone()
+    sum_x[0, 0] = float("nan")
+    am.stats = am.stats._replace(sum_x=sum_x)
+    try:
+        seg.gibbs_sample(1, validate=True)
+    except ValidationError as e:
+        msg = str(e)
+    else:
+        msg = None
+    sync()  # a fault of the card would surface here
+    log("poisoned state (NaN in sum_x[0, 0]): %s; debug_gibbs_only kept "
+        "the other %d boundary rows" % (msg, len(before) - 1))
+    check(msg is not None and "sum_x" in msg,
+          "the poisoned state did not raise ValidationError naming sum_x")
+    return msg
+
+
+def run_demos():
+    """Every demo and the segmentation example on the card, their output
+    captured: it must hold no NaN, and every example F1 be above 0.3."""
+    import contextlib
+    import io
+
+    from segmentalist_torch import demos
+    from segmentalist_torch.examples import segmentation_example
+
+    lines = {}
+    for name, demo in demos.DEMOS.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            demo(DEVICE)
+        lines[name] = buf.getvalue()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        f1s = segmentation_example.main(device=DEVICE)
+    lines["segmentation_example"] = buf.getvalue()
+    log("demos on the card: %s; segmentation_example F1 %s" % (
+        {k: len(v.splitlines()) for k, v in lines.items()},
+        {k: round(v, 4) for k, v in f1s.items()}))
+    bad = [k for k, v in lines.items() if "nan" in v or not v.strip()]
+    check(not bad, "demos with NaN or no output: %s" % bad)
+    check(all(f > 0.3 for f in f1s.values()),
+          "segmentation_example: F1 %s" % f1s)
+    return f1s
+
+
+def run_auxiliary(n_utterances=1000):
+    """Phase 6 at the flagship's width: resume (a), validate and monitor
+    (b), the poisoned state (c), the demos (d).  Returns each path's
+    launches and the phase's numbers."""
+    paths, out = {}, {"resume": {}}
+    builders = aux_builders(n_utterances)
+    for name, (build, sweep) in builders.items():
+        paths["resume_" + name], times = resume_path(name, build, sweep)
+        out["resume"][name] = dict(zip(("save_ms", "restore_ms", "bytes"),
+                                       times))
+    fl = out["resume"]["unigram_fixed"]
+    log("checkpoint at the flagship (unigram_fixed): save %.3f ms, restore "
+        "%.3f ms, %d bytes [%s]" % (fl["save_ms"], fl["restore_ms"],
+                                    fl["bytes"], CARD))
+    monitored = {}
+    for name in ("unigram_fixed", "bigram", "kmeans_wordseg"):
+        paths["monitor_" + name], out[name], monitored[name] = \
+            monitored_path(name, *builders[name])
+    out["demo_f1"] = run_demos()
+    out["poisoned"] = poisoned_state(monitored["unigram_fixed"])
+    return paths, out
+
+
 def parse_args(argv):
     import argparse
 
@@ -1975,7 +2235,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                    torch.cuda.get_device_name(0)))
     resolve_device("cuda")
@@ -2022,6 +2284,8 @@ def main(argv=None) -> int:
                       ("unigram_fixed_am", run_am_slice)):
         paths[name], fbgmm[name] = run()
     paths["kmeans_wordseg"], kmeans = run_kmeans_slice()
+    aux_paths, aux = run_auxiliary()
+    paths.update(aux_paths)
 
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
@@ -2103,6 +2367,7 @@ def main(argv=None) -> int:
                     "bound_by", "form")})
             entry.update(plain_items=fl["plain_items"], paths=fbgmm)
         kernels.append(entry)
+    print(json.dumps({"auxiliary": aux}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -240,3 +240,9 @@ class BigramSmoothLM:
     def remove_counts_from_utterance(self, utterance):
         self.state = add_transcript_counts(self.state,
                                            self._transcript(utterance), -1)
+
+
+if __name__ == "__main__":  # smoke demo (reference bigram_lms.py:117-156)
+    from segmentalist_torch.demos import run_demo
+
+    run_demo("bigram_lm")

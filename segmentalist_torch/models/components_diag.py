@@ -166,3 +166,9 @@ def rand_k(generator: torch.Generator, prior: NIW, stats: SuffStats, k):
     mean = m_n + torch.sqrt(var / k_n) * torch.randn(
         m_n.shape, generator=generator, dtype=m_n.dtype, device=m_n.device)
     return mean, var
+
+
+if __name__ == "__main__":  # smoke demo (reference gaussian_components_diag.py:410-494)
+    from segmentalist_torch.demos import run_demo
+
+    run_demo("components_diag")

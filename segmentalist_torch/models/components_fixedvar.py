@@ -152,3 +152,9 @@ def rand_k(generator: torch.Generator, prior: FixedVarPrior,
     return mu_pred + std * torch.randn(mu_pred.shape, generator=generator,
                                        dtype=mu_pred.dtype,
                                        device=mu_pred.device)
+
+
+if __name__ == "__main__":  # smoke demo (reference gaussian_components_fixedvar.py:359-388)
+    from segmentalist_torch.demos import run_demo
+
+    run_demo("components_fixed")

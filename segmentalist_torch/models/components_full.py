@@ -225,3 +225,9 @@ def rand_k(generator: torch.Generator, prior: NIW, stats: SuffStats, k):
     mu = m_n + mean_chol @ torch.randn(D, generator=generator,
                                         dtype=s_n.dtype, device=s_n.device)
     return mu, sigma
+
+
+if __name__ == "__main__":  # smoke demo (reference gaussian_components.py:370-465)
+    from segmentalist_torch.demos import run_demo
+
+    run_demo("components_full")

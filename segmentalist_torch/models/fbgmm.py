@@ -551,3 +551,9 @@ class ComponentsView:
         counts[k], sum_x[k], sum_sq[k] = 0, 0.0, 0.0
         o.stats = SuffStats(counts, sum_x, sum_sq)
         o.assignments = torch.where(o.assignments == k, -1, o.assignments)
+
+
+if __name__ == "__main__":  # smoke demo (reference fbgmm.py:505-546)
+    from segmentalist_torch.demos import run_demo
+
+    run_demo("fbgmm")

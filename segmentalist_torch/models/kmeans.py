@@ -326,3 +326,9 @@ def _moved(st: KMeansState, i: int, k: int, x: torch.Tensor,
     counts[k] += sign
     sum_x[k] += sign * x
     return KMeansState(assignments, counts, sum_x)
+
+
+if __name__ == "__main__":  # smoke demo (reference kmeans.py:176-217, kmeans_components.py:274-324)
+    from segmentalist_torch.demos import run_demo
+
+    run_demo("kmeans")

@@ -45,6 +45,7 @@ from ..ops.cuda_chain import bigram_fixedvar_chain
 from ..ops.cuda_diag_chain import bigram_diag_chain
 from ..ops.random import annealed_gumbel_max, gumbel, logsumexp
 from ..ops.stats import add_item, canonicalize_new_component, num_active
+from ..utils import debug as dbg
 from ..utils.annealing import anneal_temperatures
 from .blocked import BlockedWordseg
 from .common import gather_block_segments
@@ -189,6 +190,28 @@ class BigramAcousticWordseg(BlockedWordseg):
                 "log_marg": lpz + lpx, "components": int(k_act),
                 "n_assigned": int(n_assigned)}
 
+    def _lm_leave_out(self, blk) -> torch.Tensor:
+        """[B, K] the LM's unigram counts without each utterance's own."""
+        return self.lm.state.unigram_counts[None] - blk.own_counts
+
+    def _candidate_weights(self, blk) -> torch.Tensor:
+        """[B, K] mixture-weight terms of a block's candidate scores: the
+        LM's leave-out unigram weights."""
+        am = self.acoustic_model
+        return log_weights(self._lm_leave_out(blk), self.lm.a, am.K_max,
+                           self.lms, include_denominator=True,
+                           dtype=am.X.dtype)
+
+    VALIDATION_CHECKS = dbg.BIGRAM_CHECKS
+
+    def _validate_device(self) -> torch.Tensor:
+        """The invariant flags of ``BIGRAM_CHECKS``: the FBGMM's and the LM
+        tables' (the JAX package's ``bigram.py:578-592``)."""
+        am, utt = self.acoustic_model, self.utterances
+        return dbg.bigram_validation_flags(am.stats, am.assignments,
+                                           utt.boundaries_dev,
+                                           utt.lengths_dev, self.lm.state)
+
     def _unigram_lm_weights(self) -> torch.Tensor:
         lm = self.lm
         return self.lms * log_prob_vec_i(lm.state, lm.a, lm.K,
@@ -299,11 +322,18 @@ class BigramAcousticWordseg(BlockedWordseg):
                      anneal_schedule=None, anneal_start_temp_inv: float = 0.1,
                      anneal_end_temp_inv: float = 1.0,
                      n_anneal_steps: int = -1, anneal_gibbs_am: bool = False,
-                     assignments_only: bool = False) -> dict:
+                     assignments_only: bool = False, monitor_i=None,
+                     validate: bool = False) -> dict:
         """Blocked Gibbs sampling over all utterances (reference
         ``gibbs_sample``, bigram_acoustic_wordseg.py:553-670); returns the
         reference's 8-key record dict.  ``assignments_only`` keeps the
-        boundaries and resamples the components only."""
+        boundaries and resamples the components only.
+
+        ``monitor_i`` / ``validate``: a per-sweep trace of one utterance
+        (its unigram-marginal candidate scores, boundaries and transcript)
+        and the sampler-invariant checks, the LM tables' included (the
+        reference's traces, bigram_acoustic_wordseg.py:24, :400-407, and
+        NaN asserts, :368; see ``utils/debug.py``)."""
         if am_n_iter > 0:
             raise NotImplementedError(
                 "am_n_iter > 0: the reference asserts to-do here "
@@ -317,6 +347,7 @@ class BigramAcousticWordseg(BlockedWordseg):
                                     anneal_start_temp_inv,
                                     anneal_end_temp_inv, n_anneal_steps)
         return self._sample_sweeps(temps, anneal_gibbs_am,
+                                   monitor_i=monitor_i, validate=validate,
                                    assignments_only=assignments_only)
 
     def block_step(self, idx_blk, anneal_temp: float = 1.0,
@@ -340,7 +371,7 @@ class BigramAcousticWordseg(BlockedWordseg):
         # 1. old segments, their LM pairs and the leave-outs
         blk = self._leave_out(idx_blk)
         pairs_old = transcript_pairs_batch(blk.old_ks)
-        uni_lo = lm.state.unigram_counts[None] - blk.own_counts
+        uni_lo = self._lm_leave_out(blk)
 
         # 2. scoring with the LM's unigram weights (K1 / K5 / K8),
         # boundaries (K2)
@@ -349,10 +380,9 @@ class BigramAcousticWordseg(BlockedWordseg):
                                    device=self.device)
             new_bounds = self.utterances.boundaries_dev[blk.idx]
         else:
-            w_b = log_weights(uni_lo, lm.a, K, self.lms,
-                              include_denominator=True, dtype=X.dtype)
             log_prob, new_bounds = self._resample_boundaries(
-                blk, w_b, anneal_temp, "sample", dp_noise)
+                blk, self._candidate_weights(blk), anneal_temp, "sample",
+                dp_noise)
 
         # 3. bigram-conditioned assignment chains (kernel K4 / K7 / K9)
         new_embeds, Xe_new, lpe_new = self._new_segments(blk, new_bounds)
@@ -380,3 +410,9 @@ class BigramAcousticWordseg(BlockedWordseg):
         lm.state = apply_delta(lm.state, block_count_delta(
             blk.old_ks, new_ks, blk.valid, K, pairs_old=pairs_old))
         return torch.where(blk.valid, log_prob, 0.0).sum()
+
+
+if __name__ == "__main__":  # smoke demo (reference bigram_acoustic_wordseg.py:765-857)
+    from segmentalist_torch.demos import run_demo
+
+    run_demo("bigram_seg")

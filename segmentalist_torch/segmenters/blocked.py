@@ -40,6 +40,8 @@ from ..ops.cuda_fullcov_score import fullcov_log_margs
 from ..ops.cuda_score import diag_log_margs_T, fixedvar_log_margs_T
 from ..ops.dp import segment_dp
 from ..ops.random import gumbel, logsumexp
+from ..ops.stats import SuffStats
+from ..utils import debug as dbg
 from .common import (
     cand_tables,
     counts_contrib,
@@ -133,8 +135,8 @@ class BlockedWordseg:
     """Corpus and acoustic-model state of a blocked-Gibbs segmenter, and
     the block-step stages its subclasses share.  A subclass calls
     :meth:`_init_corpus`, builds its acoustic model, then calls
-    :meth:`_init_sampler`; it defines ``block_step`` and
-    ``sweep_metrics``."""
+    :meth:`_init_sampler`; it defines ``block_step``, ``sweep_metrics``
+    and ``_candidate_weights`` (a block's [B, K] mixture-weight terms)."""
 
     def _init_corpus(self, am_K, embedding_mats, vec_ids_dict,
                      durations_dict, landmarks_dict, seed_boundaries_dict,
@@ -280,13 +282,23 @@ class BlockedWordseg:
         return scores.cpu().numpy(), [utt.lengths[i] for i in utt_ids]
 
     def _sample_sweeps(self, temps, anneal_gibbs_am: bool,
-                       am_n_iter: int = 0, **step_kwargs) -> dict:
+                       am_n_iter: int = 0, monitor_i=None,
+                       validate: bool = False, debug_only: bool = False,
+                       **step_kwargs) -> dict:
         """Blocked Gibbs sweeps at temperatures ``temps``: every sweep visits
         the utterances in a fresh host permutation, in blocks of
         ``batch_size``, after ``am_n_iter`` sweeps of the acoustic model
         alone over the assigned items (``FBGMM.gibbs_sample``, sequential).
-        Returns the reference's 8-key record dict."""
+        Returns the reference's 8-key record dict.
+
+        After every sweep, ``monitor_i`` takes the utterance's trace
+        (:meth:`_monitor_device`) and ``validate`` the invariant flags
+        (:meth:`_validate_device`); after the last sweep the traces are
+        logged and the flags checked (``utils/debug.py``), as the JAX
+        package does (``unigram.py:469-474``).  ``debug_only`` visits only
+        utterance ``monitor_i``, in one padded block, every sweep."""
         record = {k: [] for k in RECORD_KEYS}
+        pending_monitor, pending_validate = [], []
         for temp in temps:
             t0 = time.time()
             if am_n_iter > 0:
@@ -294,8 +306,10 @@ class BlockedWordseg:
                                                  consider_unassigned=False)
             temp = float(temp)
             assign_temp = temp if anneal_gibbs_am else 1.0
-            blocks = pad_utterance_order(
-                self._rng.permutation(self.utterances.D), self.batch_size)
+            order = (np.asarray([int(monitor_i)], dtype=np.int64)
+                     if debug_only else
+                     self._rng.permutation(self.utterances.D))
+            blocks = pad_utterance_order(order, self.batch_size)
             log_prob = sum(self.block_step(blk, temp, assign_temp,
                                            **step_kwargs) for blk in blocks)
             m = self.sweep_metrics()
@@ -309,7 +323,65 @@ class BlockedWordseg:
             record["sample_time"].append(time.time() - t0)
             logger.info("iteration: %d, log_marg: %s",
                         len(record["log_marg"]) - 1, record["log_marg"][-1])
+            if monitor_i is not None:
+                pending_monitor.append(self._monitor_device(int(monitor_i)))
+            if validate:
+                pending_validate.append(self._validate_device())
+        if monitor_i is not None:
+            dbg.log_monitor(logger, int(monitor_i), pending_monitor)
+        if validate:
+            dbg.check_validation(pending_validate, self.VALIDATION_CHECKS)
         return record
+
+    # ---------------------------------------------------------- debugging
+
+    VALIDATION_CHECKS = dbg.FBGMM_CHECKS
+
+    def _validate_device(self) -> torch.Tensor:
+        """The invariant flags of ``VALIDATION_CHECKS`` on the current
+        state, a bool tensor on the device (the JAX package's
+        ``_validate_device``, ``unigram.py:589-605``)."""
+        am, utt = self.acoustic_model, self.utterances
+        return dbg.fbgmm_validation_flags(am.stats, am.assignments,
+                                          utt.boundaries_dev,
+                                          utt.lengths_dev)
+
+    def _monitor_device(self, i: int):
+        """Utterance ``i``'s trace on the current state, as device tensors:
+        ``(candidate scores [N_max, W_dp], -inf where masked; its boundary
+        row [N_max]; its current segments' components [N_max], -1 pads)``
+        (the JAX package's ``_monitor_device``, ``unigram.py:521-587``).
+
+        The scores are the block step's, with the utterance held out (its
+        segments and leave-out statistics from :meth:`_leave_out`) and the
+        mixture weights of :meth:`_candidate_weights`.  The fixed-variance
+        family scores through the block step's own scorer, kernel K1, which
+        sums (x - mu)^2 prec directly (the expanded form of
+        ``log_post_pred_batch`` cancels in float32); the diag and full
+        families score in plain tensor code with ``cov.log_post_pred_batch``
+        through a logsumexp, as the JAX monitor does (K5 takes a Stirling
+        lgamma and K8 a float32 touched-slot form)."""
+        am, utt = self.acoustic_model, self.utterances
+        blk = self._leave_out(np.array([int(i)]))
+        w = self._candidate_weights(blk)
+        if self._family == "fixed":
+            log_margs = self._candidate_log_margs(blk, w)
+        else:
+            own = flat_contrib(am.X, blk.old_embeds, blk.old_ks, am.K_max,
+                               blk.valid, rows=blk.Xe_old,
+                               full_cov=am.full_cov)
+            lo = SuffStats(*(g - c for g, c in zip(am.stats, own)))
+            post = am.cov.log_post_pred_batch(
+                am.cov.predictive_params(am.prior, lo),
+                self._cand_X[blk.idx][0])
+            logits = w + torch.where((lo.counts > 0)[None, :], post,
+                                     self._cand_lp[blk.idx][0][:, None])
+            log_margs = logsumexp(logits, dim=-1).reshape(1, utt.N_max,
+                                                          self.W_dp)
+        scores = masked_candidate_scores(
+            log_margs, self._seg_ids_dp[blk.idx], self._seg_durs_dp[blk.idx],
+            self.time_power_term, self.wip)
+        return scores[0], utt.boundaries_dev[int(i)].clone(), blk.old_ks[0]
 
     # ------------------------------------------------------- block stages
 
@@ -366,6 +438,23 @@ class BlockedWordseg:
         has one composition, K8, for both DP modes (``unigram.py:905-916``).
         """
         am = self.acoustic_model
+        scores = masked_candidate_scores(
+            self._candidate_log_margs(blk, w_b, exact=mode == "viterbi"),
+            self._seg_ids_dp[blk.idx], self._seg_durs_dp[blk.idx],
+            self.time_power_term, self.wip)
+        return segment_dp(
+            scores, blk.lengths, self._log_p_continue(am.stats.counts),
+            anneal_temp, n_slices_min=self.n_slices_min,
+            n_slices_max=self.W_dp, mode=mode, noise=dp_noise,
+            generator=self._gen)
+
+    def _candidate_log_margs(self, blk: Block, w_b: torch.Tensor,
+                             exact: bool = False) -> torch.Tensor:
+        """Stage 2's scorer: [B, N_max, W_dp] log marginals of every
+        candidate span of the block under mixture weights ``w_b`` (kernel
+        K1; K5, in its exact composition with ``exact``, for the diag
+        family; K8 for the full one)."""
+        am = self.acoustic_model
         B = blk.idx.shape[0]
         N_max, W_dp = self.utterances.N_max, self.W_dp
         Xc, prior_c = self._cand_X[blk.idx], self._cand_lp[blk.idx]
@@ -379,21 +468,14 @@ class BlockedWordseg:
                 am.prior, blk.lo_counts, blk.sum_xT, blk.sum_sqT)
             log_margs = diag_log_margs_T(
                 Xc, prior_c, muT, inv_varT, lpv, v, w_b, blk.lo_counts,
-                valid_m=valid_m, exact=mode == "viterbi")
+                valid_m=valid_m, exact=exact)
         else:
             muT, precT = am.cov.predictive_params_T(am.prior, blk.lo_counts,
                                                     blk.sum_xT)
             log_margs = fixedvar_log_margs_T(
                 Xc, prior_c, muT.contiguous(), precT.contiguous(), w_b,
                 blk.lo_counts, valid_m=valid_m)
-        log_margs = log_margs.reshape(B, N_max, W_dp)
-        scores = masked_candidate_scores(
-            log_margs, self._seg_ids_dp[blk.idx], self._seg_durs_dp[blk.idx],
-            self.time_power_term, self.wip)
-        return segment_dp(
-            scores, blk.lengths, self._log_p_continue(am.stats.counts),
-            anneal_temp, n_slices_min=self.n_slices_min, n_slices_max=W_dp,
-            mode=mode, noise=dp_noise, generator=self._gen)
+        return log_margs.reshape(B, N_max, W_dp)
 
     def _new_segments(self, blk: Block, new_bounds: torch.Tensor):
         """The segments of ``new_bounds``: (embedding ids [B, N_max], their

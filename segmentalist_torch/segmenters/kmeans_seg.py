@@ -50,6 +50,7 @@ from ..models.kmeans import (KMeans, KMeansState,
                              neg_sqrd_norms, sum_neg_sqrd_norm)
 from ..ops.dp import segment_dp
 from ..ops.random import NEG_INF
+from ..utils import debug as dbg
 from .blocked import _to_device, build_corpus
 from .common import (cand_tables, dp_window, flat_contrib,
                      gather_block_segments, pad_utterance_order,
@@ -87,6 +88,14 @@ def duration_scaled_scores(best: torch.Tensor, seg_ids_blk: torch.Tensor,
     scores = best * torch.where(torch.isnan(durs), 0.0, durs) + wip
     invalid = (seg_ids_blk < 0) | torch.isnan(durs)
     return torch.where(invalid, NEG_INF, scores)
+
+
+def direct_neg_sqrd_norms(X: torch.Tensor,
+                          means: torch.Tensor) -> torch.Tensor:
+    """[M, K] negative squared distances summed directly, ``-sum_d (x_d -
+    mu_d)^2``: no cancellation, unlike ``models.kmeans.neg_sqrd_norms``."""
+    diff = X[:, None, :] - means[None, :, :]
+    return -(diff * diff).sum(-1)
 
 
 class SegmentalKMeansWordseg:
@@ -203,18 +212,33 @@ class SegmentalKMeansWordseg:
         DP objective."""
         return float(self.block_step(np.array([int(i)])))
 
-    def segment(self, n_iter: int, n_iter_inbetween_kmeans: int = 0) -> dict:
+    def segment(self, n_iter: int, n_iter_inbetween_kmeans: int = 0,
+                monitor_i=None, validate: bool = False,
+                segment_debug_only: bool = False) -> dict:
         """Segment all utterances ``n_iter`` times, each sweep followed by
         ``n_iter_inbetween_kmeans`` k-means iterations over the assigned
         items (reference ``segment``, kmeans_acoustic_wordseg.py:353-425).
         Returns the five-key record; its values are fetched once a
-        sweep."""
+        sweep.
+
+        ``monitor_i`` / ``validate``: a per-sweep trace of one utterance,
+        logged at DEBUG level, and the invariant checks of
+        ``utils.debug.KMEANS_CHECKS``, which raise ``ValidationError``
+        after the last sweep (the reference's ``i_debug_monitor`` / NaN
+        asserts; see ``utils/debug.py``).  ``segment_debug_only``: segment
+        only the monitored utterance each sweep (the reference's standing
+        flag, kmeans_acoustic_wordseg.py:20; requires ``monitor_i``)."""
+        if segment_debug_only and monitor_i is None:
+            raise AssertionError("segment_debug_only requires monitor_i")
         am = self.acoustic_model
         record = {k: [] for k in RECORD_KEYS}
+        pending_monitor, pending_validate = [], []
         for _ in range(n_iter):
             t0 = time.time()
-            blocks = pad_utterance_order(
-                self._rng.permutation(self.utterances.D), self.batch_size)
+            order = (np.asarray([int(monitor_i)], dtype=np.int64)
+                     if segment_debug_only else
+                     self._rng.permutation(self.utterances.D))
+            blocks = pad_utterance_order(order, self.batch_size)
             obj = sum(self.block_step(blk) for blk in blocks)
             self._sweeps_since_resync += 1
             if self._sweeps_since_resync >= _RESYNC_EVERY:
@@ -226,6 +250,10 @@ class SegmentalKMeansWordseg:
                 sum_neg_sqrd_norm(am.X, st, am.random_means).to(f64),
                 (st.counts > 0).sum().to(f64),
                 (st.assignments >= 0).sum().to(f64)]).tolist()
+            if monitor_i is not None:
+                pending_monitor.append(self._monitor_device(int(monitor_i)))
+            if validate:
+                pending_validate.append(self._validate_device())
             if n_iter_inbetween_kmeans > 0:
                 am.fit(n_iter_inbetween_kmeans, consider_unassigned=False)
             record["sum_neg_sqrd_norm"].append(snn)
@@ -235,7 +263,51 @@ class SegmentalKMeansWordseg:
             record["sample_time"].append(time.time() - t0)
             logger.info("iteration: %d, sum_neg_len_sqrd_norm: %s",
                         len(record["sample_time"]) - 1, obj)
+        if monitor_i is not None:
+            dbg.log_monitor(logger, int(monitor_i), pending_monitor)
+        if validate:
+            dbg.check_validation(pending_validate, dbg.KMEANS_CHECKS)
         return record
+
+    def _candidate_scores(self, idx: torch.Tensor, means: torch.Tensor,
+                          distances=neg_sqrd_norms) -> torch.Tensor:
+        """[B, N_max, W_dp] candidate scores of the utterances ``idx``: the
+        best component's negative squared distance to ``means`` (by
+        ``distances``) times the duration, plus ``wip``; -inf where
+        masked."""
+        B, N_max, W_dp = idx.shape[0], self.utterances.N_max, self.W_dp
+        Xc = self._cand_X[idx].reshape(B * N_max * W_dp, -1)
+        best = distances(Xc, means).amax(-1).reshape(B, N_max, W_dp)
+        return duration_scaled_scores(best, self._seg_ids_dp[idx],
+                                      self._seg_durs_dp[idx], self.wip)
+
+    def _monitor_device(self, i: int):
+        """Utterance ``i``'s trace on the current state, as device tensors:
+        ``(candidate scores [N_max, W_dp], -inf where masked; its boundary
+        row [N_max]; its current segments' components [N_max], -1 pads)``
+        (the JAX package's ``_monitor_device``, ``kmeans_seg.py:315-363``).
+        The distances take the direct form: the block step's expanded form
+        cancels in float32 (ROADMAP's reference caveats), which would show
+        as rounding noise of up to ~2e-4 relative in the trace.
+        """
+        am, utt = self.acoustic_model, self.utterances
+        idx = torch.tensor([int(i)], device=self.device)
+        scores = self._candidate_scores(
+            idx, means_from_state(am.state, am.random_means),
+            direct_neg_sqrd_norms)
+        embeds, _ = gather_block_segments(utt.boundaries_dev[idx],
+                                          utt.lengths_dev[idx],
+                                          utt.seg_ids[idx])
+        ks = torch.where(embeds >= 0,
+                         am.state.assignments[embeds.clamp_min(0).long()], -1)
+        return scores[0], utt.boundaries_dev[int(i)].clone(), ks[0]
+
+    def _validate_device(self) -> torch.Tensor:
+        """The invariant flags of ``utils.debug.KMEANS_CHECKS`` on the
+        current state, a bool tensor on the device."""
+        return dbg.kmeans_validation_flags(self.acoustic_model.state,
+                                           self.utterances.boundaries_dev,
+                                           self.utterances.lengths_dev)
 
     def block_step(self, idx_blk) -> torch.Tensor:
         """Segment one block of utterances in place.  ``idx_blk`` [B] host
@@ -258,16 +330,12 @@ class SegmentalKMeansWordseg:
                                               lengths, seg_ids)
 
         # 2. best-component distance x duration + wip for every candidate
-        N_max, W_dp = utt.N_max, self.W_dp
-        Xc = self._cand_X[idx].reshape(B * N_max * W_dp, -1)
-        best = neg_sqrd_norms(Xc, means).amax(-1).reshape(B, N_max, W_dp)
-        scores = duration_scaled_scores(best, self._seg_ids_dp[idx],
-                                        self._seg_durs_dp[idx], self.wip)
+        scores = self._candidate_scores(idx, means)
 
         # 3. the Viterbi DP (kernel K2)
         obj, new_bounds = segment_dp(
             scores, lengths, 0.0, 1.0, n_slices_min=self.n_slices_min,
-            n_slices_max=W_dp, mode="viterbi")
+            n_slices_max=self.W_dp, mode="viterbi")
 
         # 4. the new segments to their nearest (frozen) means
         new_embeds, _ = gather_block_segments(new_bounds, lengths, seg_ids)
@@ -298,3 +366,9 @@ class SegmentalKMeansWordseg:
         am.state = kmeans_state_from_assignments(am.X, am.state.assignments,
                                                  am.K_max)
         self._sweeps_since_resync = 0
+
+
+if __name__ == "__main__":  # smoke demo (reference kmeans_acoustic_wordseg.py:558-658)
+    from segmentalist_torch.demos import run_demo
+
+    run_demo("kmeans_seg")

@@ -221,6 +221,13 @@ class UnigramAcousticWordseg(BlockedWordseg):
     def sweep_metrics(self) -> dict:
         return self.acoustic_model.sweep_metrics()
 
+    def _candidate_weights(self, blk) -> torch.Tensor:
+        """[B, K] mixture-weight terms of a block's candidate scores: the
+        Dirichlet weights of the leave-out counts."""
+        am = self.acoustic_model
+        return log_weights(blk.lo_counts, am.alpha, am.K_max, am.lms,
+                           include_denominator=True, dtype=am.X.dtype)
+
     # ------------------------------------------------------------- sampling
 
     def gibbs_sample(self, n_iter: int, am_n_iter: int = 0,
@@ -228,18 +235,33 @@ class UnigramAcousticWordseg(BlockedWordseg):
                      anneal_start_temp_inv: float = 0.1,
                      anneal_end_temp_inv: float = 1.0,
                      n_anneal_steps: int = -1,
-                     anneal_gibbs_am: bool = False) -> dict:
+                     anneal_gibbs_am: bool = False, monitor_i=None,
+                     validate: bool = False,
+                     debug_gibbs_only: bool = False) -> dict:
         """Blocked Gibbs sampling over all utterances (reference
         ``gibbs_sample``, unigram_acoustic_wordseg.py:362-472): every sweep
         visits the utterances in a fresh host permutation, in blocks of
         ``batch_size``, after ``am_n_iter`` sequential sweeps of the
         acoustic model alone over its assigned items (the JAX package's
         ``unigram.py:449-452``; one K10 launch each for the fixed and diag
-        families).  Returns the reference's 8-key record dict."""
+        families).  Returns the reference's 8-key record dict.
+
+        ``monitor_i`` / ``validate``: a per-sweep trace of one utterance,
+        logged at DEBUG level, and the sampler-invariant checks, which
+        raise ``utils.debug.ValidationError`` after the last sweep (the
+        reference's ``i_debug_monitor`` / NaN asserts; see
+        ``utils/debug.py``).  ``debug_gibbs_only``: resample only the
+        monitored utterance each sweep (the reference's standing flag,
+        unigram_acoustic_wordseg.py:20, :451-452; requires
+        ``monitor_i``)."""
+        if debug_gibbs_only and monitor_i is None:
+            raise AssertionError("debug_gibbs_only requires monitor_i")
         temps = anneal_temperatures(n_iter, anneal_schedule,
                                     anneal_start_temp_inv,
                                     anneal_end_temp_inv, n_anneal_steps)
-        return self._sample_sweeps(temps, anneal_gibbs_am, am_n_iter)
+        return self._sample_sweeps(temps, anneal_gibbs_am, am_n_iter,
+                                   monitor_i=monitor_i, validate=validate,
+                                   debug_only=debug_gibbs_only)
 
     def segment(self, *args, **kwargs) -> dict:
         """Alias of :meth:`gibbs_sample` (the JAX package's ``segment``,
@@ -284,16 +306,15 @@ class UnigramAcousticWordseg(BlockedWordseg):
         Returns the block's summed DP log probability (a device scalar).
         """
         am = self.acoustic_model
-        X, K, prior = am.X, am.K_max, am.prior
+        K, prior = am.K_max, am.prior
 
         # 1. current segments and leave-one-utterance-out statistics
         blk = self._leave_out(idx_blk)
 
         # 2. fused candidate scoring (K1 / K5 / K8), boundary resampling (K2)
-        w_b = log_weights(blk.lo_counts, am.alpha, K, am.lms,
-                          include_denominator=True, dtype=X.dtype)
         log_prob, new_bounds = self._resample_boundaries(
-            blk, w_b, anneal_temp, self._dp_mode, dp_noise)
+            blk, self._candidate_weights(blk), anneal_temp, self._dp_mode,
+            dp_noise)
 
         # 3. sequential assignment of the new segments (kernel K3 / K6 /
         # K9); Viterbi takes the argmax without the lms scaling (fbgmm.py:475)
@@ -318,3 +339,9 @@ class UnigramAcousticWordseg(BlockedWordseg):
         # 4. decollision and the merge into the global state
         self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks)
         return torch.where(blk.valid, log_prob, 0.0).sum()
+
+
+if __name__ == "__main__":  # smoke demo (reference unigram_acoustic_wordseg.py:871-963)
+    from segmentalist_torch.demos import run_demo
+
+    run_demo("unigram_seg")

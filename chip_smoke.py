@@ -72,9 +72,25 @@ check that does not hold:
    fault of the card; (d) every demo of ``segmentalist_torch/demos.py``
    and ``examples/segmentation_example.py`` on the card.
 
-The third-to-last line is phase 6's JSON summary, the second-to-last a
-JSON summary of the kernels, the last line ``{"ok": true, "device":
-{...}}``.
+7. multi-device (``segmentalist_torch/parallel``), ranks spawned by its
+   launcher after the kernels are built: (a) one rank over NCCL, the
+   exact and the per-shard mode, 8 sweeps of unigram_fixed each,
+   identical to the unsharded run on the card; (b) two ranks sharing the
+   card over gloo (CUDA tensors staged through host memory), the exact
+   mode: Viterbi sweeps and the first sampling sweep agree with the
+   unsharded run at the rounded batch (126) to ``AGREE_MIN``, 137
+   sampling sweeps reach ``F1_MIN``; (c) two ranks, the per-shard mode on
+   all seven paths (unigram_fixed 137 sweeps to ``F1_MIN``, the others
+   4), after every sweep the statistics equal to their rebuild, the LM
+   tables to the recount, the ranks' states identical, each path's
+   kernels launched on each rank; (d) ms a sweep of each mode at one and
+   two ranks beside the unsharded run, and the collectives' count, bytes
+   and ms a block step, recorded and not gated.
+
+The fourth-to-last line is phase 7's JSON summary, the third-to-last
+phase 6's, the second-to-last a JSON summary of the kernels (their
+launches by path include each rank's of phase 7), the last line ``{"ok":
+true, "device": {...}}``.
 
 To time some kernels alone (phases 1-3 of the named kernels, with their
 kernels line and no result line):
@@ -2209,6 +2225,269 @@ def run_auxiliary(n_utterances=1000):
     return paths, out
 
 
+# ------------------------------------------------------------- phase 7
+
+P7_SWEEPS = 8        # (a), (b) Viterbi: sweeps held against the unsharded run
+P7_LONG = 137        # (b), (c): unigram_fixed to F1 (bench.py's 1 + 8 + 64 + 64)
+P7_SHORT = 4         # (c): the six other paths
+P7_TIMED = 4         # (d): sweeps with the collectives' clocks on
+P7_SUM_RTOL = 1e-5   # max |sum - rebuild| / max |rebuild|, sum_x and sum_sq
+P7_PATHS = ("unigram_fixed", "unigram_diag", "unigram_full", "bigram",
+            "bigram_diag", "bigram_full", "kmeans_wordseg")
+
+
+def p7_build(path, device, n_utterances):
+    """(segmenter, true boundaries) of a phase-5 path at the bench
+    configuration."""
+    from segmentalist_torch.utils.profiling import (bench_kmeans_segmenter,
+                                                    bench_segmenter)
+
+    if path == "kmeans_wordseg":
+        return bench_kmeans_segmenter(n_utterances, device)
+    cov = path.split("_")[1] if "_" in path else "fixed"
+    return bench_segmenter(cov, path.startswith("bigram"), n_utterances,
+                           device)
+
+
+def p7_state(seg, per_shard):
+    from segmentalist_torch.parallel.shard_sweep import gather_boundaries
+
+    # a copy: on the CPU .numpy() would share the live assignment vector
+    return {"assignments": seg.acoustic_model.assignments.cpu().numpy().copy(),
+            "boundaries": (gather_boundaries(seg) if per_shard
+                           else seg.utterances.boundaries)}
+
+
+def p7_run(mesh, path, mode, sweeps, n_utterances, fb_type=None,
+           check_each=False, timed=0, snap_after=None):
+    """This rank's part of ``sweeps`` sweeps of ``path`` on ``mesh``, in
+    the exact mode or the per-shard one ("exact" / "per_shard"), each
+    sweep timed on the host clock between synchronisations; the kernels'
+    launches over those sweeps; with ``check_each``, after every sweep
+    the statistics against their rebuild, the LM tables against the
+    recount and every rank's state digest; the state after sweep
+    ``snap_after`` and at the end.  Then ``timed`` more sweeps with the
+    collectives' clocks on (each collective between two synchronisations):
+    collectives, bytes put in and collective ms a block step."""
+    import torch
+    from segmentalist_torch.parallel.dryrun import (consistency, mesh_device,
+                                                    sweep_once)
+    from segmentalist_torch.parallel.mesh import (gather_digests,
+                                                  shard_segmenter)
+    from segmentalist_torch.parallel.shard_sweep import use_shard_map_sweep
+
+    dev = mesh_device(mesh)
+
+    def sync_dev():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    seg, _ = p7_build(path, dev, n_utterances)
+    if fb_type is not None:
+        seg.set_fb_type(fb_type)
+    shard_segmenter(seg, mesh)
+    per_shard = mode == "per_shard"
+    if per_shard:
+        use_shard_map_sweep(seg, mesh)
+    sh = seg._shard
+    steps = [0]
+    step = seg.block_step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    seg.block_step = counted
+    out = {"ms": [], "log": [], "checks": [], "snap": None}
+    reset_launches()
+    for i in range(sweeps):
+        sync_dev()
+        t = time.perf_counter()
+        rec = sweep_once(seg)
+        sync_dev()
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["log"].append(rec.get("log_marg", rec.get("sum_neg_sqrd_norm"))[0])
+        if check_each:
+            c = consistency(seg)
+            c["same_state"] = len(set(gather_digests(seg, sh))) == 1
+            out["checks"].append(c)
+        if snap_after == i + 1:
+            out["snap"] = p7_state(seg, per_shard)
+    out["launches"] = read_launches()
+    out.update(p7_state(seg, per_shard))
+    if timed:
+        sh.timed, sh.seconds, sh.bytes, sh.calls = True, 0.0, 0, 0
+        steps[0] = 0
+        sync_dev()
+        t = time.perf_counter()
+        for _ in range(timed):
+            sweep_once(seg)
+        sync_dev()
+        n = steps[0]
+        out["timed"] = {
+            "timed_ms_per_sweep": (time.perf_counter() - t) * 1e3 / timed,
+            "blocks_per_sweep": n / timed,
+            "collectives_per_block": sh.calls / n,
+            "bytes_per_block": sh.bytes / n,
+            "collective_ms_per_block": sh.seconds * 1e3 / n}
+    return out
+
+
+def p7_one_rank(mesh, n_utterances):
+    """Phase 7 (a): unigram_fixed on one rank, the exact mode and then the
+    per-shard one."""
+    return {mode: p7_run(mesh, "unigram_fixed", mode, P7_SWEEPS,
+                         n_utterances, timed=P7_TIMED)
+            for mode in ("exact", "per_shard")}
+
+
+def p7_two_ranks(mesh, n_utterances, long_sweeps):
+    """Phase 7 (b) and (c) on two ranks: the exact mode in Viterbi and in
+    sampling (``long_sweeps`` sweeps), then the per-shard mode on every
+    path (unigram_fixed for ``long_sweeps``, the others ``P7_SHORT``)."""
+    out = {"viterbi": p7_run(mesh, "unigram_fixed", "exact", P7_SWEEPS,
+                             n_utterances, fb_type="viterbi"),
+           "exact": p7_run(mesh, "unigram_fixed", "exact", long_sweeps,
+                           n_utterances, timed=P7_TIMED, snap_after=1)}
+    for path in P7_PATHS:
+        out[path] = p7_run(mesh, path, "per_shard",
+                           long_sweeps if path == "unigram_fixed"
+                           else P7_SHORT, n_utterances, check_each=True,
+                           timed=P7_TIMED)
+    return out
+
+
+def p7_agree(got, want):
+    """Shares of identical assignments and boundary entries."""
+    return (float(np.mean(got["assignments"] == want["assignments"])),
+            float(np.mean(got["boundaries"] == want["boundaries"])))
+
+
+def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
+    """Phase 7: the multi-device layer (``segmentalist_torch/parallel``)
+    on the card, its ranks spawned by ``parallel.dryrun.launch`` after the
+    kernels are built here.  (a) One rank over NCCL, the exact and the
+    per-shard mode, 8 sweeps of unigram_fixed each: assignments and
+    boundaries identical to the unsharded run on the card from the same
+    seeds.  (b) Two ranks sharing the card over gloo (CUDA tensors staged
+    through host memory), the exact mode: Viterbi sweeps and the first
+    sampling sweep agree with the unsharded run to ``AGREE_MIN``, and
+    ``long_sweeps`` sampling sweeps reach ``F1_MIN``.  (c) Two ranks, the
+    per-shard mode on all seven paths (unigram_fixed for ``long_sweeps``
+    sweeps, to ``F1_MIN``; the others ``P7_SHORT``): after every sweep the
+    statistics equal their rebuild (counts exactly, sums to
+    ``P7_SUM_RTOL``), the LM tables the recount, the ranks' states the
+    same bits, and each path's kernels launched on each rank.  (d) ms a
+    sweep of each mode at one and two ranks beside the unsharded run, and
+    the collectives' count, bytes and ms a block step, recorded and not
+    gated (two ranks on one card share its SMs: what the layer costs, not
+    how it scales).  Returns each rank's launches by path and the
+    phase's numbers."""
+    from segmentalist_torch.parallel.dryrun import launch
+    from segmentalist_torch.utils.synth import boundary_f_score
+
+    t0 = time.time()
+    seg, truth = p7_build("unigram_fixed", DEVICE, n_utterances)
+    labels = seg.ids_to_utterance_labels
+
+    def f1(boundaries):
+        return boundary_f_score({u: boundaries[i]
+                                 for i, u in enumerate(labels)}, truth)[2]
+
+    ref, ms = {}, []
+    for _ in range(P7_SWEEPS):  # the unsharded run on the card
+        sync()
+        t = time.perf_counter()
+        seg.gibbs_sample(1)
+        sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+    ref["last"] = p7_state(seg, False)
+    # two ranks round the batch up to a multiple of 2 (125 -> 126): the
+    # unsharded runs that (b) is held to take that batch too
+    b2 = -(-seg.batch_size // 2) * 2
+    for fb_type, sweeps in (("standard", 1), ("viterbi", P7_SWEEPS)):
+        seg, _ = p7_build("unigram_fixed", DEVICE, n_utterances)
+        seg.batch_size = b2
+        seg.set_fb_type(fb_type)
+        seg.gibbs_sample(sweeps)
+        ref[fb_type] = p7_state(seg, False)
+    cpu = DEVICE != "cuda"
+    one = launch(p7_one_rank, 1, args=(n_utterances,),
+                 device="cpu" if cpu else "cuda", timeout=300.0)[0]
+    two = launch(p7_two_ranks, 2, args=(n_utterances, long_sweeps),
+                 device="cpu" if cpu else "cuda:0", timeout=600.0)
+    paths, out = {}, {"card": CARD, "unsharded_ms_per_sweep":
+                      float(np.mean(ms[1:])), "one_rank": {},
+                      "two_ranks": {}}
+    kern = PATH_KERNELS["unigram_fixed"]
+
+    def launched(name, res, path):
+        ks = PATH_KERNELS[path]
+        paths[name] = {k: res["launches"][k] for k in ks}
+        for k in ks:
+            check(res["launches"][k] > 0, "phase 7 %s: kernel %s was not "
+                  "launched" % (name, k))
+
+    for mode in ("exact", "per_shard"):  # (a)
+        r = one[mode]
+        check(np.array_equal(r["assignments"], ref["last"]["assignments"])
+              and np.array_equal(r["boundaries"], ref["last"]["boundaries"]),
+              "phase 7 (a): one rank, %s mode, differs from the unsharded "
+              "run: agreement %s" % (mode, p7_agree(r, ref["last"])))
+        launched("p7_a_%s" % mode, r, "unigram_fixed")
+        out["one_rank"][mode] = {"ms_per_sweep": float(np.mean(r["ms"][1:])),
+                                 **r["timed"]}
+    for rank, res in enumerate(two):  # (b)
+        for what, got, want in (("viterbi", res["viterbi"], ref["viterbi"]),
+                                ("first sweep", res["exact"]["snap"],
+                                 ref["standard"])):
+            agree = p7_agree(got, want)
+            check(min(agree) >= AGREE_MIN, "phase 7 (b) rank %d, %s: "
+                  "agreement %s < %s" % (rank, what, agree, AGREE_MIN))
+            out["two_ranks"].setdefault("agree_" + what.replace(" ", "_"),
+                                        []).append(agree)
+        f = f1(res["exact"]["boundaries"])
+        check(f >= F1_MIN, "phase 7 (b) rank %d: F1 %.4f < %.2f after %d "
+              "sweeps" % (rank, f, F1_MIN, long_sweeps))
+        out["two_ranks"].setdefault("exact_f1", []).append(f)
+        launched("p7_b_exact_rank%d" % rank, res["exact"], "unigram_fixed")
+        launched("p7_b_viterbi_rank%d" % rank, res["viterbi"],
+                 "unigram_fixed")
+    check(all(np.array_equal(two[0]["exact"][k], two[1]["exact"][k])
+              for k in ("assignments", "boundaries")),
+          "phase 7 (b): the two ranks' final states differ")
+    out["two_ranks"]["exact"] = {
+        "ms_per_sweep": float(np.mean(two[0]["exact"]["ms"][1:])),
+        **two[0]["exact"]["timed"]}
+    per_path = {}
+    for path in P7_PATHS:  # (c)
+        for rank, res in enumerate(two):
+            r = res[path]
+            check(all(math.isfinite(v) for v in r["log"]),
+                  "phase 7 (c) %s: a non-finite record" % path)
+            for i, c in enumerate(r["checks"]):
+                check(c["counts_equal"] and c["sum_rel_err"] <= P7_SUM_RTOL
+                      and c.get("lm_equal", True) and c["same_state"],
+                      "phase 7 (c) %s rank %d sweep %d: %s"
+                      % (path, rank, i, c))
+            launched("p7_c_%s_rank%d" % (path, rank), r, path)
+        r = two[0][path]
+        per_path[path] = {
+            "sweeps": len(r["ms"]), "ms_per_sweep": float(np.mean(r["ms"][1:])),
+            "max_sum_rel_err": max(c["sum_rel_err"] for c in r["checks"]),
+            "log_first": r["log"][0], "log_last": r["log"][-1]}
+        per_path[path].update(r["timed"])
+        if path == "unigram_fixed":
+            f = f1(r["boundaries"])
+            check(f >= F1_MIN, "phase 7 (c) unigram_fixed: F1 %.4f < %.2f "
+                  "after %d sweeps" % (f, F1_MIN, long_sweeps))
+            per_path[path]["f1"] = f
+    out["two_ranks"]["per_shard"] = per_path
+    log("phase 7 (multi-device) in %.1f s [%s]: %s"
+        % (time.time() - t0, CARD, json.dumps(out)))
+    return paths, out
+
+
 def parse_args(argv):
     import argparse
 
@@ -2286,6 +2565,8 @@ def main(argv=None) -> int:
     paths["kmeans_wordseg"], kmeans = run_kmeans_slice()
     aux_paths, aux = run_auxiliary()
     paths.update(aux_paths)
+    p7_paths, multichip = run_multichip()
+    paths.update(p7_paths)
 
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
@@ -2367,6 +2648,7 @@ def main(argv=None) -> int:
                     "bound_by", "form")})
             entry.update(plain_items=fl["plain_items"], paths=fbgmm)
         kernels.append(entry)
+    print(json.dumps({"multichip": multichip}))
     print(json.dumps({"auxiliary": aux}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

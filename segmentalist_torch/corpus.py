@@ -167,8 +167,9 @@ class Utterances:
 
     @property
     def boundaries(self) -> np.ndarray:
-        """Host copy of the current boundary matrix [U, N_max]."""
-        return self.boundaries_dev.cpu().numpy().copy()
+        """Host copy of the current boundary matrix [U, N_max] (without
+        the dead rows a mesh pads the corpus with)."""
+        return self.boundaries_dev[:self.D].cpu().numpy().copy()
 
     @boundaries.setter
     def boundaries(self, value):

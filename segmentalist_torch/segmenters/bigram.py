@@ -30,6 +30,7 @@ import torch
 
 from ..models.bigram_fbgmm import BigramFBGMM
 from ..models.bigram_lm import (
+    BigramLMState,
     BigramSmoothLM,
     add_block_counts,
     apply_delta,
@@ -158,12 +159,17 @@ class BigramAcousticWordseg(BlockedWordseg):
             torch.ones(ts.shape[0], dtype=torch.bool, device=self.device))
 
     def _all_transcripts(self) -> torch.Tensor:
-        """[U, N_max] padded component transcripts of every utterance."""
-        utt, am = self.utterances, self.acoustic_model
+        """[U, N_max] padded component transcripts of every utterance (in
+        the per-shard mode gathered from the ranks' own rows; a mesh's dead
+        rows sliced off)."""
+        utt, am, sh = self.utterances, self.acoustic_model, self._shard
         embeds, _ = gather_block_segments(utt.boundaries_dev, utt.lengths_dev,
                                           utt.seg_ids)
-        return torch.where(embeds >= 0,
-                           am.assignments[embeds.clamp_min(0).long()], -1)
+        ts = torch.where(embeds >= 0,
+                         am.assignments[embeds.clamp_min(0).long()], -1)
+        if sh is not None and sh.per_shard:
+            ts = sh.all_gather(ts).reshape(-1, ts.shape[1])
+        return ts[:utt.D]
 
     def _log_prob_z(self) -> torch.Tensor:
         lm = self.lm
@@ -369,7 +375,9 @@ class BigramAcousticWordseg(BlockedWordseg):
         X, K, prior = am.X, am.K_max, am.prior
 
         # 1. old segments, their LM pairs and the leave-outs
-        blk = self._leave_out(idx_blk)
+        blk = self._leave_out(idx_blk, split=True)
+        dp_noise, chain_noise = self._own_noise(
+            blk, dp_noise, chain_noise, not assignments_only)
         pairs_old = transcript_pairs_batch(blk.old_ks)
         uni_lo = self._lm_leave_out(blk)
 
@@ -406,10 +414,17 @@ class BigramAcousticWordseg(BlockedWordseg):
                 *lm_args, **opts)
 
         # 4. decollision, the acoustic merge, then the LM count delta
-        new_ks = self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks)
-        lm.state = apply_delta(lm.state, block_count_delta(
-            blk.old_ks, new_ks, blk.valid, K, pairs_old=pairs_old))
-        return torch.where(blk.valid, log_prob, 0.0).sum()
+        def lm_delta(old_ks, new_ks, valid):
+            # the exact mode merges the gathered block, whose old pairs are
+            # not this step's
+            pairs = pairs_old if old_ks is blk.old_ks else None
+            return block_count_delta(old_ks, new_ks, valid, K,
+                                     pairs_old=pairs)
+
+        lp, delta = self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks,
+                                log_prob, lm_delta)
+        lm.state = apply_delta(lm.state, BigramLMState(*delta))
+        return lp
 
 
 if __name__ == "__main__":  # smoke demo (reference bigram_acoustic_wordseg.py:765-857)

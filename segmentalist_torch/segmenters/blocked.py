@@ -22,6 +22,14 @@ state and resample a block of utterances through the same stages
 
 The segmenters differ only in the mixture weights they hand to stage 2, the
 chain of stage 3 and the bookkeeping around it.
+
+On a mesh (``parallel/``) the same stages run on a rank's rows: in the
+exact mode :meth:`BlockedWordseg._leave_out` takes this rank's rows of the
+block, :meth:`BlockedWordseg._own_noise` its rows of the block's noise, and
+:meth:`BlockedWordseg._merge` gathers the whole block back; in the
+per-shard mode the block is the rank's own and :meth:`BlockedWordseg._merge`
+reduces its deltas over the ranks.  Without a mesh (``_shard`` None) every
+hook is the identity.
 """
 
 from __future__ import annotations
@@ -129,6 +137,9 @@ class Block(NamedTuple):
     sum_sqT: Optional[torch.Tensor]  # [B, D, K] ... sum_sq (diag only)
     params_g: Optional[PredParams]   # global predictive params (full only)
     touched: Optional[Touched]       # touched-slot leave-outs (full only)
+    # exact mode on a mesh: (idx, valid, live) of the whole block and the
+    # slice of this rank's rows; None elsewhere
+    full: Optional[tuple] = None
 
 
 class BlockedWordseg:
@@ -137,6 +148,8 @@ class BlockedWordseg:
     :meth:`_init_corpus`, builds its acoustic model, then calls
     :meth:`_init_sampler`; it defines ``block_step``, ``sweep_metrics``
     and ``_candidate_weights`` (a block's [B, K] mixture-weight terms)."""
+
+    _shard = None  # parallel.mesh.Shard on a mesh
 
     def _init_corpus(self, am_K, embedding_mats, vec_ids_dict,
                      durations_dict, landmarks_dict, seed_boundaries_dict,
@@ -199,6 +212,7 @@ class BlockedWordseg:
         self.batch_size = (int(batch_size) if batch_size
                            else min(64, self.utterances.D))
         self._rng = np.random.RandomState(seed)
+        self._seed = int(seed)
         self._gen = self.acoustic_model.generator
         utt = self.utterances
         self.W_dp = (min(self.n_slices_max, utt.N_max)
@@ -297,6 +311,11 @@ class BlockedWordseg:
         logged and the flags checked (``utils/debug.py``), as the JAX
         package does (``unigram.py:469-474``).  ``debug_only`` visits only
         utterance ``monitor_i``, in one padded block, every sweep."""
+        if self._shard is not None and self._shard.per_shard and (
+                monitor_i is not None or validate):
+            raise ValueError("monitor_i / validate / debug-only sweeps read "
+                             "the whole corpus, which the per-shard mode "
+                             "splits over the ranks")
         record = {k: [] for k in RECORD_KEYS}
         pending_monitor, pending_validate = [], []
         for temp in temps:
@@ -310,8 +329,8 @@ class BlockedWordseg:
                      if debug_only else
                      self._rng.permutation(self.utterances.D))
             blocks = pad_utterance_order(order, self.batch_size)
-            log_prob = sum(self.block_step(blk, temp, assign_temp,
-                                           **step_kwargs) for blk in blocks)
+            log_prob = self._run_blocks(blocks, temp, assign_temp,
+                                        **step_kwargs)
             m = self.sweep_metrics()
             record["log_marg"].append(m["log_marg"])
             record["log_marg*length"].append(float(log_prob))
@@ -332,6 +351,19 @@ class BlockedWordseg:
         if validate:
             dbg.check_validation(pending_validate, self.VALIDATION_CHECKS)
         return record
+
+    def _run_blocks(self, blocks, *args, **kwargs):
+        """One sweep's blocks [n_blocks, B], a block step each; returns
+        the summed log probability.  The per-shard mode
+        (``parallel/shard_sweep.py``) replaces it on the instance."""
+        return sum(self.block_step(blk, *args, **kwargs) for blk in blocks)
+
+    @property
+    def _block_gen(self) -> torch.Generator:
+        """The generator of the block steps' noise: the replicated one,
+        or in the per-shard mode the rank's own."""
+        sh = self._shard
+        return self._gen if sh is None or sh.gen is None else sh.gen
 
     # ---------------------------------------------------------- debugging
 
@@ -385,20 +417,30 @@ class BlockedWordseg:
 
     # ------------------------------------------------------- block stages
 
-    def _leave_out(self, idx_blk) -> Block:
+    def _leave_out(self, idx_blk, split: bool = False) -> Block:
         """Stage 1: the block's current segments and leave-one-utterance-out
         statistics (for the full family: the global predictive parameters
         and the touched-slot leave-outs, no moment tables; the JAX
         package's ``unigram.py:841-853``).  ``idx_blk`` [B] host ints, -1
-        for padding."""
+        for padding.  With ``split`` (a block step) and the exact mode on a
+        mesh: this rank's rows of the block, the whole block's in
+        ``Block.full``."""
         am, utt, dev = self.acoustic_model, self.utterances, self.device
         X, K = am.X, am.K_max
         idx_np = np.asarray(idx_blk, dtype=np.int64)
+        exact = (split and self._shard is not None
+                 and not self._shard.per_shard)
+        if exact:
+            idx_np, rows = self._shard.own_rows(idx_np)
         B = idx_np.shape[0]
         live_np = np.nonzero(idx_np >= 0)[0]
         packed = _to_device(np.concatenate([idx_np, live_np]), dev)
         valid = packed[:B] >= 0
-        idx = packed[:B].clamp_min(0)
+        idx, live = packed[:B].clamp_min(0), packed[B:]
+        full = None
+        if exact:
+            full = (idx, valid, live, rows)
+            idx, valid, live = idx[rows], valid[rows], None
         lengths = torch.where(valid, utt.lengths_dev[idx], 0)
         seg_ids = utt.seg_ids[idx]
         old_embeds, _ = gather_block_segments(utt.boundaries_dev[idx],
@@ -419,10 +461,29 @@ class BlockedWordseg:
         else:
             sum_xT = leave_out_moments_T(am.stats, X, old_embeds, old_ks, K,
                                          rows=Xe_old)
-        return Block(idx, valid, packed[B:], lengths, seg_ids, old_embeds,
+        return Block(idx, valid, live, lengths, seg_ids, old_embeds,
                      old_ks, Xe_old, own_counts,
                      am.stats.counts[None] - own_counts, sum_xT, sum_sqT,
-                     params_g, touched)
+                     params_g, touched, full)
+
+    def _own_noise(self, blk: Block, dp_noise: Optional[torch.Tensor],
+                   chain_noise: Optional[torch.Tensor], sample_dp: bool):
+        """The block step's (DP, chain) noise.  In the exact mode: the
+        whole block's, drawn where not given on the replicated generator in
+        the single-device order (the DP's when ``sample_dp``, then the
+        chain's), and this rank's rows of it; so every row sees the noise
+        it would see on one device.  Elsewhere the noise as given (None is
+        drawn later, by the stage that takes it)."""
+        if blk.full is None:
+            return dp_noise, chain_noise
+        am, rows = self.acoustic_model, blk.full[3]
+        B = blk.full[0].shape[0]
+        if sample_dp and dp_noise is None:
+            dp_noise = gumbel((B, self.utterances.N_max, self.W_dp),
+                              self._gen, self.device, am.X.dtype)
+        chain_noise = self._chain_noise(chain_noise, B)
+        return (None if dp_noise is None else dp_noise[rows],
+                chain_noise[rows])
 
     def _resample_boundaries(self, blk: Block, w_b: torch.Tensor,
                              anneal_temp: float, mode: str,
@@ -446,7 +507,7 @@ class BlockedWordseg:
             scores, blk.lengths, self._log_p_continue(am.stats.counts),
             anneal_temp, n_slices_min=self.n_slices_min,
             n_slices_max=self.W_dp, mode=mode, noise=dp_noise,
-            generator=self._gen)
+            generator=self._block_gen)
 
     def _candidate_log_margs(self, blk: Block, w_b: torch.Tensor,
                              exact: bool = False) -> torch.Tensor:
@@ -492,8 +553,8 @@ class BlockedWordseg:
         if chain_noise is not None:
             return chain_noise
         am = self.acoustic_model
-        return gumbel((B, self.utterances.N_max, am.K_max), self._gen,
-                      self.device, am.X.dtype)
+        return gumbel((B, self.utterances.N_max, am.K_max),
+                      self._block_gen, self.device, am.X.dtype)
 
     def _full_chain(self, blk: Block, new_embeds, Xe_new, noise, alpha,
                     lms, temp, use_argmax=False, lm=None) -> torch.Tensor:
@@ -513,23 +574,63 @@ class BlockedWordseg:
 
     def _merge(self, blk: Block, new_bounds: torch.Tensor,
                new_embeds: torch.Tensor, Xe_new: torch.Tensor,
-               new_ks: torch.Tensor) -> torch.Tensor:
+               new_ks: torch.Tensor, log_prob: torch.Tensor, lm_delta=None):
         """Stage 4: cross-utterance decollision of new components, then the
         merge of statistics, boundaries and assignments into the global
-        state.  Returns the decollided ``new_ks``."""
-        am, utt = self.acoustic_model, self.utterances
+        state.  ``lm_delta(old_ks, new_ks, valid)`` (the bigram segmenter)
+        gives further integer deltas of the merged rows, summed like the
+        statistics.  Returns (the block's summed ``log_prob``, the list of
+        ``lm_delta``'s tensors).
+
+        On a mesh: the exact mode gathers the whole block's segments,
+        components, boundary rows and log probabilities, and every rank
+        merges the whole block as one device would (the JAX package's
+        GSPMD mode).  The per-shard mode sums the ranks' deltas and log
+        probabilities (``Shard.sum_ranks``, the JAX package's ``psum``,
+        ``unigram.py:1037-1046``) and leaves the assignments to the
+        sweep's merge (``parallel/shard_sweep.py``)."""
+        am, utt, sh = self.acoustic_model, self.utterances, self._shard
         X, K, stats = am.X, am.K_max, am.stats
-        valid = blk.valid
-        if self.decollide_new and valid.shape[0] > 1:
+        exact = blk.full is not None
+        # the JAX package's gate, ``decollide and B > 1``: B is the rows a
+        # block step samples, so the per-shard mode's B/n; the exact mode
+        # decollides the whole block
+        if self.decollide_new and (blk.full[0] if exact
+                                   else blk.valid).shape[0] > 1:
             new_ks = decollide_new_components(
-                new_ks, (new_embeds >= 0) & valid[:, None], blk.lo_counts,
-                stats.counts)
-        old_flat = flat_contrib(X, blk.old_embeds, blk.old_ks, K, valid,
-                                rows=blk.Xe_old, full_cov=am.full_cov)
+                new_ks, (new_embeds >= 0) & blk.valid[:, None], blk.lo_counts,
+                stats.counts, comm=sh)
+        if exact:
+            idx, valid, live, _ = blk.full
+            old_embeds, new_embeds, new_ks, new_bounds, log_prob = \
+                sh.gather_rows(blk.old_embeds, new_embeds, new_ks, new_bounds,
+                               log_prob)
+            old_rows = old_embeds.clamp_min(0).long()
+            old_ks = torch.where(old_embeds >= 0, am.assignments[old_rows],
+                                 -1)
+            Xe_old, Xe_new = X[old_rows], X[new_embeds.clamp_min(0).long()]
+        else:
+            idx, valid, live = blk.idx, blk.valid, blk.live
+            old_embeds, old_ks, Xe_old = (blk.old_embeds, blk.old_ks,
+                                          blk.Xe_old)
+        old_flat = flat_contrib(X, old_embeds, old_ks, K, valid, rows=Xe_old,
+                                full_cov=am.full_cov)
         new_flat = flat_contrib(X, new_embeds, new_ks, K, valid, rows=Xe_new,
                                 full_cov=am.full_cov)
-        am.stats = merge_flat(stats, old_flat, new_flat)
-        utt.boundaries_dev[blk.idx[blk.live]] = new_bounds[blk.live]
-        put_assignments(am._assign_pad, valid, blk.old_embeds, new_embeds,
-                        new_ks)
-        return new_ks
+        lp = torch.where(valid, log_prob, 0.0).sum()
+        extra = list(lm_delta(old_ks, new_ks, valid)) if lm_delta else []
+        per_shard = sh is not None and sh.per_shard
+        if per_shard:  # one collective a dtype for the whole block
+            summed = sh.sum_ranks([n - o for n, o in zip(new_flat, old_flat)]
+                                  + [lp] + extra)
+            lp, extra = summed[3], summed[4:]
+            am.stats = SuffStats(*(g + d for g, d in zip(stats, summed[:3])))
+        else:
+            am.stats = merge_flat(stats, old_flat, new_flat)
+        utt.boundaries_dev[idx[live]] = new_bounds[live]
+        if per_shard:
+            sh.updates.append((valid, old_embeds, new_embeds, new_ks))
+        else:
+            put_assignments(am._assign_pad, valid, old_embeds, new_embeds,
+                            new_ks)
+        return lp, extra

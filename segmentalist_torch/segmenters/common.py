@@ -153,9 +153,34 @@ def merge_flat(global_stats: SuffStats, old_flat: SuffStats,
                        zip(global_stats, new_flat, old_flat)))
 
 
+def merge_sweep_assignments(assignments: torch.Tensor, updates,
+                            all_reduce) -> torch.Tensor:
+    """The per-shard sweep's assignment merge, once a sweep (the JAX
+    package's ``merge_sweep_assignments`` / ``merge_assignments``,
+    ``segmenters/common.py:347-471``): ``updates`` lists a rank's
+    (valid [B], old_embeds, new_embeds, new_ks [B, S]) of every block of
+    the sweep.  A mask / value pair over the ``[N]`` rows, summed over the
+    ranks by ``all_reduce``, is exact: every embedding row belongs to one
+    utterance, and a sweep visits each utterance once, on one rank.  Old
+    segments clear to -1 first and new ones then overwrite them."""
+    N = assignments.shape[0]
+    valid, old_e, new_e, ks = (torch.cat(u) for u in zip(*updates))
+    vm = valid[:, None]
+    mask = torch.zeros((2, N + 1), dtype=torch.int32,
+                       device=assignments.device)
+    clear = torch.where(vm & (old_e >= 0), old_e, N).reshape(-1).long()
+    mask[0, clear] = 1
+    mask[1, clear] = -1
+    put = torch.where(vm & (new_e >= 0), new_e, N).reshape(-1).long()
+    mask[0, put] = 1
+    mask[1].index_put_((put,), ks.reshape(-1).to(torch.int32))
+    hit, val = all_reduce(mask[:, :N])
+    return torch.where(hit > 0, val, assignments)
+
+
 def decollide_new_components(new_ks: torch.Tensor, new_mask: torch.Tensor,
-                             lo_counts: torch.Tensor,
-                             counts0: torch.Tensor) -> torch.Tensor:
+                             lo_counts: torch.Tensor, counts0: torch.Tensor,
+                             comm=None) -> torch.Tensor:
     """Relabel cross-utterance collisions on newly created components onto
     fresh empty slots (the JAX package's round-5 merge-trap fix,
     ``segmentalist_tpu/segmenters/common.py:472``).
@@ -169,14 +194,28 @@ def decollide_new_components(new_ks: torch.Tensor, new_mask: torch.Tensor,
     row-minor order.  Empty slots are exchangeable, so each utterance's
     conditional is unchanged.  When fresh slots run out the remaining
     groups stay merged.
+
+    ``comm`` (a ``parallel.mesh.Shard``): the rows are one rank's of a
+    block split over the mesh.  The ranks' int8 code matrices [B, K] (1 a
+    touched slot, 2 a created one) are all-gathered in rank order, every
+    rank computes the same remap of all rows, and keeps its own (the JAX
+    package's ``axis_name`` form).  The creator ranks are a cumulative sum
+    over rows, so the gathered rows must be in the block's own order: rank
+    r holds the r-th B rows.
     """
-    K = lo_counts.shape[-1]
+    B, K = lo_counts.shape
     mask = new_mask & (new_ks >= 0)
     ks = new_ks.clamp_min(0).long()
     touch = (ks[..., None] == torch.arange(K, device=ks.device)) \
         & mask[..., None]                                    # [B, S, K]
     touched = touch.any(1)                                   # [B, K]
     creator = touched & (lo_counts == 0)
+    row0 = 0
+    if comm is not None:
+        code = comm.all_gather(touched.to(torch.int8) + creator.to(torch.int8))
+        code = code.reshape(-1, K)                           # [n B, K]
+        touched, creator = code >= 1, code == 2
+        row0 = comm.rank * B
     joiner_any = (touched & ~creator).any(0)                 # [K]
     c_int = creator.to(torch.int64)
     crank = torch.cumsum(c_int, 0) - c_int                   # creator rank
@@ -189,6 +228,7 @@ def decollide_new_components(new_ks: torch.Tensor, new_mask: torch.Tensor,
     need_idx = offs[None, :] + nrank                         # [B, K]
     lane = torch.arange(K, device=ks.device)
     fresh_order = torch.sort(torch.where(fresh, lane, K)).values
+    need, need_idx = need[row0:row0 + B], need_idx[row0:row0 + B]
     need_bs = need.gather(1, ks) & mask
     idx_bs = need_idx.gather(1, ks)
     ok = need_bs & (idx_bs < fresh.sum())

@@ -116,6 +116,8 @@ class SegmentalKMeansWordseg:
         for it, which runs K2's plain version.
     """
 
+    _shard = None  # parallel.mesh.Shard on a mesh
+
     def __init__(self, am_K, embedding_mats, vec_ids_dict, durations_dict,
                  landmarks_dict, seed_boundaries_dict=None,
                  seed_assignments_dict=None, n_slices_min=0, n_slices_max=20,
@@ -230,6 +232,11 @@ class SegmentalKMeansWordseg:
         flag, kmeans_acoustic_wordseg.py:20; requires ``monitor_i``)."""
         if segment_debug_only and monitor_i is None:
             raise AssertionError("segment_debug_only requires monitor_i")
+        if self._shard is not None and self._shard.per_shard and (
+                monitor_i is not None or validate):
+            raise ValueError("monitor_i / validate / debug-only sweeps read "
+                             "the whole corpus, which the per-shard mode "
+                             "splits over the ranks")
         am = self.acoustic_model
         record = {k: [] for k in RECORD_KEYS}
         pending_monitor, pending_validate = [], []
@@ -239,7 +246,7 @@ class SegmentalKMeansWordseg:
                      if segment_debug_only else
                      self._rng.permutation(self.utterances.D))
             blocks = pad_utterance_order(order, self.batch_size)
-            obj = sum(self.block_step(blk) for blk in blocks)
+            obj = self._run_blocks(blocks)
             self._sweeps_since_resync += 1
             if self._sweeps_since_resync >= _RESYNC_EVERY:
                 self._resync_stats()
@@ -268,6 +275,12 @@ class SegmentalKMeansWordseg:
         if validate:
             dbg.check_validation(pending_validate, dbg.KMEANS_CHECKS)
         return record
+
+    def _run_blocks(self, blocks):
+        """One sweep's blocks [n_blocks, B], a block step each; returns
+        the summed objective.  The per-shard mode
+        (``parallel/shard_sweep.py``) replaces it on the instance."""
+        return sum(self.block_step(blk) for blk in blocks)
 
     def _candidate_scores(self, idx: torch.Tensor, means: torch.Tensor,
                           distances=neg_sqrd_norms) -> torch.Tensor:
@@ -312,15 +325,28 @@ class SegmentalKMeansWordseg:
     def block_step(self, idx_blk) -> torch.Tensor:
         """Segment one block of utterances in place.  ``idx_blk`` [B] host
         ints: utterance ids, -1 for padding.  Returns the block's summed
-        Viterbi objective (a device scalar)."""
-        am, utt = self.acoustic_model, self.utterances
+        Viterbi objective (a device scalar).
+
+        On a mesh, as ``BlockedWordseg._merge`` does: the exact mode
+        segments this rank's rows of the block and gathers the whole block
+        before step 5, which every rank then takes as one device would;
+        the per-shard mode sums the ranks' count and sum deltas and
+        objectives (the JAX package's ``kmeans_seg.py:610-627``) and leaves
+        the assignments to the sweep's merge."""
+        am, utt, sh = self.acoustic_model, self.utterances, self._shard
         X, K, st = am.X, am.K_max, am.state
         idx_np = np.asarray(idx_blk, dtype=np.int64)
+        exact = sh is not None and not sh.per_shard
+        if exact:
+            idx_np, rows = sh.own_rows(idx_np)
         B = idx_np.shape[0]
         packed = _to_device(
             np.concatenate([idx_np, np.nonzero(idx_np >= 0)[0]]), self.device)
         valid = packed[:B] >= 0
         idx, live = packed[:B].clamp_min(0), packed[B:]
+        if exact:
+            full = (idx, valid, live)
+            idx, valid = idx[rows], valid[rows]
         lengths = torch.where(valid, utt.lengths_dev[idx], 0)
         seg_ids = utt.seg_ids[idx]
 
@@ -345,20 +371,34 @@ class SegmentalKMeansWordseg:
         new_ks = torch.where(new_embeds >= 0, new_ks.to(torch.int32), -1)
 
         # 5. the statistics' deltas, the assignments and the boundaries
+        if exact:
+            idx, valid, live = full
+            old_embeds, new_embeds, new_ks, new_bounds, obj = sh.gather_rows(
+                old_embeds, new_embeds, new_ks, new_bounds, obj)
+            Xe_new = X[new_embeds.clamp_min(0).long()]
         old_rows = old_embeds.clamp_min(0).long()
         old_ks = torch.where(old_embeds >= 0, st.assignments[old_rows], -1)
         old_c = flat_contrib(X, old_embeds, old_ks, K, valid,
                              rows=X[old_rows], second_moments=False)
         new_c = flat_contrib(X, new_embeds, new_ks, K, valid, rows=Xe_new,
                              second_moments=False)
-        pad = torch.cat([st.assignments, st.assignments.new_full((1,), -1)])
-        put_assignments(pad, valid, old_embeds, new_embeds, new_ks)
-        am.state = KMeansState(
-            assignments=pad[:-1],
-            counts=st.counts + (new_c.counts - old_c.counts),
-            sum_x=st.sum_x + (new_c.sum_x - old_c.sum_x))
+        d_counts = new_c.counts - old_c.counts
+        d_sum_x = new_c.sum_x - old_c.sum_x
+        obj = torch.where(valid, obj, 0.0).sum()
+        if sh is not None and sh.per_shard:
+            d_counts, d_sum_x, obj = sh.sum_ranks([d_counts, d_sum_x, obj])
+            sh.updates.append((valid, old_embeds, new_embeds, new_ks))
+            assignments = st.assignments
+        else:
+            pad = torch.cat([st.assignments,
+                             st.assignments.new_full((1,), -1)])
+            put_assignments(pad, valid, old_embeds, new_embeds, new_ks)
+            assignments = pad[:-1]
+        am.state = KMeansState(assignments=assignments,
+                               counts=st.counts + d_counts,
+                               sum_x=st.sum_x + d_sum_x)
         utt.boundaries_dev[idx[live]] = new_bounds[live]
-        return torch.where(valid, obj, 0.0).sum()
+        return obj
 
     def _resync_stats(self):
         """Rebuild the statistics exactly from the assignment vector."""

@@ -309,7 +309,9 @@ class UnigramAcousticWordseg(BlockedWordseg):
         K, prior = am.K_max, am.prior
 
         # 1. current segments and leave-one-utterance-out statistics
-        blk = self._leave_out(idx_blk)
+        blk = self._leave_out(idx_blk, split=True)
+        dp_noise, chain_noise = self._own_noise(
+            blk, dp_noise, chain_noise, self._dp_mode == "sample")
 
         # 2. fused candidate scoring (K1 / K5 / K8), boundary resampling (K2)
         log_prob, new_bounds = self._resample_boundaries(
@@ -337,8 +339,8 @@ class UnigramAcousticWordseg(BlockedWordseg):
                                     prior.mu_0, assign_temp, **opts)
 
         # 4. decollision and the merge into the global state
-        self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks)
-        return torch.where(blk.valid, log_prob, 0.0).sum()
+        return self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks,
+                           log_prob)[0]
 
 
 if __name__ == "__main__":  # smoke demo (reference unigram_acoustic_wordseg.py:871-963)

@@ -61,9 +61,11 @@ def _stats(rng, batch=()):
 
 
 def test_import_pulls_in_no_jax():
-    """Importing the port adds no jax or segmentalist_tpu module."""
+    """Importing the port, its multi-device layer and the dry run (which
+    spawned ranks import) adds no jax or segmentalist_tpu module."""
     code = ("import sys; before = set(sys.modules); "
-            "import segmentalist_torch, segmentalist_torch.interop; "
+            "import segmentalist_torch, segmentalist_torch.interop, "
+            "segmentalist_torch.parallel, segmentalist_torch.parallel.dryrun; "
             "new = set(sys.modules) - before; "
             "bad = [m for m in new if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('jaxlib') or m.startswith('segmentalist_tpu')]; "

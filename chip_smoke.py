@@ -11,7 +11,7 @@ check that does not hold:
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 must be off;
 2. build: compile the hand-written kernels from ``segmentalist_torch/csrc``;
-3. each kernel (K1-K10, both compositions of K5, both modes of K9) against
+3. each kernel (K1-K11, both compositions of K5, both modes of K9) against
    its plain PyTorch version on the card, in float32, at the flagship
    shapes (B=125, N_max=20, W=6, K=1000, D=13) and a long/wide case
    (N_max=120, D=130), with CUDA-event timings, device time (profiler)
@@ -31,12 +31,16 @@ check that does not hold:
    diag) with the delete on and off, at the toy (N 100, K 4, D 2), the
    flagship's initial state (6,149 assigned items, K 1000, D 13) and D 130:
    ks, final counts and running sums identical to its plain version;
+   K11, the full family's item chain, at the same three shapes with the
+   delete on and off (at D 130 on its first 60 items), identical to its
+   plain version, with its times a step and its bound;
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
    unigram and bigram segmenters of the three families (diag and full
    unigram also in Viterbi, diag's taking K5's exact composition), FBGMM
-   sweeps of both modes on the card against the CPU, three segmental
+   sweeps of both modes and the three families (K10, K11) on the card
+   against the CPU, three segmental
    k-means block steps (K2's Viterbi mode) on the bench corpus against
    the CPU from one state, and the module-level
    ``forward_backward_kmeans_viterbi`` on one utterance;
@@ -47,17 +51,19 @@ check that does not hold:
    `bench.py` unigram_full and `benchmarks/all_models.py` rows); for each,
    every kernel's launch count in that run, ms/sweep, log_marg and
    boundary F1.  Then the FBGMM's own sampler (K10): the notebook toy of
-   `bench.py:455-479` for 100 sweeps in each mode (purity >= 0.95), the
-   FBGMM alone on the flagship corpus's 51,972 candidate spans at K 1000
-   (4 sequential and 4 blocked sweeps, log_marg rising),
-   unigram_fixed with the one-by-one init and `am_n_iter=1`, and
+   `bench.py:455-479` for 100 sweeps in each mode (purity >= 0.95) and 3
+   full-family sequential sweeps on its points (K11), the FBGMM alone on
+   the flagship corpus's 51,972 candidate spans at K 1000 (4 sequential
+   and 4 blocked sweeps, log_marg rising), unigram_fixed and unigram_full
+   with the one-by-one init and `am_n_iter=1` (one K10 / K11 launch for
+   the init and one a sweep), and
    kmeans_wordseg, the segmental k-means segmenter of `bench.py:442-452`
    (K2 in its Viterbi mode, one launch a block) for 137 sweeps: its
    objective rising, boundary F1 >= 0.64.
 
 6. auxiliary, at the flagship's full width (the same corpus and
-   configurations): (a) resume: for the six Gibbs paths, unigram_fixed_am
-   and kmeans_wordseg, a segmenter runs 2 sweeps, is saved
+   configurations): (a) resume: for the six Gibbs paths, unigram_fixed_am,
+   unigram_full_am and kmeans_wordseg, a segmenter runs 2 sweeps, is saved
    (``utils/checkpoint.py``), runs 2 more; a fresh segmenter (another
    host RNG, another generator seed) restores and runs the same 2; the
    two must be identical in every array of the checkpoint (assignments,
@@ -1066,9 +1072,10 @@ def crafted_fullcov_own_pairs():
 
 
 def item_inputs(family, shape, seed, device):
-    """K10's inputs at ``shape`` (N, K, D): N items around 50 prototypes,
-    each in a uniformly drawn old column (the "rand" init's state), the
-    model's statistics from those columns, prior densities and noise."""
+    """K10's (K11's, family "full") inputs at ``shape`` (N, K, D): N items
+    around 50 prototypes, each in a uniformly drawn old column (the "rand"
+    init's state), the model's statistics from those columns, prior
+    densities and noise."""
     import torch
     from segmentalist_torch.models import cov_module
     from segmentalist_torch.ops.stats import suff_stats_from_assignments
@@ -1085,13 +1092,14 @@ def item_inputs(family, shape, seed, device):
     prior = bench_prior(family, D, device)
     return dict(X=X, log_prior=cov_module(family).log_prior_batch(prior, X),
                 noise=as_t(-np.log(-np.log(rng.uniform(1e-30, 1.0, (N, K))))),
-                k_old=k_old, stats=suff_stats_from_assignments(X, k_old, K),
+                k_old=k_old, stats=suff_stats_from_assignments(
+                    X, k_old, K, full_cov=family == "full"),
                 prior=prior, K=K)
 
 
 def item_chain_pair(family, d, delete=True, n=None):
-    """(kernel, plain) callables of K10 on ``d`` (its first ``n`` items);
-    each returns (ks, final stats)."""
+    """(kernel, plain) callables of K10 (K11 for "full") on ``d`` (its
+    first ``n`` items); each returns (ks, final stats)."""
     import torch
     from segmentalist_torch.ops import cuda_item_chain as cic
 
@@ -1105,6 +1113,8 @@ def item_chain_pair(family, d, delete=True, n=None):
         return cic.item_chain(*args)
 
     def plain():
+        if family == "full":
+            return cic.full_chain_plain(*cic.full_chain_inputs(*args[1:]))
         return cic.item_chain_result(*cic.item_chain_plain(
             *cic.item_chain_inputs(*args)))
 
@@ -1112,8 +1122,9 @@ def item_chain_pair(family, d, delete=True, n=None):
 
 
 def same_items(what, got, want):
-    """Check a K10 kernel result against its plain version: identical ks,
-    counts and running sums; returns the largest absolute difference."""
+    """Check a K10 / K11 kernel result against its plain version:
+    identical ks, counts and running sums; returns the largest absolute
+    difference."""
     import torch
 
     (ks_k, st_k), (ks_p, st_p) = got, want
@@ -1122,7 +1133,7 @@ def same_items(what, got, want):
     log("%s: identical ks %d/%d, identical counts and sums %s"
         % (what, n_same, ks_p.numel(), same_stats))
     check(n_same == ks_p.numel() and same_stats,
-          "%s: K10 and its plain version disagree" % what)
+          "%s: the kernel and its plain version disagree" % what)
     return max(float((a.double() - b.double()).abs().max())
                for a, b in zip(st_k, st_p))
 
@@ -1185,6 +1196,75 @@ def compare_item_chain(shape, name):
                           r["bound_ms"], r["bound_by"]))
             pre = "" if family == "fixed" else "diag_"
             out.update({pre + k: v for k, v in r.items()})
+    return out
+
+
+FULL_PLAIN_ITEMS = {"toy": None, "flagship": None, "long": 60}
+
+
+def full_item_bound(d, n):
+    """K11 on the first ``n`` items: the noise rows, the items' vectors,
+    prior densities and old columns read once, the statistics ([K, D, D]
+    sums) read and written once; per step and occupied column (the mean
+    of the start's and the end's) the whitened Mahalanobis form, D (D + 1)
+    flops, and 3 D + 8 more (x - m_n, the squares, the density), a
+    division and a log1p; per step two re-derivations of D^3/3 + D^3/6
+    flops (the factor and its inverse)."""
+    from segmentalist_torch.ops import cuda_item_chain as cic
+
+    D = d["X"].shape[1]
+    args = (d["X"][:n], d["log_prior"][:n], d["noise"][:n], d["k_old"][:n],
+            d["stats"], d["prior"], 1.0, d["K"])
+    ks, out = cic.item_chain("full", *args)
+    occ = 0.5 * float((d["stats"].counts > 0).sum() + (out.counts > 0).sum())
+    col_steps = n * occ
+    n_bytes = nbytes(*args[:4], *d["stats"]) + nbytes(ks, *out)
+    n_ops = col_steps * (D * (D + 1) + 3 * D + 8) + n * 2 * (D ** 3 / 2)
+    return dict(bound(n_bytes, n_ops, col_steps * 2), col_steps=col_steps)
+
+
+def compare_full_item_chain(shape, name):
+    """K11 at ``ITEMS[name]`` (the toy too, with the flagship): the kernel
+    against its plain version on the card, delete on and off (at D 130 on
+    the first ``FULL_PLAIN_ITEMS["long"]`` items: the plain version's D
+    vector steps a factorisation are slow there); at the flagship and long
+    shapes its times (events, device, a step, a step of the plain version
+    on the first ``PLAIN_ITEMS``) and its bound, over all the items."""
+    from segmentalist_torch.ops import cuda_item_chain as cic
+
+    out = {"max_abs_err": 0.0}
+    names = [name] + (["toy"] if name == "flagship" else [])
+    for nm in names:
+        d = item_inputs("full", ITEMS[nm], 10, DEVICE)
+        n = FULL_PLAIN_ITEMS[nm]
+        for delete in (True, False):
+            kernel, plain = item_chain_pair("full", d, delete, n)
+            err = same_items("K11 %s delete=%s%s" % (
+                nm, delete, "" if n is None else " (first %d items)" % n),
+                kernel(), plain())
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        if nm != name:
+            continue
+        N, D = d["X"].shape
+        plan = cic.card_plan("full", D, d["K"])
+        kernel, _ = item_chain_pair("full", d)
+        n_plain = min(N, PLAIN_ITEMS, n or N)
+        _, plain = item_chain_pair("full", d, n=n_plain)
+        r = {"form": plan.form, "steps_max": N, "ms": cuda_ms(kernel, 3),
+             "device_ms": device_ms(kernel, "fullcov_items_kernel", 3),
+             "plain_ms": once_ms(plain), "plain_items": n_plain}
+        r["us_per_step"] = (None if r["device_ms"] is None
+                            else r["device_ms"] * 1e3 / N)
+        r["plain_us_per_step"] = r["plain_ms"] * 1e3 / n_plain
+        r["ms_per_item"] = r["ms"] / N
+        r.update(full_item_bound(d, N))
+        log("K11 %s: plan %s, %d steps, kernel %.4f ms (%.6f ms an item), "
+            "device %s ms (%s us a step), plain %.4f ms for %d items, bound "
+            "%.4f ms (%s) [%s]" % (
+                name, plan, N, r["ms"], r["ms_per_item"], r["device_ms"],
+                r["us_per_step"], r["plain_ms"], n_plain, r["bound_ms"],
+                r["bound_by"], CARD))
+        out.update(r)
     return out
 
 
@@ -1479,10 +1559,11 @@ def small_block_steps():
 
 def fbgmm_vs_cpu():
     """FBGMM sweeps on the card against the same sweeps on the CPU, on
-    shared noise, float32: three sequential sweeps (one K10 launch each;
-    the plain version on the CPU) must leave identical assignments and
-    statistics, three blocked sweeps (float32 products in another order on
-    each device) agree to ``AGREE_MIN``."""
+    shared noise, float32, in the three families: three sequential sweeps
+    (one K10 launch each, K11 for the full family; the plain version on
+    the CPU) must leave identical assignments and statistics, three
+    blocked sweeps (float32 products in another order on each device)
+    agree to ``AGREE_MIN``."""
     import torch
     import segmentalist_torch as pt
     from segmentalist_torch.ops import cuda_item_chain
@@ -1493,11 +1574,12 @@ def fbgmm_vs_cpu():
     X = ((3.0 * rng.randn(6, D))[rng.randint(0, 6, N)]
          + rng.randn(N, D)).astype(np.float32)
     asg = rng.randint(-1, 10, N)
-    for family in ("fixed", "diag"):
+    for family in ("fixed", "diag", "full"):
         prior = bench_prior(family, D, "cpu")
         models = {dev: pt.FBGMM(X, prior, 1.0, K, asg, covariance_type=family,
                                 device=dev) for dev in ("cpu", DEVICE)}
-        before = cuda_item_chain.launches
+        counter = "full_launches" if family == "full" else "launches"
+        before = getattr(cuda_item_chain, counter)
         for mode in ("sequential", "blocked"):
             for i in range(3):
                 noise = -np.log(-np.log(rng.uniform(1e-30, 1.0, (N, K))))
@@ -1521,8 +1603,9 @@ def fbgmm_vs_cpu():
                       "sweeps disagree" % family)
             models["cpu"].setup_components(K, a_d)  # resume from one state
             models[DEVICE].setup_components(K, a_d)
-        check(cuda_item_chain.launches == before + 3,
-              "the sequential sweeps did not run one K10 launch each")
+        check(getattr(cuda_item_chain, counter) == before + 3,
+              "the %s sequential sweeps did not run one item-chain launch "
+              "each" % family)
 
 
 def kmeans_block_steps_vs_cpu():
@@ -1598,7 +1681,7 @@ def reset_launches():
                                         cuda_fullcov_score, cuda_item_chain,
                                         cuda_score)
 
-    cuda_item_chain.launches = 0
+    cuda_item_chain.launches = cuda_item_chain.full_launches = 0
     cuda_score.launches = cuda_score.diag_launches = 0
     cuda_score.diag_exact_launches = cuda_dp.launches = 0
     cuda_chain.launches = cuda_chain.bigram_launches = 0
@@ -1609,7 +1692,8 @@ def reset_launches():
 
 def read_launches():
     """Each kernel's launches since `reset_launches` (K5: both
-    compositions; K9: both weight modes; K10: both families)."""
+    compositions; K9: both weight modes; K10: the fixed and diag
+    families; K11: the full family's item chain)."""
     from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
                                         cuda_fullcov_chain,
                                         cuda_fullcov_score, cuda_item_chain,
@@ -1624,7 +1708,8 @@ def read_launches():
             "K8": cuda_fullcov_score.launches,
             "K9": (cuda_fullcov_chain.launches
                    + cuda_fullcov_chain.bigram_launches),
-            "K10": cuda_item_chain.launches}
+            "K10": cuda_item_chain.launches,
+            "K11": cuda_item_chain.full_launches}
 
 
 PATH_KERNELS = {"unigram_fixed": ("K1", "K2", "K3"),
@@ -1633,8 +1718,9 @@ PATH_KERNELS = {"unigram_fixed": ("K1", "K2", "K3"),
                 "bigram_diag": ("K5", "K2", "K7"),
                 "unigram_full": ("K8", "K2", "K9"),
                 "bigram_full": ("K8", "K2", "K9"),
-                "fbgmm_toy": ("K10",), "fbgmm_flagship": ("K10",),
+                "fbgmm_toy": ("K10", "K11"), "fbgmm_flagship": ("K10",),
                 "unigram_fixed_am": ("K1", "K2", "K3", "K10"),
+                "unigram_full_am": ("K8", "K2", "K9", "K11"),
                 "kmeans_wordseg": ("K2",)}
 
 
@@ -1706,8 +1792,10 @@ def purity(assignments, z_true):
 def run_fbgmm_toy(sweeps=100):
     """The notebook toy (`bench.py:455-479`: 100 2-D points around four
     centres, K 4, FixedVarPrior(0.5, 0, 1)) for ``sweeps`` sweeps in each
-    mode; log_marg finite, purity >= ``PURITY_MIN``.  Returns the K10
-    launches and the ms a sweep of each mode."""
+    mode; log_marg finite, purity >= ``PURITY_MIN``; then 3 sequential
+    sweeps of the full family on the same points (one K11 launch each).
+    Returns the K10 and K11 launches, the ms a sweep of each mode and the
+    full family's ms an item."""
     import segmentalist_torch as pt
 
     rng = np.random.RandomState(1)
@@ -1739,10 +1827,7 @@ def run_fbgmm_toy(sweeps=100):
         check(p >= PURITY_MIN, "fbgmm_toy %s: purity %.3f < %.2f"
               % (mode, p, PURITY_MIN))
         out[mode + "_ms_per_sweep"] = ms
-    launches = read_launches()
-    check(launches["K10"] > 0, "K10 was not launched on the fbgmm_toy path")
-    # the full family's per-item step in PyTorch (no item kernel), on the
-    # same data: ms an item of a sequential sweep
+    # the full family's sequential sweep (K11), on the same data: ms an item
     np.random.seed(1)
     am = pt.FBGMM(X, pt.NIW.create(np.zeros(2), 1.0 / 16, 5.0,
                                    5.0 * np.eye(2)), 1.0, 4, "rand",
@@ -1752,12 +1837,16 @@ def run_fbgmm_toy(sweeps=100):
     rec = am.gibbs_sample(3)
     sync()
     out["full_sequential_ms_per_item"] = (time.time() - t) / 3 / len(X) * 1e3
-    log("fbgmm_toy full (per-item PyTorch step): %.4f ms an item, log_marg "
-        "%.6g -> %.6g" % (out["full_sequential_ms_per_item"],
-                          rec["log_marg"][0], rec["log_marg"][-1]))
+    launches = read_launches()
+    log("fbgmm_toy full (one K11 launch a sweep): %.4f ms an item, log_marg "
+        "%.6g -> %.6g [%s]" % (out["full_sequential_ms_per_item"],
+                               rec["log_marg"][0], rec["log_marg"][-1], CARD))
     check(all(math.isfinite(v) for v in rec["log_marg"]),
           "fbgmm_toy full: non-finite log_marg")
-    return {"K10": launches["K10"]}, out
+    check(launches["K11"] == 3, "fbgmm_toy full: %d K11 launches for 3 "
+          "sequential sweeps" % launches["K11"])
+    check(launches["K10"] > 0, "K10 was not launched on the fbgmm_toy path")
+    return {k: launches[k] for k in PATH_KERNELS["fbgmm_toy"]}, out
 
 
 def fbgmm_flagship_vs_cpu(X, sweeps):
@@ -1878,24 +1967,28 @@ def run_fbgmm_flagship(sweeps=4):
     return {"K10": launches["K10"]}, out
 
 
-def run_am_slice(sweeps=(1, 3)):
-    """unigram_fixed at bench scale with the one-by-one init (one K10
-    launch over the initial segments) and ``am_n_iter=1`` (one K10 launch
-    an acoustic-model sweep before each sweep).  Returns the launches of
-    K1, K2, K3 and K10 and the ms a sweep of the last call."""
-    from segmentalist_torch.ops import cuda_item_chain
+def run_am_slice(sweeps=(1, 3), cov="fixed", n_utterances=1000):
+    """unigram_fixed (``cov`` "full": unigram_full) at bench scale with the
+    one-by-one init (one item-chain launch over the initial segments: K10,
+    or K11 for the full family) and ``am_n_iter=1`` (one launch an
+    acoustic-model sweep before each sweep).  Returns the launches of the
+    path's kernels and the ms a sweep of the last call."""
     from segmentalist_torch.utils.profiling import bench_segmenter
     from segmentalist_torch.utils.synth import boundary_f_score
 
+    name = "unigram_%s_am" % cov
+    item = "K11" if cov == "full" else "K10"
     t0 = time.time()
-    before = cuda_item_chain.launches
-    seg, truth = bench_segmenter("fixed", False, 1000, DEVICE,
+    reset_launches()
+    seg, truth = bench_segmenter(cov, False, n_utterances, DEVICE,
                                  init_am_assignments="one-by-one")
+    sync()
+    init_s = time.time() - t0
     n_init = int((seg.acoustic_model.assignments >= 0).sum())
-    check(cuda_item_chain.launches == before + 1,
-          "the one-by-one init did not run one K10 launch")
-    log("unigram_fixed_am: one-by-one init of %d segments in %.1f s "
-        "(setup included)" % (n_init, time.time() - t0))
+    check(read_launches()[item] == 1,
+          "the one-by-one init did not run one %s launch" % item)
+    log("%s: one-by-one init of %d segments in %.1f s (setup included) "
+        "[%s]" % (name, n_init, init_s, CARD))
     reset_launches()
     records, sweep_ms = [], []
     for n in sweeps:
@@ -1909,19 +2002,19 @@ def run_am_slice(sweeps=(1, 3)):
     pred = {u: seg.utterances.boundaries[i]
             for i, u in enumerate(seg.ids_to_utterance_labels)}
     f1 = boundary_f_score(pred, truth)[2]
-    log("unigram_fixed_am: %d sweeps with am_n_iter=1, ms/sweep per call %s, "
-        "log_marg %s, F1 %.4f, launches %s" % (
-            len(lm), [round(v, 3) for v in sweep_ms],
-            [round(v, 1) for v in lm], f1, launches))
+    log("%s: %d sweeps with am_n_iter=1, ms/sweep per call %s, log_marg "
+        "%s, F1 %.4f, launches %s [%s]" % (
+            name, len(lm), [round(v, 3) for v in sweep_ms],
+            [round(v, 1) for v in lm], f1, launches, CARD))
     check(all(math.isfinite(v) for v in lm), "non-finite log_marg")
-    check(launches["K10"] == len(lm),
-          "unigram_fixed_am: %d K10 launches for %d sweeps"
-          % (launches["K10"], len(lm)))
-    for k in PATH_KERNELS["unigram_fixed_am"]:
-        check(launches[k] > 0, "kernel %s was not launched on the "
-              "unigram_fixed_am path" % k)
-    return ({k: launches[k] for k in PATH_KERNELS["unigram_fixed_am"]},
-            {"ms_per_sweep": sweep_ms[-1], "init_items": n_init, "f1": f1})
+    check(launches[item] == len(lm), "%s: %d %s launches for %d sweeps"
+          % (name, launches[item], item, len(lm)))
+    for k in PATH_KERNELS[name]:
+        check(launches[k] > 0, "kernel %s was not launched on the %s path"
+              % (k, name))
+    return ({k: launches[k] for k in PATH_KERNELS[name]},
+            {"ms_per_sweep": sweep_ms[-1], "init_items": n_init,
+             "init_s": init_s, "f1": f1})
 
 
 def run_kmeans_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
@@ -2005,9 +2098,11 @@ def aux_builders(n_utterances=1000):
         ("unigram_fixed", "fixed", False), ("bigram", "fixed", True),
         ("unigram_diag", "diag", False), ("bigram_diag", "diag", True),
         ("unigram_full", "full", False), ("bigram_full", "full", True))}
-    build_am, _ = gibbs("fixed", False, init_am_assignments="one-by-one")
-    out["unigram_fixed_am"] = (
-        build_am, lambda seg, n, **k: seg.gibbs_sample(n, am_n_iter=1, **k))
+    for cov in ("fixed", "full"):
+        build_am, _ = gibbs(cov, False, init_am_assignments="one-by-one")
+        out["unigram_%s_am" % cov] = (
+            build_am,
+            lambda seg, n, **k: seg.gibbs_sample(n, am_n_iter=1, **k))
     out["kmeans_wordseg"] = (
         lambda dev: bench_kmeans_segmenter(n_utterances, dev)[0],
         lambda seg, n, **k: seg.segment(n, **k))
@@ -2532,7 +2627,7 @@ def main(argv=None) -> int:
                "K4": compare_bigram_chain, "K5": compare_diag_score,
                "K6": compare_diag_chain, "K7": compare_bigram_diag_chain,
                "K8": compare_fullcov_score, "K9": compare_fullcov_chain,
-               "K10": compare_item_chain}
+               "K10": compare_item_chain, "K11": compare_full_item_chain}
     if args.only:
         compare = {k: compare[k] for k in args.only.split(",")}
     results = {(k, name): fn(shape, name)
@@ -2560,7 +2655,8 @@ def main(argv=None) -> int:
     fbgmm = {}
     for name, run in (("fbgmm_toy", run_fbgmm_toy),
                       ("fbgmm_flagship", run_fbgmm_flagship),
-                      ("unigram_fixed_am", run_am_slice)):
+                      ("unigram_fixed_am", run_am_slice),
+                      ("unigram_full_am", lambda: run_am_slice(cov="full"))):
         paths[name], fbgmm[name] = run()
     paths["kmeans_wordseg"], kmeans = run_kmeans_slice()
     aux_paths, aux = run_auxiliary()
@@ -2590,6 +2686,10 @@ def main(argv=None) -> int:
                "segmentalist_tpu/ops/pallas_chain.py:1725"),
         "K10": ("gibbs_items", "segmentalist_torch/csrc/diag_family_chain.cuh",
                 "segmentalist_tpu/models/fbgmm.py:517-570 (lax.scan)"),
+        "K11": ("fullcov_items",
+                "segmentalist_torch/csrc/fullcov_item_chain.cu",
+                "segmentalist_tpu/models/fbgmm.py:517-570 (lax.scan, "
+                "components_full)"),
     }
     kernels = []
     for k, (fn, src, tpu) in meta.items():
@@ -2647,6 +2747,15 @@ def main(argv=None) -> int:
                     "ms", "device_ms", "us_per_step", "plain_ms", "bound_ms",
                     "bound_by", "form")})
             entry.update(plain_items=fl["plain_items"], paths=fbgmm)
+        if k == "K11":  # forms, a step's time, the plain version's prefix
+            entry.update({pre + f: r[f] for pre, r in (("", fl),
+                                                       ("long_", lo))
+                          for f in ("form", "us_per_step", "ms_per_item",
+                                    "plain_us_per_step", "plain_items")})
+            entry["full_sequential_ms_per_item"] = {
+                "flagship_launch": fl["ms_per_item"],
+                "fbgmm_toy": fbgmm["fbgmm_toy"][
+                    "full_sequential_ms_per_item"]}
         kernels.append(entry)
     print(json.dumps({"multichip": multichip}))
     print(json.dumps({"auxiliary": aux}))

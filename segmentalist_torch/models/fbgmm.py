@@ -9,11 +9,10 @@ package:
 
 * ``mode="sequential"``: exact collapsed Gibbs, each item removed from its
   component, scored against the running statistics, drawn and added back
-  in item order (``fbgmm.py:517-570``).  For the fixed and diag families
-  the whole sweep is one launch of kernel K10
-  (``ops/cuda_item_chain.py``); so are ``reassign_items`` (the chain with
-  the delete off) and the single-item draws.  The full family runs the
-  same step item by item in PyTorch (its chain K9 keeps no downdate).
+  in item order (``fbgmm.py:517-570``).  The whole sweep is one launch of
+  an item-chain kernel (``ops/cuda_item_chain.py``: K10 for the fixed and
+  diag families, K11 for the full family); so are ``reassign_items`` (the
+  chain with the delete off) and the single-item draws.
 * ``mode="blocked"``: every item scored against leave-one-out statistics
   in one [N, K] pass and drawn at once, new components decollided, the
   statistics rebuilt (``fbgmm.py:572-650``).
@@ -30,7 +29,6 @@ import time
 import numpy as np
 import torch
 
-from ..ops.cuda_item_chain import FAMILIES as ITEM_CHAIN_FAMILIES
 from ..ops.cuda_item_chain import item_chain
 from ..ops.random import annealed_gumbel_max, gumbel, logsumexp
 from ..ops.stats import (SuffStats, add_item, canonicalize_new_component,
@@ -287,8 +285,8 @@ class FBGMM:
     def reassign_items(self, ids, anneal_temp: float = 1.0, noise=None):
         """Gibbs-assign the listed (unassigned) items in order, each against
         the statistics the items before it updated: the JAX package's
-        ``reassign_items`` (fbgmm.py:323-387), one K10 launch with the
-        delete off.  ``noise`` [len(ids), K] (drawn when None)."""
+        ``reassign_items`` (fbgmm.py:323-387), one K10 / K11 launch with
+        the delete off.  ``noise`` [len(ids), K] (drawn when None)."""
         ids = torch.as_tensor(np.asarray(ids, dtype=np.int64),
                               device=self.device)
         if noise is None:
@@ -300,50 +298,18 @@ class FBGMM:
         """The items ``ids`` in order: each (``delete``) leaves its
         component, is scored against the running statistics, drawn (row j
         of ``noise`` for the j-th item; ``use_argmax``: the MAP) and added.
-        Fixed and diag: kernel K10 (its plain version on the CPU); full:
-        :meth:`_full_item_steps`."""
+        One launch of kernel K10 (fixed, diag) or K11 (full), their plain
+        versions on the CPU."""
         lms = self.lms if lms is None else lms
         ids = ids.to(self.device)
         k_old = (self.assignments[ids] if delete else
                  torch.full(ids.shape, -1, dtype=torch.int32,
                             device=self.device))
-        if self.covariance_type in ITEM_CHAIN_FAMILIES:
-            ks, self.stats = item_chain(
-                self.covariance_type, self.X[ids], self.log_prior_vec[ids],
-                noise, k_old, self.stats, self.prior, self.alpha, self.K_max,
-                lms, temp, use_argmax)
-        else:
-            ks = self._full_item_steps(ids, k_old, noise, temp, use_argmax,
-                                       lms)
+        ks, self.stats = item_chain(
+            self.covariance_type, self.X[ids], self.log_prior_vec[ids], noise,
+            k_old, self.stats, self.prior, self.alpha, self.K_max, lms, temp,
+            use_argmax)
         self._assign_pad[ids] = ks.to(torch.int32)
-
-    def _full_item_steps(self, ids, k_old, noise, temp, use_argmax, lms):
-        """The full family's item chain in PyTorch, an item at a time: the
-        JAX step (fbgmm.py:529-563) with ``components_full``'s predictive
-        row update.  No kernel: K9, the full family's chain, keeps touched
-        slots with no downdate (ROADMAP Q1.3b)."""
-        cov, prior = self.cov, self.prior
-        stats = self.stats
-        params = cov.predictive_params(prior, stats)
-        ks = []
-        for j, (i, kd) in enumerate(zip(ids.tolist(), k_old.tolist())):
-            x = self.X[i]
-            if kd >= 0:
-                stats = del_item(stats, x, kd, full_cov=True)
-                params = cov.update_predictive_row(prior, stats, params, kd)
-            w = log_weights(stats.counts, self.alpha, self.K_max, lms,
-                            dtype=x.dtype)
-            logits = w + torch.where(stats.counts > 0,
-                                     cov.log_post_pred(params, x),
-                                     self.log_prior_vec[i])
-            k = (torch.argmax(logits) if use_argmax else
-                 annealed_gumbel_max(logits, noise[j], temp))
-            k = canonicalize_new_component(stats.counts, k)
-            stats = add_item(stats, x, k, full_cov=True)
-            params = cov.update_predictive_row(prior, stats, params, k)
-            ks.append(k)
-        self.stats = stats
-        return torch.stack(ks) if ks else ids.new_empty(0)
 
     # -- full sweeps ------------------------------------------------------------
 

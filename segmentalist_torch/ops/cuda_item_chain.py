@@ -1,5 +1,6 @@
-"""The FBGMM's sequential Gibbs sweep as one chain over items: kernel K10
-and its plain version.
+"""The FBGMM's sequential Gibbs sweep as one chain over items: kernels K10
+(the fixed and diag families) and K11 (the full family), and their plain
+versions.
 
 Counterpart of the JAX package's sequential sweep
 (``segmentalist_tpu/models/fbgmm.py:517-570``, a ``lax.scan`` with no
@@ -14,21 +15,33 @@ For each item i in order, with statistics updated by the items before it:
   4. a draw on an empty column moves to the first empty one (else K - 1);
   5. item i joins the drawn column.
 
-The kernel is the chain template's item mode (``csrc/diag_family_chain.cuh``,
+K10 is the chain template's item mode (``csrc/diag_family_chain.cuh``,
 ``gibbs_items_kernel``) with the fixed-variance policy of K3
 (``csrc/fixedvar_chain.cu``) or the exact diag policy
 (``csrc/diag_chain.cu::DiagExactChain``: the per-dimension ``log1p`` sum of
 ``components_diag``, not K6's grouped form, and lgamma from
-:func:`cuda_diag_chain.gr_table`).  The plain version is the chain loop of
+:func:`cuda_diag_chain.gr_table`).  Its plain version is the chain loop of
 the other plain chains (``cuda_chain._chain_plain``) with the delete and
-the same column models, so on shared noise the two sample the same ks and
+the same column models.
+
+K11 (``csrc/fullcov_item_chain.cu``, ``fullcov_items_kernel``) keeps each
+occupied column's predictive parameters (m_n, the inverse Cholesky factor
+L^-1 of the scale matrix, its log determinant) and re-derives a column
+from its statistics whenever an item joins or leaves it: the JAX step with
+``components_full``, scored in the whitened form ``|L^-1 (x - m_n)|^2``.
+Its plain version, :func:`full_chain_plain`, runs the same arithmetic in
+the same order (:func:`chol_inv_logdet`: no ``torch.linalg``, whose orders
+a kernel cannot reproduce), and the count-only Student-t terms of both come
+from one exact ``torch.lgamma`` table (:func:`full_count_terms`).
+
+On shared noise each kernel and its plain version sample the same ks and
 end on the same statistics.  A CUDA tensor takes the kernel (its launch
 plan raises where a shape does not fit), a CPU tensor the plain version.
-The full-covariance family has no item kernel: ``models.fbgmm`` runs its
-per-item step in PyTorch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -36,26 +49,29 @@ from . import cuda_lib
 from .cuda_chain import (_LOG_2PI, ChainPlan, FixedVarCols, _chain_plain,
                          pick_form)
 from .cuda_diag_chain import _HALF_LOG_PI, DiagCols, gr_table, prior_terms
-from .stats import SuffStats
+from .random import annealed_gumbel_max
+from .stats import SuffStats, canonicalize_new_component
 
-FAMILIES = ("fixed", "diag")
+FAMILIES = ("fixed", "diag", "full")
 
 launches = 0  # K10 launches since the last reset
+full_launches = 0  # K11 launches since the last reset
 
 
 def item_chain(family: str, X, log_prior, noise, k_old, stats: SuffStats,
                prior, alpha: float, K: int, lms: float = 1.0,
                temp: float = 1.0, use_argmax: bool = False):
-    """One chain over n items (kernel K10).
+    """One chain over n items (kernel K10; K11 for the full family).
 
-    ``family`` "fixed" (``prior`` a FixedVarPrior) or "diag" (an NIW with a
-    [D] ``S_0``); X [n, D] the items' vectors in chain order; log_prior [n]
-    their prior log densities; noise [n, K] standard Gumbel noise (may be
-    None with ``use_argmax``); k_old [n] int32 each item's old column, -1
-    for none (all -1: no delete); ``stats`` the model's statistics
-    (counts [K] int32, sum_x and sum_sq [K, D]).  The diag family reads
-    the statistics' total count once, to size its lgamma table: no count
-    the chain reaches exceeds the total plus n.
+    ``family`` "fixed" (``prior`` a FixedVarPrior), "diag" (an NIW with a
+    [D] ``S_0``) or "full" (an NIW with a [D, D] ``S_0``); X [n, D] the
+    items' vectors in chain order; log_prior [n] their prior log
+    densities; noise [n, K] standard Gumbel noise (may be None with
+    ``use_argmax``); k_old [n] int32 each item's old column, -1 for none
+    (all -1: no delete); ``stats`` the model's statistics (counts [K]
+    int32, sum_x [K, D], sum_sq [K, D] or, full, [K, D, D]).  The diag and
+    full families read the statistics' total count once, to size their
+    lgamma tables: no count the chain reaches exceeds the total plus n.
 
     Returns (ks [n] int32, the final SuffStats).
     """
@@ -64,6 +80,11 @@ def item_chain(family: str, X, log_prior, noise, k_old, stats: SuffStats,
     if X.shape[0] == 0:
         return (torch.empty(0, dtype=torch.int32, device=X.device),
                 SuffStats(*(t.clone() for t in stats)))
+    if family == "full":
+        args = full_chain_inputs(X, log_prior, noise, k_old, stats, prior,
+                                 alpha, K, lms, temp, use_argmax)
+        run = _launch_full if cuda_lib.use_kernel(X) else full_chain_plain
+        return run(*args)
     args = item_chain_inputs(family, X, log_prior, noise, k_old, stats,
                              prior, alpha, K, lms, temp, use_argmax)
     run = _launch if cuda_lib.use_kernel(X) else item_chain_plain
@@ -128,6 +149,170 @@ def item_chain_plain(family, Xe, log_prior_e, gumbel, k_old, counts, sum_xT,
     return ks, cnt.to(torch.int32), torch.stack(sums, 1)
 
 
+_LOG_PI = math.log(math.pi)
+FULL_WARP_D = 32  # K11: up to this D a derivation runs on one warp
+
+
+def full_count_terms(v0: float, D: int, max_count: int, dtype,
+                     device) -> torch.Tensor:
+    """[max_count + 1] the count-only terms of the full family's Student-t
+    log density for every count c up to ``max_count``, with v = v0 + c - D
+    + 1 its degrees of freedom: ``lgamma((v + D)/2) - lgamma(v/2) - D/2
+    log v - D/2 log pi``, in ``components_full._student_t_from_maha``'s
+    order (exact ``torch.lgamma``, as JAX's ``gammaln``).  K11 and its
+    plain version both read it."""
+    v = ((float(v0) + torch.arange(max_count + 1, dtype=dtype,
+                                   device=device)) - D) + 1.0
+    return (((torch.lgamma((v + D) / 2.0) - torch.lgamma(v / 2.0))
+             - D / 2.0 * torch.log(v)) - D / 2.0 * _LOG_PI)
+
+
+def chol_inv_logdet(covar):
+    """(L^-1, log det) of SPD matrices [..., D, D], L their lower Cholesky
+    factor, in K11's order: the factorisation right-looking (D vector
+    steps, each taking out one column), then L^-1 by forward substitution
+    the same way, so every element's sum still runs in ascending k as in
+    the JAX package's left-looking unrolled form
+    (``components_full.py:70-135``); log det = 2 sum_i log L_ii in
+    ascending i.  No ``torch.linalg``: LAPACK's and cuSOLVER's orders
+    cannot be reproduced in a kernel."""
+    A = covar.clone()
+    D = A.shape[-1]
+    L = torch.zeros_like(A)
+    for j in range(D):
+        d = torch.sqrt(A[..., j, j])
+        col = A[..., j + 1:, j] / d[..., None]
+        L[..., j, j] = d
+        L[..., j + 1:, j] = col
+        A[..., j + 1:, j + 1:] = (A[..., j + 1:, j + 1:]
+                                  - col[..., :, None] * col[..., None, :])
+    Y = torch.zeros_like(A)
+    acc = torch.zeros_like(A)  # acc[i, j] = sum_k<i L[i, k] Y[k, j] so far
+    for k in range(D):
+        lkk = L[..., k, k]
+        Y[..., k, :k] = -acc[..., k, :k] / lkk[..., None]
+        Y[..., k, k] = 1.0 / lkk
+        acc[..., k + 1:, :k + 1] = (acc[..., k + 1:, :k + 1]
+                                    + L[..., k + 1:, k, None]
+                                    * Y[..., k, None, :k + 1])
+    logdet = torch.zeros_like(A[..., 0, 0])
+    for i in range(D):
+        logdet = logdet + torch.log(L[..., i, i])
+    return Y, 2.0 * logdet
+
+
+class FullCols:
+    """The full family's column model of K11's plain version: per column
+    m_n [K, D], L^-1 [K, D, D] and log det [K], derived for occupied
+    columns only (an empty column's entries are never read: it scores its
+    item's prior density).  ``derive`` is ``components_full._derive_covar``
+    in its order, then :func:`chol_inv_logdet`; the fit is the Student-t
+    log density ``(terms[c] - 0.5 log det) - ((v + D)/2) log1p(maha / v)``
+    with ``maha = |L^-1 (x - m_n)|^2``, both sums in ascending order."""
+
+    def __init__(self, k0m0, snp0, cterms, k0, v0):
+        self.k0m0, self.snp0, self.cterms = k0m0, snp0, cterms
+        self.k0, self.v0 = k0, v0
+
+    def dof(self, cnt, D):
+        return ((self.v0 + cnt) - D) + 1.0
+
+    def derive(self, idx, cnt, sum_x, sum_sq):
+        """Re-derive the columns ``idx`` from their counts and sums."""
+        D = sum_x.shape[-1]
+        n = cnt[idx]
+        kn = self.k0 + n
+        m = (self.k0m0 + sum_x[idx]) / kn[:, None]
+        scale = (kn + 1.0) / (kn * self.dof(n, D))
+        covar = scale[:, None, None] * (
+            (self.snp0 + sum_sq[idx])
+            - kn[:, None, None] * (m[:, :, None] * m[:, None, :]))
+        self.m[idx] = m
+        self.linv[idx], self.ld[idx] = chol_inv_logdet(covar)
+
+    def init(self, cnt, sum_x, sum_sq):
+        K, D = sum_x.shape
+        self.m = sum_x.new_zeros((K, D))
+        self.linv = sum_x.new_zeros((K, D, D))
+        self.ld = sum_x.new_zeros((K,))
+        self.derive(torch.nonzero(cnt > 0)[:, 0], cnt, sum_x, sum_sq)
+
+    def post(self, x, cnt):
+        D = x.shape[-1]
+        delta = x - self.m
+        z = torch.zeros_like(delta)
+        for j in range(D):  # z_i = sum_j<=i L^-1[i, j] delta_j (zeros above)
+            z = z + self.linv[:, :, j] * delta[:, j, None]
+        maha = torch.zeros_like(self.ld)
+        for i in range(D):
+            maha = maha + z[:, i] * z[:, i]
+        v = self.dof(cnt, D)
+        return ((self.cterms[cnt.long()] - 0.5 * self.ld)
+                - ((v + D) / 2.0) * torch.log1p(maha / v))
+
+
+def full_chain_inputs(X, log_prior, noise, k_old, stats, prior, alpha, K,
+                      lms=1.0, temp=1.0, use_argmax=False) -> tuple:
+    """The arguments of :func:`full_chain_plain` and of K11's launch from
+    :func:`item_chain`'s: the items, the statistics, the prior's terms (k0
+    m0 [D], S_0 + k0 m0 m0^T [D, D], the count terms of
+    :func:`full_count_terms`, k0, v0) and the options."""
+    n, D = X.shape
+    if noise is None:
+        if not use_argmax:
+            raise ValueError("noise is required unless use_argmax")
+        noise = X.new_zeros((n, K))
+    k0, v0 = float(prior.k_0), float(prior.v_0)
+    m0 = prior.m_0
+    terms = (prior.k_0 * m0,
+             prior.S_0 + prior.k_0 * (m0[:, None] * m0[None, :]),
+             full_count_terms(v0, D, int(stats.counts.sum()) + n, X.dtype,
+                              X.device), k0, v0)
+    data = tuple(t.contiguous() for t in (X, log_prior, noise, k_old,
+                                          *stats))
+    return (*data, terms, float(temp), float(alpha), int(K), float(lms),
+            bool(use_argmax))
+
+
+def full_chain_plain(X, log_prior, noise, k_old, counts, sum_x, sum_sq,
+                     terms, temp, alpha, K, lms, use_argmax):
+    """Plain PyTorch version of K11, an item at a time: the delete (and
+    the column's re-derivation, if it keeps members), the scores of every
+    column, the draw, the add and the drawn column's re-derivation.
+    Returns (ks [n] int32, the final SuffStats)."""
+    cols = FullCols(*terms)
+    cnt = counts.to(X.dtype).clone()
+    sum_x, sum_sq = sum_x.clone(), sum_sq.clone()
+    cols.init(cnt, sum_x, sum_sq)
+    n = X.shape[0]
+    ks = torch.empty(n, dtype=torch.int32, device=X.device)
+    sq = X[:, :, None] * X[:, None, :]
+
+    def move(k, s, add):
+        """Column k takes (add) or gives up item s and is re-derived."""
+        cnt[k] += 1.0 if add else -1.0
+        if add:
+            sum_x[k] += X[s]
+            sum_sq[k] += sq[s]
+        else:
+            sum_x[k] -= X[s]
+            sum_sq[k] -= sq[s]
+        if cnt[k] > 0:
+            cols.derive(k.reshape(1), cnt, sum_x, sum_sq)
+
+    for s, kd in enumerate(k_old.tolist()):
+        if kd >= 0:
+            move(torch.tensor(kd, device=X.device), s, add=False)
+        logits = lms * torch.log(alpha / K + cnt) + torch.where(
+            cnt > 0, cols.post(X[s], cnt), log_prior[s])
+        k_draw = (torch.argmax(logits) if use_argmax else
+                  annealed_gumbel_max(logits, noise[s], temp))
+        k_new = canonicalize_new_component(cnt, k_draw)
+        ks[s] = k_new.to(torch.int32)
+        move(k_new, s, add=True)
+    return ks, SuffStats(cnt.to(torch.int32), sum_x, sum_sq)
+
+
 # Per family: the tables of the smem and global forms, the hoisted terms,
 # the prior vectors (K10 carries two sums, sx and ssq, in both).
 _TABLES = {"fixed": {"smem": 2, "global": 1}, "diag": {"smem": 2, "global": 2}}
@@ -150,18 +335,39 @@ def smem_bytes(family: str, global_tables: bool, D: int, K: int) -> int:
     weight term, the touched slot and a double-buffered noise value.  Both
     forms: x and the log prior [3, D + 1]; the prior vectors, and the logs
     and running sums of the adding and of the deleting update [2 (1 + 2),
-    D]."""
+    D].  K11 (full): :func:`full_smem_bytes`."""
+    if family == "full":
+        return full_smem_bytes(global_tables, D, K)
     per_col = _TABLES[family]["smem"] * D + col_arrays(family, False) + 2
     words = ((0 if global_tables else per_col * K) + 3 * (D + 1)
              + (_PRIOR[family] + 2 * (1 + _SUMS)) * D)
     return 4 * words
 
 
+def full_smem_bytes(global_work: bool, D: int, K: int) -> int:
+    """Dynamic shared memory of K11's CTA, as the kernel reserves it
+    (``csrc/fullcov_item_chain.cu::smem_words``): the counts and the weight
+    term [2, K], x and the log prior of the current and the next item [2,
+    D + 1]; in the smem form also the work areas [D D + 2 D] (the matrix a
+    derivation factorises and inverts in place, L's diagonal and m_n) of
+    :func:`full_work_areas`.  The global form keeps the work areas in
+    device memory."""
+    return 4 * (2 * K + 2 * (D + 1) + (
+        0 if global_work else full_work_areas(D, K) * (D * D + 2 * D)))
+
+
+def full_work_areas(D: int, K: int) -> int:
+    """K11's work areas: one a warp up to D 32 (a derivation runs on one
+    warp), one for the CTA above (the CTA runs it)."""
+    return 1 if D > FULL_WARP_D else min(32, max(1, -(-K // 32)))
+
+
 def launch_plan(family: str, D: int, K: int, smem_limit: int) -> ChainPlan:
-    """The form of K10 for D dims and K columns (pure Python): "smem" where
-    the tables fit the ``smem_limit`` bytes of dynamic shared memory a CTA
-    may take, else "global".  Raises if neither fits.  The chain's length
-    does not enter: the steps are the items, read from device memory."""
+    """The form of K10 or K11 for D dims and K columns (pure Python):
+    "smem" where the tables (K11: the work areas) fit the
+    ``smem_limit`` bytes of dynamic shared memory a CTA may take, else
+    "global".  Raises if neither fits.  The chain's length does not enter:
+    the steps are the items, read from device memory."""
     return pick_form(lambda g: smem_bytes(family, g, D, K), K, 0, smem_limit,
                      "%s item" % family)
 
@@ -170,8 +376,9 @@ def card_plan(family: str, D: int, K: int) -> ChainPlan:
     """:func:`launch_plan` under the current card's limit (its opt-in
     shared memory a block less the kernel's static shared memory)."""
     lib = cuda_lib.library()
-    limit = (lib.fixedvar_items_smem_limit() if family == "fixed"
-             else lib.diag_items_smem_limit())
+    limit = {"fixed": lib.fixedvar_items_smem_limit,
+             "diag": lib.diag_items_smem_limit,
+             "full": lib.fullcov_items_smem_limit}[family]()
     if limit < 0:
         cuda_lib.check(-limit, "%s_items_smem_limit" % family)
     return launch_plan(family, D, K, limit)
@@ -225,3 +432,45 @@ def _launch(family, Xe, log_prior_e, gumbel, k_old, counts, sum_xT, sum_sqT,
     launches += 1
     return ks, cnt, sums
 
+
+def _launch_full(X, log_prior, noise, k_old, counts, sum_x, sum_sq, terms,
+                 temp, alpha, K, lms, use_argmax):
+    """K11 on the card: the statistics are copied once and updated in
+    place by the kernel; the columns' tables (m_n [D, K], L^-1 packed
+    [D (D + 1)/2, K], log det [K]) and, in the global form, the work
+    areas are scratch."""
+    global full_launches
+    n, D = X.shape
+    dev, f32 = X.device, torch.float32
+    req = cuda_lib.require
+    req(X, "X", f32, (n, D), dev)
+    req(log_prior, "log_prior", f32, (n,), dev)
+    req(noise, "noise", f32, (n, K), dev)
+    req(k_old, "k_old", torch.int32, (n,), dev)
+    req(counts, "counts", torch.int32, (K,), dev)
+    req(sum_x, "sum_x", f32, (K, D), dev)
+    req(sum_sq, "sum_sq", f32, (K, D, D), dev)
+    k0m0, snp0, cterms, k0, v0 = terms
+    req(k0m0, "k0 m0", f32, (D,), dev)
+    req(snp0, "S_0 + k0 m0 m0^T", f32, (D, D), dev)
+    req(cterms, "count terms", f32, (cterms.shape[0],), dev)
+    plan = card_plan("full", D, K)
+    glob = plan.form == "global"
+    ks = torch.empty(n, dtype=torch.int32, device=dev)
+    cnt = torch.empty(K, dtype=torch.int32, device=dev)
+    sx, ssq = sum_x.clone(), sum_sq.clone()
+    m_t = torch.empty((D, K), dtype=f32, device=dev)
+    linv = torch.empty((D * (D + 1) // 2, K), dtype=f32, device=dev)
+    ld = torch.empty(K, dtype=f32, device=dev)
+    areas = full_work_areas(D, K)
+    work = (torch.empty((areas, D * D + 2 * D), dtype=f32, device=dev)
+            if glob else None)
+    p = cuda_lib.ptr
+    err = cuda_lib.library().fullcov_items_launch(
+        p(X), p(log_prior), p(noise), p(k_old), p(counts), p(k0m0), p(snp0),
+        p(cterms), k0, v0, p(sx), p(ssq), p(m_t), p(linv), p(ld), p(work),
+        p(ks), p(cnt), n, D, K, int(glob), plan.threads, alpha / K, lms,
+        temp, int(use_argmax), cuda_lib.stream_of(X))
+    cuda_lib.check(err, "fullcov_items")
+    full_launches += 1
+    return ks, SuffStats(cnt, sx, ssq)

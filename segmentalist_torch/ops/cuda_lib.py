@@ -100,6 +100,14 @@ _SIGNATURES = {
     "fixedvar_items_smem_limit": [],
     "diag_items_smem_bytes": [_I] * 3,
     "diag_items_smem_limit": [],
+    # X, log_prior, gumbel, k_old, counts, k0m0, snp0, cterms, k0, v0,
+    # sum_x, sum_sq, m_t, linv, ld, work_g, ks, cnt_out, n, D, K, global,
+    # threads, alpha_over_K, lms, temp, use_argmax, stream
+    "fullcov_items_launch": [_P] * 8 + [_F] * 2 + [_P] * 8 + [_I] * 5
+                            + [_F] * 3 + [_I, _P],
+    # global, D, K -> bytes; -> bytes (or minus a CUDA error code)
+    "fullcov_items_smem_bytes": [_I] * 3,
+    "fullcov_items_smem_limit": [],
     # Xc, prior_c, g_{LT, LmuT, ck, vinv, vh}, t_{L, Lmu, ck, vinv, vh},
     # tslot, w, counts, valid_m, out, B, M, D, K, S, rows, stream
     "fullcov_scores_launch": [_P] * 17 + [_I] * 6 + [_P],
@@ -130,6 +138,7 @@ _RESTYPES = {"diag_family_smem_bytes": ctypes.c_longlong,
              "fixedvar_chain_smem_bytes": ctypes.c_longlong,
              "fixedvar_items_smem_bytes": ctypes.c_longlong,
              "diag_items_smem_bytes": ctypes.c_longlong,
+             "fullcov_items_smem_bytes": ctypes.c_longlong,
              "fullcov_chain_smem_bytes": ctypes.c_longlong,
              "fullcov_scores_smem_bytes": ctypes.c_longlong,
              "segment_dp_smem_bytes": ctypes.c_longlong}

@@ -20,9 +20,10 @@ The DP stage is every kernel launched inside the segmenters'
 ``segment_dp`` call (the noise draw and the DP; in a tree whose DP is not
 fused, also its eager backward pass), which the profiled sweeps wrap in a
 profiler range.  ``--am-n-iter N`` runs N acoustic-model sweeps before
-each sweep (the unigram segmenter's ``am_n_iter``, kernel K10: its device
-time and launches a sweep).  Each path's own kernels (the scorer, K2 in the
-DP range, the chain, and K10 with ``--am-n-iter``; for k-means K2 alone)
+each sweep (the unigram segmenter's ``am_n_iter``, the item-chain kernel:
+K10, or K11 with ``--cov full``; its device time and launches a sweep).
+Each path's own kernels (the scorer, K2 in the DP range, the chain, and
+the item chain with ``--am-n-iter``; for k-means K2 alone)
 must show launches in the profiled sweeps, by the profiler and by the
 wrappers' launch counters, or the run raises: a stage that the profiler no
 longer finds would read 0.
@@ -57,6 +58,7 @@ DP_RANGE = "segment_dp (profiled stage)"  # the profiler range of the DP
 # before the fusion
 K2_KERNELS = ("segment_dp_kernel", "forward_alphas_kernel")
 ITEM_KERNEL = "gibbs_items_kernel"  # K10, the FBGMM's item chain
+FULL_ITEM_KERNEL = "fullcov_items_kernel"  # K11, the full family's
 
 
 def bench_prior(cov: str, D: int, device):
@@ -173,8 +175,8 @@ def dp_stage_events(events) -> list:
 
 
 def launch_counts() -> dict:
-    """The wrappers' launch counters of the scorers, K2, the chains and
-    K10 (a module a tree lacks is skipped)."""
+    """The wrappers' launch counters of the scorers, K2, the chains, K10
+    and K11 (a module or counter a tree lacks is skipped or reads 0)."""
     counts = {}
     for mod, names in (("cuda_score", ("launches", "diag_launches",
                                        "diag_exact_launches")),
@@ -184,7 +186,7 @@ def launch_counts() -> dict:
                        ("cuda_diag_chain", ("launches", "bigram_launches")),
                        ("cuda_fullcov_chain", ("launches",
                                                "bigram_launches")),
-                       ("cuda_item_chain", ("launches",))):
+                       ("cuda_item_chain", ("launches", "full_launches"))):
         try:
             m = importlib.import_module("segmentalist_torch.ops." + mod)
         except ImportError:
@@ -235,7 +237,12 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     def launches(pred):
         return sum(e.count for e in kernels if pred(e.key)) / SWEEPS
 
-    items = [e for e in kernels if ITEM_KERNEL in e.key]
+    full = getattr(getattr(seg, "acoustic_model", None), "covariance_type",
+                   None) == "full"
+    item, item_kernel, item_counter = (
+        ("K11", FULL_ITEM_KERNEL, "cuda_item_chain.full_launches") if full
+        else ("K10", ITEM_KERNEL, "cuda_item_chain.launches"))
+    items = [e for e in kernels if item_kernel in e.key]
     seen = {"K2 in the DP range": sum(any(n in e.name for n in K2_KERNELS)
                                       for e in dp) / SWEEPS}
     if not kmeans:  # k-means runs no scorer kernel and no chain
@@ -243,13 +250,13 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
         seen["chain"] = launches(lambda k: "chain_kernel" in k
                                  and ITEM_KERNEL not in k)
     if am_n_iter > 0:
-        seen["K10"] = launches(lambda k: ITEM_KERNEL in k)
+        seen[item] = launches(lambda k: item_kernel in k)
     by_counter = {
         "scorer": sum(v for k, v in counted.items() if "score." in k),
         "K2 in the DP range": counted.get("cuda_dp.launches", 0),
         "chain": sum(v for k, v in counted.items() if "chain." in k
                      and not k.startswith("cuda_item_chain")),
-        "K10": counted.get("cuda_item_chain.launches", 0)}
+        item: counted.get(item_counter, 0)}
     missing = sorted(k for k, v in seen.items()
                      if v == 0 or by_counter[k] == 0)
     if missing:
@@ -276,6 +283,8 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
         "linalg_ms_per_sweep": {
             e.key: per_sweep_ms(e.device_time_total) for e in events
             if e.key in LINALG_OPS},
+        "linalg_launches_per_sweep": {
+            e.key: e.count / SWEEPS for e in events if e.key in LINALG_OPS},
         # the candidate scorer's (K1, K5 or K8) device time
         "scorer_ms_per_sweep": per_sweep_ms(sum(
             e.self_device_time_total for e in kernels
@@ -296,12 +305,12 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
             e.self_device_time_total for e in kernels
             if "chain_kernel" in e.key and ITEM_KERNEL not in e.key)),
         "chain_launches_per_sweep": seen.get("chain", 0),
-        # K10, the acoustic-model sweeps' item chain (am_n_iter > 0)
+        # K10 / K11, the acoustic-model sweeps' item chain (am_n_iter > 0)
         "item_chain_ms_per_sweep": per_sweep_ms(sum(
             e.self_device_time_total for e in items)),
         "item_chain_launches_per_sweep": sum(e.count for e in items)
         / SWEEPS,
-        "am_n_iter": am_n_iter,
+        "item_kernel": item, "am_n_iter": am_n_iter,
         "top_kernels_ms_per_sweep": {
             e.key[:80]: per_sweep_ms(e.self_device_time_total) for e in top},
         "top_ops_ms_per_sweep": {
@@ -315,7 +324,8 @@ def main(argv=None) -> int:
                                                      "full"))
     ap.add_argument("--bigram", action="store_true")
     ap.add_argument("--am-n-iter", type=int, default=0,
-                    help="acoustic-model sweeps before each sweep (K10)")
+                    help="acoustic-model sweeps before each sweep (K10; "
+                    "K11 with --cov full)")
     ap.add_argument("--kmeans", action="store_true",
                     help="the segmental k-means segmenter (K2, Viterbi)")
     ap.add_argument("--root", default=None,

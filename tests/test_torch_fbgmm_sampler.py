@@ -78,8 +78,8 @@ SWEEP_CASES = ([(cov, np.float64, 2) for cov in ("fixed", "diag", "full")]
 @pytest.mark.parametrize("consider_unassigned", [True, False])
 @pytest.mark.parametrize("cov,dtype,D", SWEEP_CASES)
 def test_sequential_sweep_matches_jax(cov, dtype, D, consider_unassigned):
-    """``FBGMM.sequential_sweep`` (K10's plain version; the full family's
-    per-item step) equals ``_build_sequential_sweep`` on shared noise over
+    """``FBGMM.sequential_sweep`` (K10's plain version; the full family's:
+    K11's) equals ``_build_sequential_sweep`` on shared noise over
     three sweeps at two temperatures; float64 to 1e-12, float32 (D 13) to
     a few float32 ulps of the largest sum (~170: 1e-4; the JAX package
     builds its first statistics by a one-hot product, the port in item

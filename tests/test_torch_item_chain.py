@@ -1,13 +1,15 @@
-"""Kernel K10's plain version (``ops/cuda_item_chain.py``) against the JAX
-package's FBGMM step, and K10's launch plan.
+"""Kernels K10 and K11's plain versions (``ops/cuda_item_chain.py``)
+against the JAX package's FBGMM step, and their launch plans.
 
-K10 is the FBGMM's sequential Gibbs sweep as one chain over items: the JAX
-``step`` of ``segmentalist_tpu/models/fbgmm.py:529-563`` with the delete on
-(the sweep) and off (``reassign_items``, ``:351-381``).  On shared noise the
-plain version draws the JAX package's components and ends on its
-statistics; it is the plain chain loop of K3 / K6 with the delete, so with
-the delete off it is K3's chain.  The kernel itself runs on the card
-(``tests/test_torch_cuda.py``).
+K10 (fixed, diag) and K11 (full) are the FBGMM's sequential Gibbs sweep as
+one chain over items: the JAX ``step`` of
+``segmentalist_tpu/models/fbgmm.py:529-563`` with the delete on (the
+sweep) and off (``reassign_items``, ``:351-381``).  On shared noise the
+plain versions draw the JAX package's components and end on its
+statistics; K10's is the plain chain loop of K3 / K6 with the delete, so
+with the delete off it is K3's chain; K11's re-derives a column with its
+own right-looking Cholesky helper, held here to ``components_full``'s.
+The kernels themselves run on the card (``tests/test_torch_cuda.py``).
 """
 
 import jax
@@ -29,8 +31,10 @@ def _prior(pkg, cov, D):
     if cov == "fixed":
         return pkg.FixedVarPrior.create(0.3 + np.arange(D) / D, np.zeros(D),
                                         np.ones(D))
-    return pkg.NIW.create(0.1 * np.ones(D), 0.5, D + 3.0,
-                          0.4 + np.arange(D) / D)
+    S_0 = 0.4 + np.arange(D) / D
+    if cov == "full":
+        S_0 = np.diag(S_0) + 0.05 * np.ones((D, D))
+    return pkg.NIW.create(0.1 * np.ones(D), 0.5, D + 3.0, S_0)
 
 
 def _case(cov, N, D, K, dtype, seed):
@@ -66,7 +70,7 @@ def _check(jam, ks, stats, ids, tol):
         npt.assert_allclose(b.numpy(), np.asarray(a), rtol=tol, atol=tol)
 
 
-CASES = [(cov, dtype, D) for cov in ("fixed", "diag")
+CASES = [(cov, dtype, D) for cov in ("fixed", "diag", "full")
          for dtype, D in ((np.float64, 2), (np.float64, 13),
                           (np.float32, 13))]
 
@@ -148,9 +152,9 @@ def test_item_chain_refuses_what_it_does_not_run():
                                       torch.zeros(4, 2), torch.zeros(4, 2))
     k_old = torch.full((3,), -1, dtype=torch.int32)
     prior = _prior(pt, "fixed", 2)
-    with pytest.raises(ValueError, match="full"):
-        cuda_item_chain.item_chain("full", X, X[:, 0], None, k_old, stats,
-                                   prior, 1.0, 4)
+    with pytest.raises(ValueError, match="spherical"):
+        cuda_item_chain.item_chain("spherical", X, X[:, 0], None, k_old,
+                                   stats, prior, 1.0, 4)
     with pytest.raises(ValueError, match="noise"):
         cuda_item_chain.item_chain("fixed", X, X[:, 0], None, k_old, stats,
                                    prior, 1.0, 4)
@@ -162,6 +166,41 @@ def test_item_chain_refuses_what_it_does_not_run():
 
 
 LIMIT = 232448 - 1024  # an H100's opt-in shared memory less static arrays
+
+
+@pytest.mark.parametrize("D", [13, 24])
+def test_chol_inv_logdet_equals_jax(D):
+    """K11's factorisation helper (right-looking, no ``torch.linalg``)
+    against ``components_full._chol_inv_logdet``: the unrolled branch at D
+    13, the batched one (LAPACK) at D 24; float64, L^-1 lower triangular,
+    ``inv = L^-T L^-1`` and log det to 1e-11 relative (1e-12 absolute)."""
+    from segmentalist_tpu.models.components_full import _chol_inv_logdet
+
+    rng = np.random.RandomState(D)
+    A = rng.randn(6, D, D)
+    covar = A @ A.transpose(0, 2, 1) / D + 0.3 * np.eye(D)
+    inv_j, ld_j = _chol_inv_logdet(jnp.asarray(covar))
+    Y, ld = cuda_item_chain.chol_inv_logdet(torch.as_tensor(covar))
+    Y = Y.numpy()
+    npt.assert_array_equal(np.triu(Y, 1), 0.0)
+    npt.assert_allclose(Y.transpose(0, 2, 1) @ Y, np.asarray(inv_j),
+                        rtol=1e-11, atol=1e-12)
+    npt.assert_allclose(ld.numpy(), np.asarray(ld_j), rtol=1e-11,
+                        atol=1e-12)
+    npt.assert_allclose(Y @ covar @ Y.transpose(0, 2, 1),
+                        np.broadcast_to(np.eye(D), covar.shape), atol=1e-11)
+
+
+def test_full_count_terms_are_the_student_t_constants():
+    """K11's count table: lgamma((v + D)/2) - lgamma(v/2) - D/2 (log v +
+    log pi) with v = v0 + c - D + 1, exact to float64 rounding."""
+    D, v0 = 13, 16.0
+    got = cuda_item_chain.full_count_terms(v0, D, 50, torch.float64,
+                                           "cpu").numpy()
+    v = v0 + np.arange(51) - D + 1
+    want = (gammaln((v + D) / 2) - gammaln(v / 2)
+            - D / 2 * (np.log(v) + np.log(np.pi)))
+    npt.assert_allclose(got, want, rtol=1e-13, atol=1e-12)
 
 
 @pytest.mark.parametrize("family", ["fixed", "diag"])
@@ -194,3 +233,44 @@ def test_smem_bytes_by_hand():
         (2 * 13 + 7) * 1000 + 3 * 14 + (2 + 6) * 13)
     assert cuda_item_chain.smem_bytes("diag", True, 130, 1000) == 4 * (
         3 * 131 + 8 * 130)
+
+
+def test_full_launch_plans():
+    """K11's plan: the work areas on chip at the toy (one warp), the
+    flagship and D 24 (32 warps, an area each), D 40 and D 130 (one area
+    for the CTA); in device memory at D 240 or under a small limit; a K
+    whose counts and weights alone do not fit is refused."""
+    lp = cuda_item_chain.launch_plan
+    toy = lp("full", 2, 4, LIMIT)
+    assert toy == ("smem", 32, cuda_item_chain.full_smem_bytes(False, 2, 4))
+    flag = lp("full", 13, 1000, LIMIT)
+    assert (flag.form, flag.threads) == ("smem", 1024)
+    for D in (24, 40, 130):
+        assert lp("full", D, 1000, LIMIT).form == "smem"
+    wide = lp("full", 240, 1000, LIMIT)
+    assert wide == ("global", 1024,
+                    cuda_item_chain.smem_bytes("full", True, 240, 1000))
+    assert lp("full", 24, 1000, 30 * 1024).form == "global"
+    assert lp("full", 13, 1000, 30 * 1024).form == "global"
+    with pytest.raises(ValueError, match="no full item chain form"):
+        lp("full", 13, 60000, LIMIT)
+
+
+def test_full_smem_bytes_by_hand():
+    """K11's carving counted by hand: counts and weights [2, K], x and the
+    log prior [2, D + 1], and (smem form) the work areas of D D + 2 D
+    words, a warp's each up to D 32 (32 warps at K 1000), the CTA's one
+    above."""
+    fsb = cuda_item_chain.full_smem_bytes
+    assert fsb(False, 2, 4) == 4 * (2 * 4 + 2 * 3 + 1 * (4 + 4))
+    assert fsb(False, 13, 1000) == 4 * (
+        2 * 1000 + 2 * 14 + 32 * (169 + 26)) == 33072
+    assert fsb(False, 24, 1000) == 4 * (
+        2 * 1000 + 2 * 25 + 32 * (576 + 48))
+    assert fsb(False, 40, 1000) == 4 * (
+        2 * 1000 + 2 * 41 + 1 * (1600 + 80)) == 15048
+    assert fsb(False, 130, 1000) == 77688
+    assert cuda_item_chain.smem_bytes("full", True, 130, 1000) == 4 * (
+        2 * 1000 + 2 * 131)
+    assert [cuda_item_chain.full_work_areas(D, 1000)
+            for D in (16, 32, 33)] == [32, 32, 1]

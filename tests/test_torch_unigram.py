@@ -249,17 +249,26 @@ def test_one_by_one_init_is_refused():
     assert np.isfinite(rec["log_marg"]).all()
 
 
-def test_one_by_one_init_matches_jax(monkeypatch):
+def _am_prior(pkg, cov):
+    if cov == "fixed":
+        return _prior(pkg)
+    return pkg.NIW.create(np.zeros(D), 0.5, D + 3.0,
+                          0.5 * np.eye(D) + 0.05 * np.ones((D, D)))
+
+
+@pytest.mark.parametrize("cov", ["fixed", "full"])
+def test_one_by_one_init_matches_jax(monkeypatch, cov):
     """``init_am_assignments="one-by-one"`` draws every initial segment in
     corpus order against the segments before it (JAX:
     ``gibbs_sample_inside_loop_i`` a segment on ``split(key)`` noise; the
-    port: one ``reassign_items`` chain).  On the JAX noise the port's
-    model is the JAX model: identical assignments and counts, sums to
-    float64 rounding."""
+    port: one ``reassign_items`` chain, K10's or, full, K11's plain
+    version).  On the JAX noise the port's model is the JAX model:
+    identical assignments and counts, sums to float64 rounding."""
     seed = 5
     np.random.seed(seed)
-    jseg = JaxWordseg(jtpu.FBGMM, am_param_prior=_prior(jtpu),
-                      init_am_assignments="one-by-one", **_kwargs())
+    jseg = JaxWordseg(jtpu.FBGMM, am_param_prior=_am_prior(jtpu, cov),
+                      init_am_assignments="one-by-one",
+                      **_kwargs(covariance_type=cov))
     embeds = jseg.utterances.all_segmented_embeds()
     n = int((embeds >= 0).sum())
     key, noise = jax.random.PRNGKey(seed), []
@@ -268,10 +277,13 @@ def test_one_by_one_init_matches_jax(monkeypatch):
         noise.append(np.asarray(jax.random.gumbel(sub, (K,), jnp.float64)))
     monkeypatch.setattr(pt.FBGMM, "draw_noise",
                         lambda self, rows: torch.as_tensor(np.stack(noise)))
-    tseg = pt.UnigramAcousticWordseg(pt.FBGMM, am_param_prior=_prior(pt),
+    tseg = pt.UnigramAcousticWordseg(pt.FBGMM,
+                                     am_param_prior=_am_prior(pt, cov),
                                      init_am_assignments="one-by-one",
-                                     device="cpu", **_kwargs())
+                                     device="cpu",
+                                     **_kwargs(covariance_type=cov))
     jam, tam = jseg.acoustic_model, tseg.acoustic_model
+    assert tam.covariance_type == cov
     npt.assert_array_equal(tam.assignments.numpy(),
                            np.asarray(jam.assignments))
     npt.assert_array_equal(tam.stats.counts.numpy(),

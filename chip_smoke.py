@@ -33,7 +33,9 @@ check that does not hold:
    ks, final counts and running sums identical to its plain version;
    K11, the full family's item chain, at the same three shapes with the
    delete on and off (at D 130 on its first 60 items), identical to its
-   plain version, with its times a step and its bound;
+   plain version, and at the flagship at every cluster size the card
+   schedules (1 to 16 CTAs), with its plan (C, threads, form, shared
+   bytes a CTA), its times a step and its bound;
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
@@ -1227,9 +1229,14 @@ def compare_full_item_chain(shape, name):
     """K11 at ``ITEMS[name]`` (the toy too, with the flagship): the kernel
     against its plain version on the card, delete on and off (at D 130 on
     the first ``FULL_PLAIN_ITEMS["long"]`` items: the plain version's D
-    vector steps a factorisation are slow there); at the flagship and long
-    shapes its times (events, device, a step, a step of the plain version
-    on the first ``PLAIN_ITEMS``) and its bound, over all the items."""
+    vector steps a factorisation are slow there); at the flagship, with
+    the delete on, also at every cluster size the card schedules, each
+    held to the same plain result and timed; at the flagship and long
+    shapes the plan (C, threads, form, where the tables and work area
+    live, shared bytes a CTA), its times (events, device, a step, a step
+    of the plain version on the first ``PLAIN_ITEMS``) and its bound, over
+    all the items."""
+    import torch
     from segmentalist_torch.ops import cuda_item_chain as cic
 
     out = {"max_abs_err": 0.0}
@@ -1237,20 +1244,42 @@ def compare_full_item_chain(shape, name):
     for nm in names:
         d = item_inputs("full", ITEMS[nm], 10, DEVICE)
         n = FULL_PLAIN_ITEMS[nm]
+        N, D = d["X"].shape
         for delete in (True, False):
             kernel, plain = item_chain_pair("full", d, delete, n)
+            want = plain()
             err = same_items("K11 %s delete=%s%s" % (
                 nm, delete, "" if n is None else " (first %d items)" % n),
-                kernel(), plain())
+                kernel(), want)
             out["max_abs_err"] = max(out["max_abs_err"], err)
+            if nm != "flagship" or not delete:
+                continue
+            _, max_cluster = cic.full_card_limits(torch.cuda.current_device())
+            by_c = {}
+            for C in cic.FULL_CLUSTERS:
+                if C > min(max_cluster, d["K"]):
+                    continue
+                args = cic.full_chain_inputs(
+                    d["X"], d["log_prior"], d["noise"], d["k_old"],
+                    d["stats"], d["prior"], 1.0, d["K"])
+
+                def forced(args=args, C=C):
+                    return cic._launch_full(*args, cluster=C)
+
+                err = same_items("K11 flagship at a cluster of %d" % C,
+                                 forced(), want)
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                by_c[C] = dict(cic.card_plan("full", D, d["K"], C)._asdict(),
+                               us_per_step=cuda_ms(forced, 3) * 1e3 / N)
+            out["clusters"] = by_c
         if nm != name:
             continue
-        N, D = d["X"].shape
         plan = cic.card_plan("full", D, d["K"])
         kernel, _ = item_chain_pair("full", d)
         n_plain = min(N, PLAIN_ITEMS, n or N)
         _, plain = item_chain_pair("full", d, n=n_plain)
-        r = {"form": plan.form, "steps_max": N, "ms": cuda_ms(kernel, 3),
+        r = {"form": plan.form, "plan": plan._asdict(), "steps_max": N,
+             "ms": cuda_ms(kernel, 3),
              "device_ms": device_ms(kernel, "fullcov_items_kernel", 3),
              "plain_ms": once_ms(plain), "plain_items": n_plain}
         r["us_per_step"] = (None if r["device_ms"] is None
@@ -1264,6 +1293,10 @@ def compare_full_item_chain(shape, name):
                 name, plan, N, r["ms"], r["ms_per_item"], r["device_ms"],
                 r["us_per_step"], r["plain_ms"], n_plain, r["bound_ms"],
                 r["bound_by"], CARD))
+        if "clusters" in out:
+            log("K11 flagship by cluster size: %s" % json.dumps(
+                {C: round(v["us_per_step"], 3)
+                 for C, v in out["clusters"].items()}))
         out.update(r)
     return out
 
@@ -2747,11 +2780,14 @@ def main(argv=None) -> int:
                     "ms", "device_ms", "us_per_step", "plain_ms", "bound_ms",
                     "bound_by", "form")})
             entry.update(plain_items=fl["plain_items"], paths=fbgmm)
-        if k == "K11":  # forms, a step's time, the plain version's prefix
+        if k == "K11":  # plans, a step's time, the plain version's
+            # prefix, the flagship at every cluster size
             entry.update({pre + f: r[f] for pre, r in (("", fl),
                                                        ("long_", lo))
-                          for f in ("form", "us_per_step", "ms_per_item",
-                                    "plain_us_per_step", "plain_items")})
+                          for f in ("form", "plan", "us_per_step",
+                                    "ms_per_item", "plain_us_per_step",
+                                    "plain_items")})
+            entry["clusters"] = fl["clusters"]
             entry["full_sequential_ms_per_item"] = {
                 "flagship_launch": fl["ms_per_item"],
                 "fbgmm_toy": fbgmm["fbgmm_toy"][

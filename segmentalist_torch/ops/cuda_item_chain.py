@@ -41,7 +41,9 @@ plan raises where a shape does not fit), a CPU tensor the plain version.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -150,7 +152,17 @@ def item_chain_plain(family, Xe, log_prior_e, gumbel, k_old, counts, sum_xT,
 
 
 _LOG_PI = math.log(math.pi)
-FULL_WARP_D = 32  # K11: up to this D a derivation runs on one warp
+# K11's plan (csrc/fullcov_item_chain.cu): the warp form up to D 32 (a
+# derivation on one warp), the CTA form up to D 256; clusters of C CTAs,
+# at least enough that a CTA owns at most FULL_COLS_CTA columns, where the
+# tables fit on chip; up to FULL_SCORE_WARPS scoring warps and two update
+# warps a CTA in the warp form, 1024 threads in the CTA form.
+FULL_WARP_D = 32
+FULL_MAX_D = 256
+FULL_CLUSTERS = (1, 2, 4, 8, 16)
+FULL_COLS_CTA = 128
+FULL_SCORE_WARPS = 6
+FULL_CTA_THREADS = 1024
 
 
 def full_count_terms(v0: float, D: int, max_count: int, dtype,
@@ -336,49 +348,133 @@ def smem_bytes(family: str, global_tables: bool, D: int, K: int) -> int:
     forms: x and the log prior [3, D + 1]; the prior vectors, and the logs
     and running sums of the adding and of the deleting update [2 (1 + 2),
     D].  K11 (full): :func:`full_smem_bytes`."""
-    if family == "full":
-        return full_smem_bytes(global_tables, D, K)
     per_col = _TABLES[family]["smem"] * D + col_arrays(family, False) + 2
     words = ((0 if global_tables else per_col * K) + 3 * (D + 1)
              + (_PRIOR[family] + 2 * (1 + _SUMS)) * D)
     return 4 * words
 
 
-def full_smem_bytes(global_work: bool, D: int, K: int) -> int:
-    """Dynamic shared memory of K11's CTA, as the kernel reserves it
-    (``csrc/fullcov_item_chain.cu::smem_words``): the counts and the weight
-    term [2, K], x and the log prior of the current and the next item [2,
-    D + 1]; in the smem form also the work areas [D D + 2 D] (the matrix a
-    derivation factorises and inverts in place, L's diagonal and m_n) of
-    :func:`full_work_areas`.  The global form keeps the work areas in
-    device memory."""
-    return 4 * (2 * K + 2 * (D + 1) + (
-        0 if global_work else full_work_areas(D, K) * (D * D + 2 * D)))
+class FullPlan(NamedTuple):
+    """How K11 launches: one cluster of ``cluster`` CTAs of ``threads``,
+    ``smem`` bytes of dynamic shared memory a CTA; ``form`` "warp" (D <=
+    32: a derivation on one warp, a thread a column scores) or "cta" (the
+    CTA derives, a warp a column scores); ``tables`` and ``work`` "smem"
+    (on chip) or "global" (device memory) for the columns' tables and the
+    CTA form's work area."""
+
+    form: str
+    cluster: int
+    threads: int
+    tables: str
+    work: str
+    smem: int
 
 
-def full_work_areas(D: int, K: int) -> int:
-    """K11's work areas: one a warp up to D 32 (a derivation runs on one
-    warp), one for the CTA above (the CTA runs it)."""
-    return 1 if D > FULL_WARP_D else min(32, max(1, -(-K // 32)))
+def full_col_range(K: int, C: int, r: int) -> tuple:
+    """Columns [lo, hi) that CTA r of a C-CTA cluster owns (the kernel's
+    split)."""
+    return r * K // C, (r + 1) * K // C
 
 
-def launch_plan(family: str, D: int, K: int, smem_limit: int) -> ChainPlan:
-    """The form of K10 or K11 for D dims and K columns (pure Python):
-    "smem" where the tables (K11: the work areas) fit the
+def full_threads(D: int, K: int, C: int) -> int:
+    """K11's block size: in the warp form a scoring warp for every 32
+    columns of the largest share (at most FULL_SCORE_WARPS) and two update
+    warps; in the CTA form 1024."""
+    if D > FULL_WARP_D:
+        return FULL_CTA_THREADS
+    cols = -(-K // C)
+    return 32 * (min(FULL_SCORE_WARPS, -(-cols // 32)) + 2)
+
+
+def full_smem_bytes(D: int, K: int, C: int, tables_global: bool,
+                    work_global: bool) -> int:
+    """Dynamic shared memory of a K11 CTA, as the kernel carves it
+    (``csrc/fullcov_item_chain.cu::smem_words``), with P the largest share
+    of columns made odd: counts, weight terms and two items' noise [4, P],
+    x and the log prior of three items [3, D + 1], on chip the tables (m_n,
+    L^-1, log det: [D + D (D + 1)/2 + 1, P]) and the CTA form's work area
+    ([D, D] and two vectors; the warp form derives in registers)."""
+    T = D * (D + 1) // 2
+    P = -(-K // C) | 1
+    work = D * D + 2 * D if D > FULL_WARP_D and not work_global else 0
+    return 4 * (4 * P + 3 * (D + 1) + (0 if tables_global
+                                       else (D + T + 1) * P) + work)
+
+
+def full_launch_plan(D: int, K: int, smem_limit: int, max_cluster: int,
+                     cluster: int | None = None) -> FullPlan:
+    """K11's plan under ``smem_limit`` bytes of dynamic shared memory a CTA
+    and clusters of at most ``max_cluster`` CTAs (pure Python).  C runs
+    from the least that leaves a CTA FULL_COLS_CTA columns up to the
+    largest the card and K allow, and the first that holds the tables on
+    chip wins; else the largest C with the tables in device memory (and
+    the CTA form's work area too if it does not fit).  ``cluster`` forces
+    C.  Raises where nothing fits: no smaller plan, no fallback."""
+    if not 1 <= D <= FULL_MAX_D:
+        raise ValueError("no full item chain form for D=%d (1 to %d)"
+                         % (D, FULL_MAX_D))
+    cap = max(c for c in FULL_CLUSTERS if c <= max(1, min(max_cluster, K)))
+    if cluster is not None:
+        if cluster not in FULL_CLUSTERS or cluster > cap:
+            raise ValueError("a cluster of %d CTAs is not schedulable for "
+                             "K=%d (at most %d)" % (cluster, K, cap))
+        sizes = [cluster]
+    else:
+        start = next((c for c in FULL_CLUSTERS
+                      if c <= cap and -(-K // c) <= FULL_COLS_CTA), cap)
+        sizes = [c for c in FULL_CLUSTERS if start <= c <= cap]
+    form = "warp" if D <= FULL_WARP_D else "cta"
+    # (C, tables in device memory, work area in device memory)
+    options = [(c, False, False) for c in sizes] + [
+        (sizes[-1], True, w) for w in ((False,) if form == "warp"
+                                       else (False, True))]
+    g = {True: "global", False: "smem"}
+    for c, tab_g, work_g in options:
+        smem = full_smem_bytes(D, K, c, tab_g, work_g)
+        if smem <= smem_limit:
+            return FullPlan(form, c, full_threads(D, K, c), g[tab_g],
+                            g[work_g], smem)
+    raise ValueError("no full item chain form fits K=%d, D=%d in %d bytes"
+                     % (K, D, smem_limit))
+
+
+def launch_plan(family: str, D: int, K: int, smem_limit: int,
+                max_cluster: int = 1, cluster: int | None = None):
+    """The plan of K10 (a ChainPlan) or K11 (family "full": a FullPlan,
+    :func:`full_launch_plan`).  K10: "smem" where the tables fit the
     ``smem_limit`` bytes of dynamic shared memory a CTA may take, else
-    "global".  Raises if neither fits.  The chain's length does not enter:
+    "global"; raises if neither fits.  The chain's length does not enter:
     the steps are the items, read from device memory."""
+    if family == "full":
+        return full_launch_plan(D, K, smem_limit, max_cluster, cluster)
     return pick_form(lambda g: smem_bytes(family, g, D, K), K, 0, smem_limit,
                      "%s item" % family)
 
 
-def card_plan(family: str, D: int, K: int) -> ChainPlan:
-    """:func:`launch_plan` under the current card's limit (its opt-in
-    shared memory a block less the kernel's static shared memory)."""
+@functools.lru_cache(maxsize=None)
+def full_card_limits(device_index: int) -> tuple:
+    """(the dynamic shared memory a K11 CTA may take, the largest cluster
+    the card schedules) of the current card, asked once a device."""
+    lib = cuda_lib.library()
+    limit = lib.fullcov_items_smem_limit()
+    if limit < 0:
+        cuda_lib.check(-limit, "fullcov_items_smem_limit")
+    max_cluster = lib.fullcov_items_max_cluster()
+    if max_cluster < 0:
+        cuda_lib.check(-max_cluster, "fullcov_items_max_cluster")
+    return limit, max_cluster
+
+
+def card_plan(family: str, D: int, K: int, cluster: int | None = None):
+    """:func:`launch_plan` under the current card's limits (its opt-in
+    shared memory a block less the kernel's static shared memory; K11 also
+    the largest cluster it schedules)."""
+    if family == "full":
+        return full_launch_plan(
+            D, K, *full_card_limits(torch.cuda.current_device()), cluster)
     lib = cuda_lib.library()
     limit = {"fixed": lib.fixedvar_items_smem_limit,
-             "diag": lib.diag_items_smem_limit,
-             "full": lib.fullcov_items_smem_limit}[family]()
+             "diag": lib.diag_items_smem_limit}[family]()
     if limit < 0:
         cuda_lib.check(-limit, "%s_items_smem_limit" % family)
     return launch_plan(family, D, K, limit)
@@ -434,11 +530,12 @@ def _launch(family, Xe, log_prior_e, gumbel, k_old, counts, sum_xT, sum_sqT,
 
 
 def _launch_full(X, log_prior, noise, k_old, counts, sum_x, sum_sq, terms,
-                 temp, alpha, K, lms, use_argmax):
+                 temp, alpha, K, lms, use_argmax, probe=None, cluster=None):
     """K11 on the card: the statistics are copied once and updated in
-    place by the kernel; the columns' tables (m_n [D, K], L^-1 packed
-    [D (D + 1)/2, K], log det [K]) and, in the global form, the work
-    areas are scratch."""
+    place by the kernel; the columns' tables and the CTA form's work area
+    are on chip or, where the plan says, scratch in device memory.
+    ``cluster`` forces the plan's C; ``probe`` (int64 [C, 3, 12], zeros)
+    takes the probe build's cycles a phase (``utils/item_probe.py``)."""
     global full_launches
     n, D = X.shape
     dev, f32 = X.device, torch.float32
@@ -454,23 +551,26 @@ def _launch_full(X, log_prior, noise, k_old, counts, sum_x, sum_sq, terms,
     req(k0m0, "k0 m0", f32, (D,), dev)
     req(snp0, "S_0 + k0 m0 m0^T", f32, (D, D), dev)
     req(cterms, "count terms", f32, (cterms.shape[0],), dev)
-    plan = card_plan("full", D, K)
-    glob = plan.form == "global"
+    plan = card_plan("full", D, K, cluster)
+    if probe is not None:
+        req(probe, "probe", torch.int64, (plan.cluster, 3, 12), dev)
     ks = torch.empty(n, dtype=torch.int32, device=dev)
     cnt = torch.empty(K, dtype=torch.int32, device=dev)
     sx, ssq = sum_x.clone(), sum_sq.clone()
-    m_t = torch.empty((D, K), dtype=f32, device=dev)
-    linv = torch.empty((D * (D + 1) // 2, K), dtype=f32, device=dev)
-    ld = torch.empty(K, dtype=f32, device=dev)
-    areas = full_work_areas(D, K)
-    work = (torch.empty((areas, D * D + 2 * D), dtype=f32, device=dev)
-            if glob else None)
+    tab_g = work_g = None
+    if plan.tables == "global":
+        tab_g = torch.empty(K * (D + D * (D + 1) // 2 + 1), dtype=f32,
+                            device=dev)
+    if plan.work == "global":
+        work_g = torch.empty((plan.cluster, D * D + 2 * D), dtype=f32,
+                             device=dev)
     p = cuda_lib.ptr
     err = cuda_lib.library().fullcov_items_launch(
         p(X), p(log_prior), p(noise), p(k_old), p(counts), p(k0m0), p(snp0),
-        p(cterms), k0, v0, p(sx), p(ssq), p(m_t), p(linv), p(ld), p(work),
-        p(ks), p(cnt), n, D, K, int(glob), plan.threads, alpha / K, lms,
-        temp, int(use_argmax), cuda_lib.stream_of(X))
+        p(cterms), k0, v0, p(sx), p(ssq), p(tab_g), p(work_g), p(ks), p(cnt),
+        p(probe), n, D, K, plan.cluster, int(plan.tables == "global"),
+        int(plan.work == "global"), plan.threads, alpha / K, lms, temp,
+        int(use_argmax), cuda_lib.stream_of(X))
     cuda_lib.check(err, "fullcov_items")
     full_launches += 1
     return ks, SuffStats(cnt, sx, ssq)

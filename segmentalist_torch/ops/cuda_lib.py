@@ -101,13 +101,19 @@ _SIGNATURES = {
     "diag_items_smem_bytes": [_I] * 3,
     "diag_items_smem_limit": [],
     # X, log_prior, gumbel, k_old, counts, k0m0, snp0, cterms, k0, v0,
-    # sum_x, sum_sq, m_t, linv, ld, work_g, ks, cnt_out, n, D, K, global,
-    # threads, alpha_over_K, lms, temp, use_argmax, stream
-    "fullcov_items_launch": [_P] * 8 + [_F] * 2 + [_P] * 8 + [_I] * 5
+    # sum_x, sum_sq, tab_g, work_g, ks, cnt_out, probe, n, D, K, cluster,
+    # tab_global, work_global, threads, alpha_over_K, lms, temp, use_argmax,
+    # stream
+    "fullcov_items_launch": [_P] * 8 + [_F] * 2 + [_P] * 7 + [_I] * 7
                             + [_F] * 3 + [_I, _P],
-    # global, D, K -> bytes; -> bytes (or minus a CUDA error code)
-    "fullcov_items_smem_bytes": [_I] * 3,
+    # D, K, cluster, tab_global, work_global -> bytes; D, K, cluster ->
+    # threads; -> bytes, or the largest cluster (or minus a CUDA error code)
+    "fullcov_items_smem_bytes": [_I] * 5,
+    "fullcov_items_threads": [_I] * 3,
     "fullcov_items_smem_limit": [],
+    "fullcov_items_max_cluster": [],
+    # bad (uint64 count), stream
+    "fullcov_items_sqrt_mismatches": [_P, _P],
     # Xc, prior_c, g_{LT, LmuT, ck, vinv, vh}, t_{L, Lmu, ck, vinv, vh},
     # tslot, w, counts, valid_m, out, B, M, D, K, S, rows, stream
     "fullcov_scores_launch": [_P] * 17 + [_I] * 6 + [_P],

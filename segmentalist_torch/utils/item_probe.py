@@ -1,7 +1,8 @@
 """Probe the full family's item chain K11 on the card: where a step's time
 goes.
 
-    python -m segmentalist_torch.utils.item_probe [--n N]
+    python -m segmentalist_torch.utils.item_probe [--n N] [--cluster C]
+        [--breakdown]
 
 Items as ``chip_smoke.py`` phase 3 builds them (N items around 50
 prototypes, each in a uniformly drawn old column, the statistics from
@@ -12,9 +13,17 @@ warm-up): the delete on (the sequential sweep: two derivations a step)
 and off (``reassign_items``: one), each at K 1000 and at K 64 (the items'
 old columns taken mod 64: far fewer occupied columns to score).  Prints
 one JSON line a shape: µs a step of each variant, the occupied columns at
-the start, and the card's name and power limit.  The differences bound
-what the scores of ~K occupied columns and one derivation cost a step.
-Needs a CUDA card.
+the start, the launch plan and the card's name and power limit.
+``--cluster C`` forces the plan's cluster of C CTAs.
+
+``--breakdown`` adds, at D 13 and D 130, one launch of the kernel's probe
+build (``kProbe``; the delete on, K 1000): ``clock64()`` cycles a step of
+each phase (``PHASES``).  Per CTA the probe times the add's update warp
+(lane 0; the CTA form: thread 0) over the whole step, apart on the steps
+whose update this CTA owns (the critical path: "owner", with each phase's
+share of its step) and on the others ("other": mostly the wait for the
+owner), and the first scoring thread of the warp form ("scorer").  Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,6 +36,9 @@ import numpy as np
 import torch
 
 SHAPES = {13: 6149, 40: 300, 130: 300}
+# the kernel's probe phases (csrc/fullcov_item_chain.cu, enum Phase)
+PHASES = ("scores", "reduce", "stats", "build", "cholesky", "inverse",
+          "tables", "wait1", "wait2", "fit", "other")
 
 
 def _inputs(N, K, D, seed=10):
@@ -67,20 +79,69 @@ def _ms(fn, reps=3):
     return float(np.median(times))
 
 
-def probe(D, N):
+def _args(d, delete=True):
+    from segmentalist_torch.ops import cuda_item_chain as cic
+
+    k_old = d["k_old"] if delete else torch.full_like(d["k_old"], -1)
+    return cic.full_chain_inputs(d["X"], d["log_prior"], d["noise"], k_old,
+                                 d["stats"], d["prior"], 1.0, d["K"])
+
+
+def probe(D, N, cluster=None):
     from segmentalist_torch.ops import cuda_item_chain as cic
 
     out = {"D": D, "N": N}
     for K, d in _inputs(N, 1000, D).items():
         out["occupied_K%d" % K] = int((d["stats"].counts > 0).sum())
+        out["plan_K%d" % K] = cic.card_plan("full", D, K, cluster)._asdict()
         for delete in (True, False):
-            k_old = d["k_old"] if delete else torch.full_like(d["k_old"], -1)
-            ms = _ms(lambda: cic.item_chain(
-                "full", d["X"], d["log_prior"], d["noise"], k_old, d["stats"],
-                d["prior"], 1.0, K))
+            args = _args(d, delete)
+            ms = _ms(lambda: cic._launch_full(*args, cluster=cluster))
             out["us_per_step_K%d_%s" % (K, "delete" if delete
                                         else "no_delete")] = ms * 1e3 / N
     return out
+
+
+def shares(rows):
+    """Cycles a step of each phase from the probe buffer ``rows`` [C, 3,
+    len(PHASES) + 1] (per CTA: the owner's steps, the other steps, the
+    scoring thread; the last word the steps each row covers): the mean
+    owner step and other step over the CTAs, each phase's share of the
+    owner step, and the scoring thread's scores a step."""
+    rows = rows.astype(np.float64)
+
+    def mean(r):
+        steps = r[:, -1].sum()
+        return r[:, :-1].sum(0) / max(steps, 1.0)
+
+    owner, other = mean(rows[:, 0]), mean(rows[:, 1])
+    total = float(owner.sum())
+    out = {"owner": {p: round(float(c), 1) for p, c in zip(PHASES, owner)},
+           "other": {p: round(float(c), 1) for p, c in zip(PHASES, other)},
+           "share": {p: round(float(c) / total, 4)
+                     for p, c in zip(PHASES, owner)},
+           "owner_step": round(total, 1),
+           "other_step": round(float(other.sum()), 1),
+           "owner_steps": int(rows[:, 0, -1].sum())}
+    if rows[:, 2, -1].any():
+        out["scorer_scores"] = round(float(mean(rows[:, 2])[0]), 1)
+    return out
+
+
+def breakdown(D, N, cluster=None):
+    """One launch of K11's probe build (the delete on, K 1000) at D dims
+    and N items: :func:`shares` of its probe buffer."""
+    from segmentalist_torch.ops import cuda_item_chain as cic
+
+    d = _inputs(N, 1000, D)[1000]
+    args = _args(d)
+    plan = cic.card_plan("full", D, 1000, cluster)
+    buf = torch.zeros((plan.cluster, 3, len(PHASES) + 1), dtype=torch.int64,
+                      device="cuda")
+    ms = _ms(lambda: cic._launch_full(*args, probe=buf.zero_(),
+                                      cluster=cluster), reps=1)
+    return {"D": D, "N": N, "plan": plan._asdict(),
+            **shares(buf.cpu().numpy()), "probe_us_per_step": ms * 1e3 / N}
 
 
 def main(argv=None) -> int:
@@ -88,6 +149,12 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=None,
                     help="items at every shape (default 6149 at D 13, 300 "
                     "at D 40 and D 130)")
+    ap.add_argument("--cluster", type=int, default=None,
+                    help="force a cluster of this many CTAs (default: the "
+                    "plan's)")
+    ap.add_argument("--breakdown", action="store_true",
+                    help="also one probe launch at D 13 and D 130: clock64 "
+                    "cycles and shares of a step's phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("item_probe: needs a CUDA card")
@@ -96,9 +163,13 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     for D, N in SHAPES.items():
-        out = probe(D, args.n or N)
+        out = probe(D, args.n or N, args.cluster)
         out["card"] = card
         print(json.dumps(out), flush=True)
+        if args.breakdown and D != 40:
+            out = breakdown(D, args.n or N, args.cluster)
+            out["card"] = card
+            print(json.dumps(out), flush=True)
     return 0
 
 

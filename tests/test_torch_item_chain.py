@@ -236,41 +236,85 @@ def test_smem_bytes_by_hand():
 
 
 def test_full_launch_plans():
-    """K11's plan: the work areas on chip at the toy (one warp), the
-    flagship and D 24 (32 warps, an area each), D 40 and D 130 (one area
-    for the CTA); in device memory at D 240 or under a small limit; a K
-    whose counts and weights alone do not fit is refused."""
+    """K11's plan on an H100 (clusters of up to 16): the toy (K 4, so C at
+    most K) on one CTA of a scoring warp and two update warps; the
+    flagship and D 24 on eight CTAs (125 columns and four scoring warps a
+    CTA, tables on chip); D 40 (the CTA form) on 16 with its tables on
+    chip; D 130 on 16 with its tables in device memory; D 240 with its
+    work area there too.  A small limit moves the tables off chip, a card
+    of single-CTA clusters runs the flagship on one CTA of 256 threads; a
+    forced C the card cannot schedule, a D past 256 and a K whose counts
+    alone do not fit are refused."""
     lp = cuda_item_chain.launch_plan
-    toy = lp("full", 2, 4, LIMIT)
-    assert toy == ("smem", 32, cuda_item_chain.full_smem_bytes(False, 2, 4))
-    flag = lp("full", 13, 1000, LIMIT)
-    assert (flag.form, flag.threads) == ("smem", 1024)
-    for D in (24, 40, 130):
-        assert lp("full", D, 1000, LIMIT).form == "smem"
-    wide = lp("full", 240, 1000, LIMIT)
-    assert wide == ("global", 1024,
-                    cuda_item_chain.smem_bytes("full", True, 240, 1000))
-    assert lp("full", 24, 1000, 30 * 1024).form == "global"
-    assert lp("full", 13, 1000, 30 * 1024).form == "global"
+    fsb = cuda_item_chain.full_smem_bytes
+    toy = lp("full", 2, 4, LIMIT, 16)
+    assert toy == ("warp", 1, 96, "smem", "smem", fsb(2, 4, 1, False, False))
+    assert lp("full", 13, 1000, LIMIT, 16) == (
+        "warp", 8, 192, "smem", "smem", fsb(13, 1000, 8, False, False))
+    assert lp("full", 24, 1000, LIMIT, 16)[:5] == (
+        "warp", 8, 192, "smem", "smem")
+    assert lp("full", 40, 1000, LIMIT, 16)[:5] == (
+        "cta", 16, 1024, "smem", "smem")
+    assert lp("full", 40, 1000, LIMIT, 8)[:5] == (
+        "cta", 8, 1024, "global", "smem")
+    assert lp("full", 130, 1000, LIMIT, 16) == (
+        "cta", 16, 1024, "global", "smem", fsb(130, 1000, 16, True, False))
+    assert lp("full", 240, 50, LIMIT, 16) == (
+        "cta", 16, 1024, "global", "global", fsb(240, 50, 16, True, True))
+    assert lp("full", 13, 1000, 30 * 1024, 16)[:5] == (
+        "warp", 16, 128, "smem", "smem")
+    assert lp("full", 13, 1000, 20 * 1024, 16)[:5] == (
+        "warp", 16, 128, "global", "smem")
+    assert lp("full", 13, 1000, LIMIT, 1) == (
+        "warp", 1, 256, "global", "smem", fsb(13, 1000, 1, True, False))
+    assert lp("full", 13, 1000, LIMIT, 16, cluster=2)[:5] == (
+        "warp", 2, 256, "smem", "smem")
+    with pytest.raises(ValueError, match="not schedulable"):
+        lp("full", 2, 4, LIMIT, 16, cluster=8)
+    with pytest.raises(ValueError, match="not schedulable"):
+        lp("full", 13, 1000, LIMIT, 8, cluster=16)
     with pytest.raises(ValueError, match="no full item chain form"):
-        lp("full", 13, 60000, LIMIT)
+        lp("full", 257, 1000, LIMIT, 16)
+    with pytest.raises(ValueError, match="no full item chain form"):
+        lp("full", 2, 600000, LIMIT, 16)
 
 
 def test_full_smem_bytes_by_hand():
-    """K11's carving counted by hand: counts and weights [2, K], x and the
-    log prior [2, D + 1], and (smem form) the work areas of D D + 2 D
-    words, a warp's each up to D 32 (32 warps at K 1000), the CTA's one
-    above."""
+    """K11's carving counted by hand, with P the largest share of columns
+    made odd: counts, weights and two items' noise [4, P], x and the log
+    prior of three items [3, D + 1]; on chip the tables, D + D (D + 1)/2 +
+    1 words a column; the CTA form's work area of D D + 2 D words (none in
+    device memory; the warp form derives in registers)."""
     fsb = cuda_item_chain.full_smem_bytes
-    assert fsb(False, 2, 4) == 4 * (2 * 4 + 2 * 3 + 1 * (4 + 4))
-    assert fsb(False, 13, 1000) == 4 * (
-        2 * 1000 + 2 * 14 + 32 * (169 + 26)) == 33072
-    assert fsb(False, 24, 1000) == 4 * (
-        2 * 1000 + 2 * 25 + 32 * (576 + 48))
-    assert fsb(False, 40, 1000) == 4 * (
-        2 * 1000 + 2 * 41 + 1 * (1600 + 80)) == 15048
-    assert fsb(False, 130, 1000) == 77688
-    assert cuda_item_chain.smem_bytes("full", True, 130, 1000) == 4 * (
-        2 * 1000 + 2 * 131)
-    assert [cuda_item_chain.full_work_areas(D, 1000)
-            for D in (16, 32, 33)] == [32, 32, 1]
+    assert fsb(2, 4, 1, False, False) == 4 * (4 * 5 + 3 * 3 + 6 * 5) == 236
+    assert fsb(13, 1000, 8, False, False) == 4 * (
+        4 * 125 + 3 * 14 + 105 * 125) == 54668
+    assert fsb(13, 1000, 16, True, False) == 4 * (4 * 63 + 3 * 14)
+    assert fsb(24, 1000, 8, False, False) == 4 * (
+        4 * 125 + 3 * 25 + 325 * 125) == 164800
+    assert fsb(40, 1000, 16, False, False) == 4 * (
+        4 * 63 + 3 * 41 + 861 * 63 + 1600 + 80) == 225192
+    assert fsb(130, 1000, 16, True, False) == 4 * (
+        4 * 63 + 3 * 131 + 16900 + 260) == 71220
+    assert fsb(240, 50, 16, True, True) == 4 * (4 * 5 + 3 * 241) == 2972
+    assert fsb(13, 1000, 2, False, False) == 4 * (
+        4 * 501 + 3 * 14 + 105 * 501) == 218604
+    assert [cuda_item_chain.full_threads(D, 1000, C) for D, C in (
+        (13, 1), (13, 4), (13, 8), (13, 16), (32, 16), (33, 16))] == [
+            256, 256, 192, 128, 128, 1024]
+    assert cuda_item_chain.full_threads(2, 4, 4) == 96
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("K", [4, 200, 1000, 1500])
+def test_full_column_ranges_cover_every_column_once(K, C):
+    """The CTAs' column ranges (the kernel's r K / C split) cover 0 .. K -
+    1 once each, in order, none empty where C <= K, none wider than the
+    largest share the plan sizes (ceil(K / C))."""
+    ranges = [cuda_item_chain.full_col_range(K, C, r) for r in range(C)]
+    owned = np.concatenate([np.arange(lo, hi) for lo, hi in ranges])
+    npt.assert_array_equal(owned, np.arange(K))
+    widths = [hi - lo for lo, hi in ranges]
+    assert max(widths) <= -(-K // C)
+    if C <= K:
+        assert min(widths) >= 1

@@ -28,9 +28,12 @@ check that does not hold:
    utterances costing the same a slice in every window), with the unfused
    stage's time beside it;
    K10, the FBGMM's item chain, in both families (fixed variance, exact
-   diag) with the delete on and off, at the toy (N 100, K 4, D 2), the
-   flagship's initial state (6,149 assigned items, K 1000, D 13) and D 130:
-   ks, final counts and running sums identical to its plain version;
+   diag) with the delete on and off, at every cluster size the card
+   schedules, at the toy (N 100, K 4, D 2), the flagship's initial state
+   (6,149 assigned items, K 1000, D 13), fbgmm_flagship's launch (51,972
+   items) and D 130: ks, final counts and running sums identical to its
+   plain version (run on the CPU in worker processes from the card's
+   inputs), with its plan and its time a step at every cluster size;
    K11, the full family's item chain, at the same three shapes with the
    delete on and off (at D 130 on its first 60 items), identical to its
    plain version, and at the flagship at every cluster size the card
@@ -93,7 +96,14 @@ check that does not hold:
    tables to the recount, the ranks' states identical, each path's
    kernels launched on each rank; (d) ms a sweep of each mode at one and
    two ranks beside the unsharded run, and the collectives' count, bytes
-   and ms a block step, recorded and not gated.
+   and ms a block step, recorded and not gated; (e) two ranks, the
+   per-shard mode's corpus readers on unigram_fixed, bigram and
+   kmeans_wordseg: ``gibbs_sample(2, monitor_i=0, validate=True)``
+   (``segment`` for k-means) logs the same monitor lines on both ranks, a
+   debug-only sweep of utterance 3 (not the bigram driver's: it has no
+   such flag), then utterance 3's trace and every utterance's batch
+   scores, the same on both ranks and within ``SCORE_TOL`` of an
+   unsharded segmenter's on the card from the ranks' final state.
 
 The fourth-to-last line is phase 7's JSON summary, the third-to-last
 phase 6's, the second-to-last a JSON summary of the kernels (their
@@ -123,9 +133,12 @@ FLAGSHIP = dict(B=125, N_max=20, W=6, K=1000, D=13)
 LONG = dict(B=125, N_max=120, W=6, K=1000, D=130)
 WIDE_DP = dict(B=125, N_max=120, W=120)  # K2 at W = N_max (n_slices_max 0)
 # K10's chains: the flagship's initial state (its 6,149 initially assigned
-# segments, the chain of an am_n_iter sweep), D 130, and the notebook toy
+# segments, the chain of an am_n_iter sweep), fbgmm_flagship's launch (its
+# 51,972 spans), D 130, and the notebook toy
 ITEMS = {"flagship": dict(N=6149, K=1000, D=13),
+         "spans": dict(N=51972, K=1000, D=13),
          "long": dict(N=300, K=1000, D=130), "toy": dict(N=100, K=4, D=2)}
+K10_SHAPES = {"flagship": ("toy", "flagship", "spans"), "long": ("long",)}
 PLAIN_ITEMS = 300       # K10's plain version is timed on this prefix
 PURITY_MIN = 0.95       # the FBGMM toy (tests/test_fbgmm.py asks 0.95)
 SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
@@ -1073,6 +1086,17 @@ def crafted_fullcov_own_pairs():
           "no draw")
 
 
+def item_arrays(shape, seed):
+    """The numpy draws of :func:`item_inputs`: (X [N, D], old columns [N],
+    noise [N, K])."""
+    rng = np.random.RandomState(seed)
+    N, K, D = shape["N"], shape["K"], shape["D"]
+    protos = 3.0 * rng.randn(50, D)
+    X = protos[rng.randint(0, 50, N)] + 0.3 * rng.randn(N, D)
+    k_old = rng.randint(0, K, N)
+    return X, k_old, -np.log(-np.log(rng.uniform(1e-30, 1.0, (N, K))))
+
+
 def item_inputs(family, shape, seed, device):
     """K10's (K11's, family "full") inputs at ``shape`` (N, K, D): N items
     around 50 prototypes, each in a uniformly drawn old column (the "rand"
@@ -1083,20 +1107,63 @@ def item_inputs(family, shape, seed, device):
     from segmentalist_torch.ops.stats import suff_stats_from_assignments
     from segmentalist_torch.utils.profiling import bench_prior
 
-    rng = np.random.RandomState(seed)
-    N, K, D = shape["N"], shape["K"], shape["D"]
-    protos = 3.0 * rng.randn(50, D)
-    X = protos[rng.randint(0, 50, N)] + 0.3 * rng.randn(N, D)
+    X, k_old, noise = item_arrays(shape, seed)
     as_t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
         a, dtype=dt, device=device)
     X = as_t(X)
-    k_old = as_t(rng.randint(0, K, N), torch.int32)
-    prior = bench_prior(family, D, device)
+    k_old = as_t(k_old, torch.int32)
+    K = shape["K"]
+    prior = bench_prior(family, shape["D"], device)
     return dict(X=X, log_prior=cov_module(family).log_prior_batch(prior, X),
-                noise=as_t(-np.log(-np.log(rng.uniform(1e-30, 1.0, (N, K))))),
-                k_old=k_old, stats=suff_stats_from_assignments(
+                noise=as_t(noise), k_old=k_old,
+                stats=suff_stats_from_assignments(
                     X, k_old, K, full_cov=family == "full"),
                 prior=prior, K=K)
+
+
+def _plain_item_job(family, shape, seed, inputs):
+    """K10's plain version on the CPU, in a worker process, on the card's
+    inputs (:func:`item_chain_inputs` there, as numpy; the noise, too large
+    to ship, drawn again from ``seed``, the same float32 bits): its ks,
+    counts and sums as numpy."""
+    import torch
+    from segmentalist_torch.ops import cuda_item_chain as cic
+
+    torch.set_num_threads(1)
+    noise = torch.as_tensor(item_arrays(shape, seed)[2], dtype=torch.float32)
+    args = [torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+            for a in inputs]
+    args[3] = noise[None]
+    args[8] = tuple(torch.as_tensor(t) if isinstance(t, np.ndarray) else t
+                    for t in args[8])
+    return [t.numpy() for t in cic.item_chain_plain(*args)]
+
+
+def plain_item_pool(jobs):
+    """K10's plain results for ``jobs``, {key: (family, shape, seed, the
+    card's kernel inputs)}, on the CPU in worker processes (one a core, at
+    most eight), all submitted at once: {key: future}.  The caller shuts
+    the pool down."""
+    import concurrent.futures
+    import multiprocessing
+    import torch
+
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            return a.cpu().numpy()
+        if isinstance(a, tuple):
+            return tuple(host(t) for t in a)
+        return a
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=min(8, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    futures = {}
+    for key, (family, shape, seed, inputs) in jobs.items():
+        sent = [host(a) for a in inputs]
+        sent[3] = None  # the noise: drawn again in the worker
+        futures[key] = pool.submit(_plain_item_job, family, shape, seed, sent)
+    return pool, futures
 
 
 def item_chain_pair(family, d, delete=True, n=None):
@@ -1160,44 +1227,84 @@ def item_bound(family, d):
 
 
 def compare_item_chain(shape, name):
-    """K10 at ``ITEMS[name]`` (the toy too, with the flagship): the kernel
-    against its plain version on the card, both families, delete on and
-    off; at the flagship and long shapes its times (events, device, a
-    step), the plain version's on the first ``PLAIN_ITEMS`` items, and its
-    bound."""
+    """K10 at the shapes of ``K10_SHAPES[name]`` (with the flagship: the
+    toy, the flagship's 6,149 items and fbgmm_flagship's 51,972-item
+    launch; with the long shape: D 130), both families, the delete on and
+    off, at every cluster size the card schedules (1 to 16 CTAs, at most
+    K): the kernel's ks, counts and sums identical to its plain version's
+    (run once a case on the CPU, in worker processes, from the card's
+    inputs).  At the flagship and long shapes its plan, times (events,
+    device, a step; a step at every C), the plain version's time on the
+    card on the first ``PLAIN_ITEMS`` items, and its bound."""
+    import torch
     from segmentalist_torch.ops import cuda_item_chain as cic
 
     out = {"max_abs_err": 0.0}
-    names = [name] + (["toy"] if name == "flagship" else [])
-    for nm in names:
+    data, jobs = {}, {}
+    for nm in K10_SHAPES[name]:
         for family in ("fixed", "diag"):
-            d = item_inputs(family, ITEMS[nm], 10, DEVICE)
+            d = data[nm, family] = item_inputs(family, ITEMS[nm], 10, DEVICE)
             for delete in (True, False):
-                kernel, plain = item_chain_pair(family, d, delete)
-                err = same_items("K10 %s %s delete=%s" % (family, nm,
-                                                         delete),
-                                 kernel(), plain())
+                k_old = (d["k_old"] if delete
+                         else torch.full_like(d["k_old"], -1))
+                jobs[nm, family, delete] = (family, ITEMS[nm], 10,
+                                            cic.item_chain_inputs(
+                                                family, d["X"],
+                                                d["log_prior"], d["noise"],
+                                                k_old, d["stats"],
+                                                d["prior"], 1.0, d["K"]))
+    pool, futures = plain_item_pool(jobs)
+    try:
+        kernel_at = {}
+        for (nm, family, delete), job in jobs.items():
+            _, max_cluster = cic.item_card_limits(
+                family, torch.cuda.current_device())
+            K = ITEMS[nm]["K"]
+            for C in cic.ITEM_CLUSTERS:
+                if C <= min(K, max_cluster):
+                    kernel_at[nm, family, delete, C] = [
+                        t.cpu() for t in cic._launch(*job[3], cluster=C)]
+        sizes = {}
+        for key, fut in futures.items():
+            want = cic.item_chain_result(*(torch.as_tensor(a)
+                                           for a in fut.result()))
+            cs = [C for (n2, f2, d2, C) in kernel_at if (n2, f2, d2) == key]
+            for C in cs:
+                got = cic.item_chain_result(*kernel_at[key + (C,)])
+                err = same_items("K10 %s %s delete=%s at a cluster of %d"
+                                 % (key[1], key[0], key[2], C), got, want)
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-            if nm != name:
-                continue
-            N, D = d["X"].shape
-            plan = cic.card_plan(family, D, d["K"])
-            kernel, _ = item_chain_pair(family, d)
-            _, plain = item_chain_pair(family, d, n=PLAIN_ITEMS)
-            r = {"form": plan.form, "steps_max": N,
-                 "ms": cuda_ms(kernel, 5),
-                 "device_ms": device_ms(kernel, "gibbs_items_kernel", 5),
-                 "plain_ms": once_ms(plain), "plain_items": PLAIN_ITEMS}
-            r["us_per_step"] = (None if r["device_ms"] is None
-                                else r["device_ms"] * 1e3 / N)
-            r.update(item_bound(family, d))
-            log("K10 %s %s: plan %s, %d steps, kernel %.4f ms, device %s ms "
-                "(%s us a step), plain %.4f ms for %d items, bound %.4f ms "
-                "(%s)" % (family, name, plan, N, r["ms"], r["device_ms"],
-                          r["us_per_step"], r["plain_ms"], PLAIN_ITEMS,
-                          r["bound_ms"], r["bound_by"]))
-            pre = "" if family == "fixed" else "diag_"
-            out.update({pre + k: v for k, v in r.items()})
+            sizes[key] = cs
+    finally:
+        pool.shutdown()
+    for family in ("fixed", "diag"):
+        d = data[name, family]
+        N, D = d["X"].shape
+        plan = cic.card_plan(family, D, d["K"])
+        kernel, _ = item_chain_pair(family, d)
+        _, plain = item_chain_pair(family, d, n=PLAIN_ITEMS)
+        args = jobs[name, family, True][3]
+        clusters = {C: cuda_ms(lambda C=C: cic._launch(*args, cluster=C),
+                               3) * 1e3 / N
+                    for C in sizes[name, family, True]}
+        r = {"form": plan.tables, "plan": plan._asdict(), "steps_max": N,
+             "ms": cuda_ms(kernel, 5),
+             "device_ms": device_ms(kernel, "item_chain::items_kernel", 5),
+             "plain_ms": once_ms(plain), "plain_items": PLAIN_ITEMS,
+             "clusters": clusters}
+        r["us_per_step"] = (None if r["device_ms"] is None
+                            else r["device_ms"] * 1e3 / N)
+        r.update(item_bound(family, d))
+        log("K10 %s %s: plan %s, %d steps, kernel %.4f ms, device %s ms "
+            "(%s us a step; by cluster size %s), plain %.4f ms for %d "
+            "items, bound %.4f ms (%s) [%s]"
+            % (family, name, plan, N, r["ms"], r["device_ms"],
+               r["us_per_step"], json.dumps({C: round(v, 3) for C, v
+                                             in clusters.items()}),
+               r["plain_ms"], PLAIN_ITEMS, r["bound_ms"], r["bound_by"],
+               CARD))
+        pre = "" if family == "fixed" else "diag_"
+        out.update({pre + k: v for k, v in r.items()})
     return out
 
 
@@ -2386,6 +2493,136 @@ def p7_state(seg, per_shard):
                            else seg.utterances.boundaries)}
 
 
+P7_SURFACE = ("unigram_fixed", "bigram", "kmeans_wordseg")
+P7_MONITOR = 3  # (e): the monitored utterance of the debug-only sweep
+
+
+def p7_interop_state(seg, per_shard):
+    """The segmenter's state under ``interop.load_state``'s keys (the
+    per-shard mode's boundaries gathered from the ranks), as numpy."""
+    am = seg.acoustic_model
+    out = {"X": am.X, "boundaries": p7_state(seg, per_shard)["boundaries"]}
+    if hasattr(am, "state"):  # k-means
+        out.update(am.state._asdict(), random_means=am.random_means)
+    else:
+        out.update(am.stats._asdict(), assignments=am.assignments,
+                   **am.prior._asdict())
+        if hasattr(seg, "lm"):
+            out.update(seg.lm.state._asdict())
+    return {k: (v.cpu().numpy().copy() if hasattr(v, "cpu")
+                else np.array(v)) for k, v in out.items()}
+
+
+def p7_surface(mesh, path, n_utterances):
+    """Phase 7 (e), this rank's part: after ``use_shard_map_sweep``,
+    ``gibbs_sample(2, monitor_i=0, validate=True)`` (``segment`` for
+    k-means) with the monitor lines it logs, a debug-only sweep of
+    utterance ``P7_MONITOR`` (the bigram driver has no such flag), then
+    that utterance's monitor trace, the batch scores of every utterance
+    (unigram, bigram) and the final state under interop's keys."""
+    import logging
+
+    from segmentalist_torch.parallel.dryrun import mesh_device
+    from segmentalist_torch.parallel.mesh import shard_segmenter
+    from segmentalist_torch.parallel.shard_sweep import use_shard_map_sweep
+
+    dev = mesh_device(mesh)
+    seg, _ = p7_build(path, dev, n_utterances)
+    use_shard_map_sweep(shard_segmenter(seg, mesh), mesh)
+    kmeans = path == "kmeans_wordseg"
+    gibbs = seg.segment if kmeans else seg.gibbs_sample
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log_ = logging.getLogger("segmentalist_torch")
+    handler, level = Keep(level=logging.DEBUG), log_.level
+    log_.addHandler(handler)
+    log_.setLevel(logging.DEBUG)
+    try:
+        t = time.perf_counter()
+        rec = gibbs(2, monitor_i=0, validate=True)
+        ms = (time.perf_counter() - t) * 1e3 / 2
+    finally:
+        log_.removeHandler(handler)
+        log_.setLevel(level)
+    flag = ("segment_debug_only" if kmeans else
+            None if hasattr(seg, "lm") else "debug_gibbs_only")
+    if flag is not None:
+        gibbs(1, monitor_i=P7_MONITOR, **{flag: True})
+    out = {"records": rec, "ms_per_sweep": ms,
+           "log": [ln for ln in lines if "monitor" in ln],
+           "trace": tuple(t.cpu().numpy() for t in seg._monitor(P7_MONITOR)),
+           "state": p7_interop_state(seg, True)}
+    if not kmeans:
+        out["scores"] = (seg.get_vec_embed_log_probs_unigram_all
+                         if hasattr(seg, "lm")
+                         else seg.get_vec_embed_log_probs_all)()
+    return out
+
+
+def p7_surface_check(two, n_utterances):
+    """Phase 7 (e), held: on both ranks the records finite and the same
+    four monitor lines; the trace and the batch scores the same on both
+    ranks and, to ``SCORE_TOL``, what an unsharded segmenter on the card
+    gives from the ranks' final state.  Returns the numbers."""
+    from segmentalist_torch.interop import load_state
+
+    out = {}
+    for path in P7_SURFACE:
+        r0, r1 = (two[r]["surface"][path] for r in (0, 1))
+        for rank, r in enumerate((r0, r1)):
+            rec = r["records"]
+            vals = rec.get("log_marg", rec.get("sum_neg_sqrd_norm"))
+            check(len(vals) == 2 and all(math.isfinite(v) for v in vals),
+                  "phase 7 (e) %s rank %d: records %s" % (path, rank, vals))
+        check(len(r0["log"]) == 4 and r0["log"] == r1["log"],
+              "phase 7 (e) %s: the ranks logged different monitor lines"
+              % path)
+        check(all(np.array_equal(a, b) for a, b in zip(r0["trace"],
+                                                       r1["trace"])),
+              "phase 7 (e) %s: the ranks' traces differ" % path)
+        seg, _ = p7_build(path, DEVICE, n_utterances)
+        load_state(seg, r0["state"])
+        want = [t.cpu().numpy() for t in seg._monitor_device(P7_MONITOR)]
+        errs = [score_err(r0["trace"][0], want[0])]
+        check(all(np.array_equal(a, b) for a, b in zip(r0["trace"][1:],
+                                                       want[1:])),
+              "phase 7 (e) %s: the trace's boundaries or components differ "
+              "from the unsharded segmenter's" % path)
+        if "scores" in r0:
+            check(all(np.array_equal(a, b) for a, b in zip(r0["scores"],
+                                                           r1["scores"])),
+                  "phase 7 (e) %s: the ranks' batch scores differ" % path)
+            full = (seg.get_vec_embed_log_probs_unigram_all
+                    if hasattr(seg, "lm") else seg.get_vec_embed_log_probs_all)()
+            check(len(full) == len(r0["scores"]) == n_utterances,
+                  "phase 7 (e) %s: %d batch scores" % (path,
+                                                       len(r0["scores"])))
+            errs += [score_err(a, b) for a, b in zip(r0["scores"], full)]
+        err = max(errs)
+        check(err <= SCORE_TOL, "phase 7 (e) %s: the per-shard surface is "
+              "%.3g off the unsharded segmenter's" % (path, err))
+        out[path] = {"ms_per_sweep": r0["ms_per_sweep"],
+                     "max_rel_err_vs_unsharded": err}
+    return out
+
+
+def score_err(got, want):
+    """max |got - want| / max(1, |want|) over the finite entries; inf if
+    the -inf masks differ."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not np.array_equal(np.isneginf(got), np.isneginf(want)):
+        return math.inf
+    fin = np.isfinite(want)
+    if not fin.any():
+        return 0.0
+    return float(np.max(np.abs(got[fin] - want[fin])
+                        / np.maximum(1.0, np.abs(want[fin]))))
+
+
 def p7_run(mesh, path, mode, sweeps, n_utterances, fb_type=None,
            check_each=False, timed=0, snap_after=None):
     """This rank's part of ``sweeps`` sweeps of ``path`` on ``mesh``, in
@@ -2470,9 +2707,11 @@ def p7_one_rank(mesh, n_utterances):
 
 
 def p7_two_ranks(mesh, n_utterances, long_sweeps):
-    """Phase 7 (b) and (c) on two ranks: the exact mode in Viterbi and in
-    sampling (``long_sweeps`` sweeps), then the per-shard mode on every
-    path (unigram_fixed for ``long_sweeps``, the others ``P7_SHORT``)."""
+    """Phase 7 (b), (c) and (e) on two ranks: the exact mode in Viterbi
+    and in sampling (``long_sweeps`` sweeps), then the per-shard mode on
+    every path (unigram_fixed for ``long_sweeps``, the others
+    ``P7_SHORT``), then what reads the corpus in the per-shard mode
+    (:func:`p7_surface`)."""
     out = {"viterbi": p7_run(mesh, "unigram_fixed", "exact", P7_SWEEPS,
                              n_utterances, fb_type="viterbi"),
            "exact": p7_run(mesh, "unigram_fixed", "exact", long_sweeps,
@@ -2482,6 +2721,8 @@ def p7_two_ranks(mesh, n_utterances, long_sweeps):
                            long_sweeps if path == "unigram_fixed"
                            else P7_SHORT, n_utterances, check_each=True,
                            timed=P7_TIMED)
+    out["surface"] = {path: p7_surface(mesh, path, n_utterances)
+                      for path in P7_SURFACE}
     return out
 
 
@@ -2509,8 +2750,10 @@ def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
     sweep of each mode at one and two ranks beside the unsharded run, and
     the collectives' count, bytes and ms a block step, recorded and not
     gated (two ranks on one card share its SMs: what the layer costs, not
-    how it scales).  Returns each rank's launches by path and the
-    phase's numbers."""
+    how it scales).  (e) Two ranks, the per-shard mode's monitor,
+    validate, debug-only sweeps and batch scores on unigram_fixed, bigram
+    and kmeans_wordseg (:func:`p7_surface_check`).  Returns each rank's
+    launches by path and the phase's numbers."""
     from segmentalist_torch.parallel.dryrun import launch
     from segmentalist_torch.utils.synth import boundary_f_score
 
@@ -2611,6 +2854,7 @@ def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
                   "after %d sweeps" % (f, F1_MIN, long_sweeps))
             per_path[path]["f1"] = f
     out["two_ranks"]["per_shard"] = per_path
+    out["two_ranks"]["surface"] = p7_surface_check(two, n_utterances)  # (e)
     log("phase 7 (multi-device) in %.1f s [%s]: %s"
         % (time.time() - t0, CARD, json.dumps(out)))
     return paths, out
@@ -2717,7 +2961,7 @@ def main(argv=None) -> int:
                "segmentalist_tpu/ops/pallas_score.py:630"),
         "K9": ("fullcov_chain", "segmentalist_torch/csrc/fullcov_chain.cu",
                "segmentalist_tpu/ops/pallas_chain.py:1725"),
-        "K10": ("gibbs_items", "segmentalist_torch/csrc/diag_family_chain.cuh",
+        "K10": ("gibbs_items", "segmentalist_torch/csrc/item_chain.cuh",
                 "segmentalist_tpu/models/fbgmm.py:517-570 (lax.scan)"),
         "K11": ("fullcov_items",
                 "segmentalist_torch/csrc/fullcov_item_chain.cu",
@@ -2774,12 +3018,14 @@ def main(argv=None) -> int:
                 entry.update(long_stream_bound_ms=lo["stream_bound_ms"],
                              long_col_steps=lo["col_steps"])
         if k == "K10":  # the exact diag policy, the plain version's prefix,
-            # and the FBGMM paths' times
+            # the plans and a step at every cluster size, and the FBGMM
+            # paths' times
             entry.update({pre + "diag_" + f: r["diag_" + f] for pre, r in (
                 ("", fl), ("long_", lo)) for f in (
                     "ms", "device_ms", "us_per_step", "plain_ms", "bound_ms",
-                    "bound_by", "form")})
-            entry.update(plain_items=fl["plain_items"], paths=fbgmm)
+                    "bound_by", "form", "plan", "clusters")})
+            entry.update(clusters=fl["clusters"], long_clusters=lo["clusters"],
+                         plain_items=fl["plain_items"], paths=fbgmm)
         if k == "K11":  # plans, a step's time, the plain version's
             # prefix, the flagship at every cluster size
             entry.update({pre + f: r[f] for pre, r in (("", fl),

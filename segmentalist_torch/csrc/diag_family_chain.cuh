@@ -81,21 +81,8 @@
 //   list (in shared memory) whose current id is that column, found once at
 //   init; a step counts (j_prev, k) pairs inside that range only.
 //
-// The item chain (kernel K10, gibbs_items_kernel; the FBGMM's own
-// sequential Gibbs sweep, segmentalist_tpu/models/fbgmm.py:517-570, a
-// lax.scan with no pallas_call) is the same chain over the items of one
-// model (B = 1, every step valid, steps in item order) with one thing
-// more: before step i is scored, item i leaves its old column k_old[i]
-// (if >= 0).  With the delete, a step's updates are two: after step i's
-// barrier the owner warp of k_new(i) adds x_i, then the owner warp of
-// k_old(i + 1) removes x_(i+1) (both the same warp, add first, where the
-// columns coincide), each from its own staged sums and logs, so one
-// barrier a step still suffices; item 0 leaves its column at init.  The
-// touched-column table takes a slot an update (2 i: the delete of item
-// i, 2 i + 1: its add), the last draw is applied, and the kernel writes
-// the final counts and running sums of every column ([B, kSums, D, K]).
-// Its bound is the other chains': N dependent steps, the noise rows the
-// only bytes that scale with N.
+// The policies' column models also run the FBGMM's item chain, kernel K10
+// (item_chain.cuh: a cluster of column owners, a kernel of its own).
 //
 // Where the tables do not fit one CTA (D 130, K 1000), the global form
 // keeps them, and the column arrays, in device memory the wrapper
@@ -129,19 +116,15 @@ __host__ __device__ constexpr int col_arrays(bool bigram) {
 // carving order.  Smem form: the tables [kTables][D][K], the column arrays
 // [col_arrays][K] and the noise double buffer [2][K].  Both forms: x and
 // log prior [3][D + 1]; the prior vectors, the updated column's logs and
-// its running sums [kPrior + 1 + kSums][D] (item chain: a second logs and
-// sums for the delete, [kPrior + 2 (1 + kSums)][D]); the valid steps [S]
-// (not in the item chain, whose steps are 0 .. S - 1); bigram: the old
-// pairs [2][S].
+// its running sums [kPrior + 1 + kSums][D]; the valid steps [S]; bigram:
+// the old pairs [2][S].
 template <class P>
 __host__ __device__ inline int64_t smem_words(bool global, bool bigram,
-                                              int D, int S, int K,
-                                              bool item = false) {
+                                              int D, int S, int K) {
     const int64_t per_col =
         (int64_t)P::kTables * D + col_arrays<P>(bigram) + 2;
-    const int64_t upd = (item ? 2LL : 1LL) * (1 + P::kSums);
-    return (global ? 0 : per_col * K) + 3LL * (D + 1) + (P::kPrior + upd) * D
-           + (item ? 0 : S) + (bigram ? 2LL * S : 0);
+    return (global ? 0 : per_col * K) + 3LL * (D + 1)
+           + (P::kPrior + 1LL + P::kSums) * D + S + (bigram ? 2LL * S : 0);
 }
 
 __device__ __forceinline__ void cp_async4(void *smem, const void *gmem) {
@@ -210,15 +193,11 @@ struct Args {
     float alpha_over_K, lms, temp;
     int use_argmax;
     BigramLM lm;
-    const int *k_old;  // item chain: [B, S] each item's old column, or -1
-    int *cnt_out;      // item chain: [B, K] final counts
-    float *sums_out;   // item chain: [B, kSums, D, K] final running sums
 };
 
-// The chain of one CTA (kItem: the item chain, steps 0 .. S - 1 with the
-// delete of each item from its old column before it is scored).
-template <class P, bool kBigram, bool kGlob, bool kItem>
-__device__ __forceinline__ void run_chain(const Args<P> &a) {
+template <class P, bool kBigram, bool kGlob>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    chain_kernel(const Args<P> a) {
     extern __shared__ float sh[];
     __shared__ unsigned red_v[2][kMaxWarps];  // score_key of the warp's best
     __shared__ int red_i[2][kMaxWarps];
@@ -232,9 +211,6 @@ __device__ __forceinline__ void run_chain(const Args<P> &a) {
     const int b = blockIdx.x;
     const int64_t bS = (int64_t)b * S, bK = (int64_t)b * K;
     const int64_t bDK = bK * D;
-    // the touched-column table's first slot: a slot a step, or (item
-    // chain) a slot an update
-    const int64_t bT = kItem ? 2 * bS : bS;
 
     // Carve the dynamic shared memory (smem_words' order); the global
     // form's tables and column arrays are this utterance's device memory.
@@ -259,17 +235,12 @@ __device__ __forceinline__ void run_chain(const Args<P> &a) {
     float *prior = xs + 3 * (D + 1);
     float *vlog = prior + P::kPrior * D;
     float *stage = vlog + D;  // the updated column's running sums
-    // item chain: the deleting update's logs and sums
-    float *vlog2 = stage + P::kSums * D;
-    float *stage2 = vlog2 + D;
-    int *steps = reinterpret_cast<int *>(
-        stage + (kItem ? 2 * P::kSums + 1 : P::kSums) * D);
-    int *s_cj = steps + (kItem ? 0 : S);  // bigram only: the old pairs
+    int *steps = reinterpret_cast<int *>(stage + P::kSums * D);
+    int *s_cj = steps + S;  // bigram only: the old pairs
     int *s_ci = s_cj + S;
 
     // Phase 1: the prior vectors, the old pairs and n_uni (bigram), ks =
-    // -1, and the list of valid steps (ascending; the item chain's are
-    // all).
+    // -1, and the list of valid steps (ascending).
     const int *emb = a.embeds + bS;
     int *kout = a.ks + bS;
     P::load_prior(a.pr, prior, D, tid, T);
@@ -285,7 +256,7 @@ __device__ __forceinline__ void run_chain(const Args<P> &a) {
             part += __shfl_xor_sync(0xffffffffu, part, off);
         if (lane == 0) s_part[warp] = part;
     }
-    if (!kItem && warp == 0) {
+    if (warp == 0) {
         int n = 0;
         for (int s0 = 0; s0 < S; s0 += 32) {
             const int s = s0 + lane;
@@ -297,8 +268,7 @@ __device__ __forceinline__ void run_chain(const Args<P> &a) {
         if (lane == 0) s_n = n;
     }
     __syncthreads();
-    const int n_steps = kItem ? S : s_n;
-    auto step_of = [&](int i) { return kItem ? i : steps[i]; };
+    const int n_steps = s_n;
     // The bigram unigram denominators n_uni + a and its log (n_uni an
     // integer sum, exact in any order).
     float uni_den = 0.0f, log_uni_den = 0.0f;
@@ -313,7 +283,7 @@ __device__ __forceinline__ void run_chain(const Args<P> &a) {
     // (gbuf slot i % 2), as one cp.async group (empty past the last step).
     auto prefetch = [&](int i) {
         if (i < n_steps) {
-            const int64_t row = bS + step_of(i);
+            const int64_t row = bS + steps[i];
             float *xd = xs + (i % 3) * (D + 1);
             for (int d = tid; d <= D; d += T)
                 cp_async4(xd + d, d < D ? a.Xe + row * D + d
@@ -353,70 +323,9 @@ __device__ __forceinline__ void run_chain(const Args<P> &a) {
     cp_async_wait_all();
     __syncthreads();
 
-    // The owner warp's side of an update of column k: start the cp.async
-    // copies of its running sums into stg (lane l: dims l, l + 32, ...),
-    // from the leave-out statistics on first touch, else from its touched
-    // slot.
-    auto stage_sums = [&](int k, float *stg) {
-        const int ts = c.tslot[k];
-        const int64_t stride = ts < 0 ? K : 1;
-        for (int r = 0; r < P::kSums; ++r) {
-            const float *src = ts < 0
-                                   ? P::sums(a.pr, r) + bDK + k
-                                   : a.touched + ((bT + ts) * P::kSums + r) * D;
-            for (int d = lane; d < D; d += 32)
-                cp_async4(stg + r * D + d, src + d * stride);
-        }
-    };
-    // Column k re-derived with x added (del: removed) from the sums in
-    // stg, written to touched slot `slot`: lane l takes dims l, l + 32,
-    // ...; the owner lane sets the column's terms.  The item chain keeps
-    // the new sums in stg too, for a delete from the same column.
-    auto apply = [&](int k, const float *x, float *stg, float *vl,
-                     int64_t slot, bool del) {
-        const float cn = c.cnt[k];
-        const typename P::Upd u =
-            P::begin(a.pr, D, del ? cn - 1.0f : cn + 1.0f);
-        float *dst = a.touched + (bT + slot) * P::kSums * D;
-        for (int d = lane; d < D; d += 32) {
-            float v[P::kSums];
-#pragma unroll
-            for (int r = 0; r < P::kSums; ++r) v[r] = stg[r * D + d];
-            if (del)
-                P::template update_dim<true>(prior, c, u, k, d, x[d], v, vl);
-            else
-                P::template update_dim<false>(prior, c, u, k, d, x[d], v, vl);
-#pragma unroll
-            for (int r = 0; r < P::kSums; ++r) {
-                dst[r * D + d] = v[r];
-                if constexpr (kItem) stg[r * D + d] = v[r];
-            }
-        }
-        __syncwarp();  // the column and vl are written
-        if (lane == ((k % T) & 31)) {
-            P::finish(a.pr, c, u, k, vl);
-            c.tslot[k] = (int)slot;
-            c.cnt[k] = u.c_new;
-            if constexpr (!kBigram)
-                c.wt[k] = a.lms * logf(a.alpha_over_K + u.c_new);
-        }
-    };
-
-    // Item chain: item 0 leaves its old column before step 0 is scored.
-    if constexpr (kItem) {
-        const int kd = n_steps > 0 ? a.k_old[bS] : -1;
-        if (kd >= 0 && (kd % T) >> 5 == warp) {
-            stage_sums(kd, stage2);
-            cp_async_commit();
-            cp_async_wait_all();
-            apply(kd, xs, stage2, vlog2, 0, true);
-        }
-        __syncthreads();
-    }
-
     int j_prev = -1;  // the previous valid segment's draw (block-uniform)
     for (int it = 0; it < n_steps; ++it) {
-        const int s = step_of(it);
+        const int s = steps[it];
         const int par = it & 1;
         const float *x = xs + (it % 3) * (D + 1);
         const float lp = x[D];
@@ -427,9 +336,6 @@ __device__ __forceinline__ void run_chain(const Args<P> &a) {
             brow = a.lm.big + (int64_t)j_prev * K;
             uni_jb = (float)a.lm.uni[bK + j_prev] + a.lm.b;
         }
-        // item chain: the column item it + 1 leaves after this step
-        int kd = -1;
-        if (kItem && it + 1 < n_steps) kd = a.k_old[bS + it + 1];
 
         float best_v = NEG_INF;
         int best_i = INT_MAX;  // 2 k + (cnt[k] > 0)
@@ -491,59 +397,53 @@ __device__ __forceinline__ void run_chain(const Args<P> &a) {
                           : (first_empty < K ? first_empty : K - 1);
         if (tid == 0) kout[s] = k_new;
         j_prev = k_new;
-        // no step reads the last update (the item chain writes it out)
-        if (!kItem && it + 1 == n_steps) break;
+        if (it + 1 == n_steps) break;  // no step reads the last update
 
-        // The owner warp of k_new adds x; in the item chain the owner warp
-        // of kd then removes x_(it+1) (from the add's sums where kd is
-        // k_new).  Their copies start right after the barrier, then the
-        // prefetch, then each waits for its own copies only: one round
-        // trip an update at any D.
-        const bool add_w = (k_new % T) >> 5 == warp;
-        const bool del_w = kd >= 0 && (kd % T) >> 5 == warp;
-        const bool same = kd == k_new;
-        if (add_w) stage_sums(k_new, stage);
-        if (del_w && !same) stage_sums(kd, stage2);
-        if (add_w || del_w) cp_async_commit();
-        prefetch(it + 2);  // into the slots steps it - 1 and it are done with
-        if (add_w || del_w) cp_async_wait_prior();
-        if (add_w)
-            apply(k_new, x, stage, vlog, kItem ? 2LL * it + 1 : s, false);
-        if (del_w) {
-            if (same) __syncwarp();  // the add's count and terms are set
-            apply(kd, xs + ((it + 1) % 3) * (D + 1), same ? stage : stage2,
-                  vlog2, 2LL * (it + 1), true);
-        }
-    }
-
-    // Item chain: every column's final count and running sums.
-    if constexpr (kItem) {
-        __syncthreads();
-        for (int k = tid; k < K; k += T) {
-            a.cnt_out[bK + k] = (int)c.cnt[k];
-            const int ts = c.tslot[k];
+        const int own = k_new % T;  // the owner thread of k_new
+        const bool owner_warp = own >> 5 == warp;
+        if (owner_warp) {
+            // Column k_new's running sums, all dims at once: from the
+            // leave-out statistics on first touch, else from its touched
+            // slot; lane l copies dims l, l + 32, ...
+            const int ts = c.tslot[k_new];
+            const int64_t stride = ts < 0 ? K : 1;
             for (int r = 0; r < P::kSums; ++r) {
-                float *out = a.sums_out + (bK * P::kSums + (int64_t)r * K) * D;
-                for (int d = 0; d < D; ++d)
-                    out[(int64_t)d * K + k] =
-                        ts < 0 ? P::sums(a.pr, r)[bDK + (int64_t)d * K + k]
-                               : a.touched[((bT + ts) * P::kSums + r) * D + d];
+                const float *src =
+                    ts < 0 ? P::sums(a.pr, r) + bDK + k_new
+                           : a.touched + ((bS + ts) * P::kSums + r) * D;
+                for (int d = lane; d < D; d += 32)
+                    cp_async4(stage + r * D + d, src + d * stride);
+            }
+            cp_async_commit();
+        }
+        prefetch(it + 2);  // into the slots steps it - 1 and it are done with
+        if (owner_warp) {
+            // The owner's warp re-derives column k_new with x added: lane l
+            // takes dims l, l + 32, ...; the owner lane sets the column's
+            // terms.
+            cp_async_wait_prior();  // this thread's share of the sums
+            const int k = k_new;
+            const typename P::Upd u = P::begin(a.pr, D, c.cnt[k] + 1.0f);
+            const float *src = stage;
+            float *dst = a.touched + (bS + s) * P::kSums * D;
+            for (int d = lane; d < D; d += 32) {
+                float v[P::kSums];
+#pragma unroll
+                for (int r = 0; r < P::kSums; ++r) v[r] = src[r * D + d];
+                P::update_dim(prior, c, u, k, d, x[d], v, vlog);
+#pragma unroll
+                for (int r = 0; r < P::kSums; ++r) dst[r * D + d] = v[r];
+            }
+            __syncwarp();  // the column and vlog are written
+            if (lane == (own & 31)) {
+                P::finish(a.pr, c, u, k, vlog);
+                c.tslot[k] = s;
+                c.cnt[k] = u.c_new;
+                if constexpr (!kBigram)
+                    c.wt[k] = a.lms * logf(a.alpha_over_K + u.c_new);
             }
         }
     }
-}
-
-template <class P, bool kBigram, bool kGlob>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    chain_kernel(const Args<P> a) {
-    run_chain<P, kBigram, kGlob, false>(a);
-}
-
-// Kernel K10, the item chain (the FBGMM's sequential Gibbs sweep).
-template <class P, bool kGlob>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    gibbs_items_kernel(const Args<P> a) {
-    run_chain<P, false, kGlob, true>(a);
 }
 
 // Launches one form with the dynamic shared memory smem_words gives (the
@@ -553,28 +453,6 @@ cudaError_t launch_form(const Args<P> &a, int B, int threads,
                         cudaStream_t stream) {
     auto kern = chain_kernel<P, kBigram, kGlob>;
     const int smem = (int)(4 * smem_words<P>(kGlob, kBigram, a.D, a.S, a.K));
-    static int allowed = -1;
-    if (smem > allowed) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return err;
-        allowed = smem;
-    }
-    kern<<<B, threads, smem, stream>>>(a);
-    return cudaGetLastError();
-}
-
-// Launches the item chain K10 in one form (one CTA a chain; the steps are
-// the S items, so no 2^15 bound on S).
-template <class P, bool kGlob>
-cudaError_t launch_items(const Args<P> &a, int B, int threads,
-                         cudaStream_t stream) {
-    if (threads < 32 || threads > kMaxThreads || threads % 32 != 0)
-        return cudaErrorInvalidValue;
-    if (B == 0 || a.S == 0) return cudaGetLastError();
-    auto kern = gibbs_items_kernel<P, kGlob>;
-    const int smem =
-        (int)(4 * smem_words<P>(kGlob, false, a.D, a.S, a.K, true));
     static int allowed = -1;
     if (smem > allowed) {
         const cudaError_t err = cudaFuncSetAttribute(

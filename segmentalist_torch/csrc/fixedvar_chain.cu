@@ -27,7 +27,7 @@
 //
 // The same policy with kSq (the sums sx and ssq, ssq carried for the
 // model's statistics) runs the item chain K10 of the fixed-variance FBGMM
-// (gibbs_items_kernel, diag_family_chain.cuh), the JAX package's
+// (items_kernel, item_chain.cuh), the JAX package's
 // sequential sweep (segmentalist_tpu/models/fbgmm.py:517-570, a lax.scan)
 // with components_fixedvar's predictive: the same fit as K3 to the
 // rounding of the operation order.
@@ -35,6 +35,7 @@
 #include <cstdint>
 
 #include "diag_family_chain.cuh"
+#include "item_chain.cuh"
 
 namespace {
 
@@ -61,6 +62,7 @@ template <bool kStorePP, bool kSq = false>
 struct FixedVarChain {
     static constexpr int kTables = kStorePP ? 2 : 1;
     static constexpr int kTerms = 1, kPrior = 3, kSums = kSq ? 2 : 1;
+    static constexpr int kSplit = 1;  // K10: a thread a column's fit
     using Params = FixedVarParams;
     struct Upd {
         float c_new;
@@ -126,26 +128,31 @@ struct FixedVarChain {
         }
     }
 
-    template <int kN>
-    __device__ static void init_batch(const Params &p, const float *prior,
-                                      const Cols &c, int64_t bDK, int k,
-                                      int d, float cn, float &lpp) {
-        float v[kN];
+    // A column from its running sums, sx of dim d at s[d ld] (ssq, at s +
+    // rs, is carried only): its tables and term.
+    __device__ static void init_sums(const Params &p, const float *prior,
+                                     const Cols &c, int k, float cn,
+                                     const float *s, int64_t ld, int64_t) {
+        float lpp = 0.0f;
+        int d = 0;
+        for (; d + kBatch <= c.D; d += kBatch) {
+            float v[kBatch];
 #pragma unroll
-        for (int j = 0; j < kN; ++j)
-            v[j] = p.sum_xT[bDK + (int64_t)(d + j) * c.K + k];
-        derive_batch<kN>(prior, c, k, d, cn, v, lpp);
+            for (int j = 0; j < kBatch; ++j) v[j] = s[(d + j) * ld];
+            derive_batch<kBatch>(prior, c, k, d, cn, v, lpp);
+        }
+        for (; d < c.D; ++d) {
+            const float v[1] = {s[d * ld]};
+            derive_batch<1>(prior, c, k, d, cn, v, lpp);
+        }
+        set_terms(p, c, Upd{cn}, k, lpp);
     }
 
+    // K3 / K4: a column from the leave-out sums [D, K] at bDK.
     __device__ static void init(const Params &p, const float *prior,
                                 const Cols &c, int64_t bDK, int k,
                                 float cn) {
-        float lpp = 0.0f;
-        int d = 0;
-        for (; d + kBatch <= c.D; d += kBatch)
-            init_batch<kBatch>(p, prior, c, bDK, k, d, cn, lpp);
-        for (; d < c.D; ++d) init_batch<1>(p, prior, c, bDK, k, d, cn, lpp);
-        c.term[k] = p.c0 + 0.5f * lpp;
+        init_sums(p, prior, c, k, cn, p.sum_xT + bDK + k, c.K, 0);
     }
 
     // Dims d .. d + kN - 1 of the Mahalanobis sum of a column (count cn):
@@ -212,24 +219,65 @@ struct FixedVarChain {
         return Upd{c_new};
     }
 
-    // kDel: x leaves the column (sum - x, the JAX package's sum + (-1) x).
+    // x joins (kDel: leaves) the running sums v: sum + x, sum - x (the JAX
+    // package's sum + (-1) x).
     template <bool kDel>
-    __device__ static void update_dim(const float *prior, const Cols &c,
-                                      const Upd &u, int k, int d, float xd,
-                                      float (&v)[kSums], float *vlog) {
+    __device__ static void move_sums(float (&v)[kSums], float xd) {
         v[0] = kDel ? v[0] - xd : v[0] + xd;
         if constexpr (kSq) v[1] = kDel ? v[1] - xd * xd : v[1] + xd * xd;
+    }
+
+    // Dim d of the column from its new running sums v: its tables; returns
+    // its log pp (positive only).
+    __device__ static float derive_dim(const float *prior, const Cols &c,
+                                       const Upd &u, int k, int d,
+                                       const float (&v)[kSums]) {
         const float sx[1] = {v[0]};
         float lpp = 0.0f;
         derive_batch<1>(prior, c, k, d, u.c_new, sx, lpp);
-        vlog[d] = lpp;
+        return lpp;
+    }
+
+    __device__ static void update_dim(const float *prior, const Cols &c,
+                                      const Upd &u, int k, int d, float xd,
+                                      float (&v)[kSums], float *vlog) {
+        move_sums<false>(v, xd);
+        vlog[d] = derive_dim(prior, c, u, k, d, v);
+    }
+
+    // The column's term from its logs' sum lpp (ascending d).
+    __device__ static void set_terms(const Params &p, const Cols &c,
+                                     const Upd &, int k, float lpp) {
+        c.term[k] = p.c0 + 0.5f * lpp;
     }
 
     __device__ static void finish(const Params &p, const Cols &c,
-                                  const Upd &, int k, const float *vlog) {
+                                  const Upd &u, int k, const float *vlog) {
         float lpp = 0.0f;
         for (int d = 0; d < c.D; ++d) lpp = lpp + vlog[d];
-        c.term[k] = p.c0 + 0.5f * lpp;
+        set_terms(p, c, u, k, lpp);
+    }
+
+    // K10's fit split: the addend of dim d of the Mahalanobis sum (as
+    // maha_batch forms it) and the fit from the sum of the addends in
+    // ascending d.
+    __device__ static float fit_dim(const float *prior, const Cols &c,
+                                    const float *x, int k, int d, float cn) {
+        const int64_t i = (int64_t)d * c.K + k;
+        const float dl = x[d] - c.tab[i];
+        float pp;
+        if constexpr (kStorePP) {
+            pp = c.table(1)[i];
+        } else {
+            float np, dp;
+            pp_terms(prior, c.D, d, cn, np, dp);
+            pp = div_rn(np, dp);
+        }
+        return dl * dl * pp;
+    }
+
+    __device__ static float fit_sum(const Cols &c, int k, float acc) {
+        return c.term[k] - 0.5f * acc;
     }
 };
 
@@ -323,49 +371,60 @@ extern "C" int fixedvar_chain_smem_limit() {
          (const void *)chain_kernel<GlobalChain, true, true>});
 }
 
-// Kernel K10 (fixed variance): the item chain over S items of one model
-// (B = 1).  k_old [B, S] each item's old column (-1: none); counts,
-// sum_xT, sum_sqT its statistics; outputs ks [B, S], cnt_out [B, K] and
-// sums_out [B, 2, D, K] (sx, ssq); touched [B, 2 S, 2, D] scratch.
+// Kernel K10 (fixed variance, item_chain.cuh): the sequential sweep over n
+// items of one model on a cluster of `cluster` CTAs of `threads`.  k_old
+// [n] each item's old column (-1: none); counts [K], sum_xT, sum_sqT [D,
+// K] its statistics; outputs ks [n], cnt_out [K] and sums_out [2, D, K]
+// (sx, ssq).  tab_global: the tables, terms and running sums in device
+// memory (tab_g [D + 1, K] scratch, sums_out the running sums).  probe
+// [C, W, 2, kPhases + 1] (or null) takes the probe build's cycles.
 extern "C" int fixedvar_items_launch(
-    const float *Xe, const float *log_prior_e, const float *gumbel,
+    const float *X, const float *log_prior, const float *gumbel,
     const int *k_old, const int *counts, const float *sum_xT,
     const float *sum_sqT, const float *prec, const float *prec0,
-    const float *p0m0, float *touched, float *tab_g, float *col_g, int *ks,
-    int *cnt_out, float *sums_out, int B, int S, int D, int K, int global,
+    const float *p0m0, float *tab_g, int *ks, int *cnt_out, float *sums_out,
+    long long *probe, int n, int D, int K, int cluster, int tab_global,
     int threads, float alpha_over_K, float lms, float temp, float c0,
     int use_argmax, cudaStream_t stream) {
-    namespace dfc = diag_family_chain;
     const FixedVarParams pr{sum_xT, sum_sqT, prec, prec0, p0m0, c0};
-    if (global) {
-        Args<GlobalItems> a{nullptr, Xe, log_prior_e, gumbel, counts, pr,
-                            touched, tab_g, col_g, ks, S, D, K,
-                            alpha_over_K, lms, temp, use_argmax, BigramLM{},
-                            k_old, cnt_out, sums_out};
-        return (int)dfc::launch_items<GlobalItems, true>(a, B, threads,
-                                                         stream);
+    if (tab_global) {
+        if (tab_g == nullptr) return (int)cudaErrorInvalidValue;
+        const item_chain::Args<GlobalItems> a{
+            X,  log_prior, gumbel,       k_old, counts, pr,  tab_g, ks,
+            cnt_out, sums_out, probe, n, D, K,  alpha_over_K, lms,  temp,
+            use_argmax};
+        return (int)item_chain::launch<GlobalItems, true>(a, cluster,
+                                                          threads, stream);
     }
-    Args<SmemItems> a{nullptr, Xe, log_prior_e, gumbel, counts, pr, touched,
-                      tab_g, col_g, ks, S, D, K, alpha_over_K, lms, temp,
-                      use_argmax, BigramLM{}, k_old, cnt_out, sums_out};
-    return (int)dfc::launch_items<SmemItems, false>(a, B, threads, stream);
+    const item_chain::Args<SmemItems> a{
+        X,  log_prior, gumbel,       k_old, counts, pr,  nullptr, ks,
+        cnt_out, sums_out, probe, n, D, K,  alpha_over_K, lms,    temp,
+        use_argmax};
+    return (int)item_chain::launch<SmemItems, false>(a, cluster, threads,
+                                                     stream);
 }
 
-// K10's dynamic shared memory in bytes in the given form (the launch
-// plan's smem_bytes must give exactly this).
-extern "C" long long fixedvar_items_smem_bytes(int global, int D, int K) {
-    namespace dfc = diag_family_chain;
-    return 4 * (global ? dfc::smem_words<GlobalItems>(true, false, D, 0, K,
-                                                      true)
-                       : dfc::smem_words<SmemItems>(false, false, D, 0, K,
-                                                    true));
+// K10's dynamic shared memory in bytes a CTA (the launch plan's must give
+// exactly this), and its block size, at a cluster of `cluster` CTAs.
+extern "C" long long fixedvar_items_smem_bytes(int D, int K, int cluster,
+                                               int tab_global) {
+    return 4 * (tab_global
+                    ? item_chain::smem_words<GlobalItems>(D, K, cluster, true)
+                    : item_chain::smem_words<SmemItems>(D, K, cluster,
+                                                        false));
+}
+
+extern "C" int fixedvar_items_threads(int D, int K, int cluster) {
+    return item_chain::threads_of<SmemItems>(D, K, cluster);
 }
 
 // The dynamic shared memory a CTA of K10 (fixed variance) may take on the
-// current device (minus a CUDA error code on error).
+// current device, and the largest cluster the card schedules (minus a
+// CUDA error code on error).
 extern "C" int fixedvar_items_smem_limit() {
-    using diag_family_chain::gibbs_items_kernel;
-    return diag_family_chain::smem_limit(
-        {(const void *)gibbs_items_kernel<SmemItems, false>,
-         (const void *)gibbs_items_kernel<GlobalItems, true>});
+    return item_chain::smem_limit<SmemItems, GlobalItems>();
+}
+
+extern "C" int fixedvar_items_max_cluster() {
+    return item_chain::max_cluster<SmemItems, GlobalItems>();
 }

@@ -15,14 +15,15 @@ For each item i in order, with statistics updated by the items before it:
   4. a draw on an empty column moves to the first empty one (else K - 1);
   5. item i joins the drawn column.
 
-K10 is the chain template's item mode (``csrc/diag_family_chain.cuh``,
-``gibbs_items_kernel``) with the fixed-variance policy of K3
-(``csrc/fixedvar_chain.cu``) or the exact diag policy
-(``csrc/diag_chain.cu::DiagExactChain``: the per-dimension ``log1p`` sum of
-``components_diag``, not K6's grouped form, and lgamma from
-:func:`cuda_diag_chain.gr_table`).  Its plain version is the chain loop of
-the other plain chains (``cuda_chain._chain_plain``) with the delete and
-the same column models.
+K10 (``csrc/item_chain.cuh``, ``items_kernel``) runs on a thread-block
+cluster of C CTAs, each the owner of K/C columns with their tables and
+running sums on chip (:func:`item_launch_plan`), with the column model of
+the chain template's fixed-variance policy (``csrc/fixedvar_chain.cu``)
+or its exact diag policy (``csrc/diag_chain.cu::DiagExactChain``: the
+per-dimension ``log1p`` sum of ``components_diag``, not K6's grouped form,
+and lgamma from :func:`cuda_diag_chain.gr_table`).  Its plain version is
+the chain loop of the other plain chains (``cuda_chain._chain_plain``)
+with the delete and the same column models.
 
 K11 (``csrc/fullcov_item_chain.cu``, ``fullcov_items_kernel``) keeps each
 occupied column's predictive parameters (m_n, the inverse Cholesky factor
@@ -48,8 +49,7 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_lib
-from .cuda_chain import (_LOG_2PI, ChainPlan, FixedVarCols, _chain_plain,
-                         pick_form)
+from .cuda_chain import _LOG_2PI, FixedVarCols, _chain_plain
 from .cuda_diag_chain import _HALF_LOG_PI, DiagCols, gr_table, prior_terms
 from .random import annealed_gumbel_max
 from .stats import SuffStats, canonicalize_new_component
@@ -325,33 +325,110 @@ def full_chain_plain(X, log_prior, noise, k_old, counts, sum_x, sum_sq,
     return ks, SuffStats(cnt.to(torch.int32), sum_x, sum_sq)
 
 
-# Per family: the tables of the smem and global forms, the hoisted terms,
-# the prior vectors (K10 carries two sums, sx and ssq, in both).
+# K10's plan (csrc/item_chain.cuh): clusters of C CTAs, at least enough
+# that a CTA owns at most ITEM_COLS_CTA columns, where the tables and sums
+# fit on chip; a column's fit on one scoring thread up to D ITEM_SPLIT_D,
+# above it (the diag family only) split over up to _SPLIT threads; a
+# scoring warp for every 32 scoring threads of a CTA's share (at most
+# ITEM_SCORE_WARPS) and two update warps.  Per family: the tables on chip
+# and in device memory (the fixed family's global form recomputes pp
+# from the count), the hoisted terms, the prior vectors; both carry two
+# running sums (sx, ssq).
+ITEM_CLUSTERS = (1, 2, 4, 8, 16)
+ITEM_COLS_CTA = 128
+ITEM_SCORE_WARPS = 8
+ITEM_SPLIT_D = 32
 _TABLES = {"fixed": {"smem": 2, "global": 1}, "diag": {"smem": 2, "global": 2}}
 _TERMS = {"fixed": 1, "diag": 2}
 _PRIOR = {"fixed": 3, "diag": 2}
+_SPLIT = {"fixed": 1, "diag": 4}
 _SUMS = 2
+_LIB_NAME = {"fixed": "fixedvar", "diag": "diag"}  # the C entry points' prefix
 
 
-def col_arrays(family: str, global_tables: bool) -> int:
-    """Column arrays of the CTA: cnt, the hoisted terms, the weight term and
-    the touched slot (the global form's device-memory array reserves one
-    more row, as the template sizes it for the bigram chains)."""
-    return 3 + _TERMS[family] + (1 if global_tables else 0)
+class ItemPlan(NamedTuple):
+    """How K10 launches: one cluster of ``cluster`` CTAs of ``threads``,
+    ``smem`` bytes of dynamic shared memory a CTA; ``tables`` "smem" (the
+    columns' tables, terms and running sums on chip) or "global" (in
+    device memory)."""
+
+    cluster: int
+    threads: int
+    tables: str
+    smem: int
 
 
-def smem_bytes(family: str, global_tables: bool, D: int, K: int) -> int:
-    """Dynamic shared memory of K10's CTA, as the kernel reserves it
-    (``csrc/diag_family_chain.cuh::smem_words`` of the policy, item mode).
-    The smem form: per column its tables, cnt, the hoisted terms, the
-    weight term, the touched slot and a double-buffered noise value.  Both
-    forms: x and the log prior [3, D + 1]; the prior vectors, and the logs
-    and running sums of the adding and of the deleting update [2 (1 + 2),
-    D].  K11 (full): :func:`full_smem_bytes`."""
-    per_col = _TABLES[family]["smem"] * D + col_arrays(family, False) + 2
-    words = ((0 if global_tables else per_col * K) + 3 * (D + 1)
-             + (_PRIOR[family] + 2 * (1 + _SUMS)) * D)
-    return 4 * words
+def item_split(family: str, D: int, K: int, C: int) -> int:
+    """K10's scoring threads a column: 1 up to D ITEM_SPLIT_D, else the
+    most (up to the family's _SPLIT: the diag family's division and log1p
+    a dim are worth a group, the fixed family's three products are not; a
+    power of two) that give every column of the largest share a group
+    within ITEM_SCORE_WARPS warps."""
+    cols, s = -(-K // C), _SPLIT[family] if D > ITEM_SPLIT_D else 1
+    while s > 1 and s * cols > 32 * ITEM_SCORE_WARPS:
+        s //= 2
+    return s
+
+
+def item_threads(family: str, D: int, K: int, C: int) -> int:
+    """K10's block size: a scoring warp for every 32 scoring threads of
+    the largest share (at most ITEM_SCORE_WARPS) and two update warps."""
+    need = -(-K // C) * item_split(family, D, K, C)
+    return 32 * (min(ITEM_SCORE_WARPS, -(-need // 32)) + 2)
+
+
+def smem_bytes(family: str, D: int, K: int, C: int,
+               tables_global: bool) -> int:
+    """Dynamic shared memory of a K10 CTA, as the kernel carves it
+    (``csrc/item_chain.cuh::smem_words``), with P the largest share of
+    columns, W the warps and S the scoring threads a column: the draw's
+    entry slots [2, C W] (16 bytes each); on chip the tables [kTables, D,
+    P], the running sums [2, D, P] and the terms [kTerms, P]; counts,
+    weight terms and two items' noise [4, P]; x and the log prior of three
+    items [3, D + 1]; the prior vectors [kPrior, D]; the two update warps'
+    logs and fit addends [4, D]; where S > 1 the scoring groups' addends
+    [32 (W - 2) / S, D].  K11 (full): :func:`full_smem_bytes`."""
+    P = -(-K // C)
+    W = item_threads(family, D, K, C) // 32
+    S = item_split(family, D, K, C)
+    cols = (0 if tables_global else
+            ((_TABLES[family]["smem"] + _SUMS) * D + _TERMS[family]) * P)
+    groups = 32 * (W - 2) // S * D if S > 1 else 0
+    return 4 * (8 * C * W + cols + 4 * P + 3 * (D + 1) + _PRIOR[family] * D
+                + 4 * D + groups)
+
+
+def item_launch_plan(family: str, D: int, K: int, smem_limit: int,
+                     max_cluster: int, cluster: int | None = None
+                     ) -> ItemPlan:
+    """K10's plan under ``smem_limit`` bytes of dynamic shared memory a CTA
+    and clusters of at most ``max_cluster`` CTAs (pure Python).  C runs
+    from the least that leaves a CTA ITEM_COLS_CTA columns up to the
+    largest the card and K allow, and the first that holds the tables and
+    sums on chip wins; else the largest C with them in device memory.
+    ``cluster`` forces C.  Raises where nothing fits: no smaller plan, no
+    fallback."""
+    if family not in _TERMS:
+        raise ValueError("no K10 item chain for family %r" % (family,))
+    if D < 1 or K < 1:
+        raise ValueError("no K10 item chain for D=%d, K=%d" % (D, K))
+    cap = max(c for c in ITEM_CLUSTERS if c <= max(1, min(max_cluster, K)))
+    if cluster is not None:
+        if cluster not in ITEM_CLUSTERS or cluster > cap:
+            raise ValueError("a cluster of %d CTAs is not schedulable for "
+                             "K=%d (at most %d)" % (cluster, K, cap))
+        sizes = [cluster]
+    else:
+        start = next((c for c in ITEM_CLUSTERS
+                      if c <= cap and -(-K // c) <= ITEM_COLS_CTA), cap)
+        sizes = [c for c in ITEM_CLUSTERS if start <= c <= cap]
+    for c, tab_g in [(c, False) for c in sizes] + [(sizes[-1], True)]:
+        smem = smem_bytes(family, D, K, c, tab_g)
+        if smem <= smem_limit:
+            return ItemPlan(c, item_threads(family, D, K, c),
+                            "global" if tab_g else "smem", smem)
+    raise ValueError("no %s item chain form fits K=%d, D=%d in %d bytes"
+                     % (family, K, D, smem_limit))
 
 
 class FullPlan(NamedTuple):
@@ -440,15 +517,13 @@ def full_launch_plan(D: int, K: int, smem_limit: int, max_cluster: int,
 
 def launch_plan(family: str, D: int, K: int, smem_limit: int,
                 max_cluster: int = 1, cluster: int | None = None):
-    """The plan of K10 (a ChainPlan) or K11 (family "full": a FullPlan,
-    :func:`full_launch_plan`).  K10: "smem" where the tables fit the
-    ``smem_limit`` bytes of dynamic shared memory a CTA may take, else
-    "global"; raises if neither fits.  The chain's length does not enter:
-    the steps are the items, read from device memory."""
+    """The plan of K10 (an ItemPlan, :func:`item_launch_plan`) or K11
+    (family "full": a FullPlan, :func:`full_launch_plan`).  The chain's
+    length does not enter: the steps are the items, read from device
+    memory."""
     if family == "full":
         return full_launch_plan(D, K, smem_limit, max_cluster, cluster)
-    return pick_form(lambda g: smem_bytes(family, g, D, K), K, 0, smem_limit,
-                     "%s item" % family)
+    return item_launch_plan(family, D, K, smem_limit, max_cluster, cluster)
 
 
 @functools.lru_cache(maxsize=None)
@@ -465,23 +540,39 @@ def full_card_limits(device_index: int) -> tuple:
     return limit, max_cluster
 
 
-def card_plan(family: str, D: int, K: int, cluster: int | None = None):
-    """:func:`launch_plan` under the current card's limits (its opt-in
-    shared memory a block less the kernel's static shared memory; K11 also
-    the largest cluster it schedules)."""
-    if family == "full":
-        return full_launch_plan(
-            D, K, *full_card_limits(torch.cuda.current_device()), cluster)
+@functools.lru_cache(maxsize=None)
+def item_card_limits(family: str, device_index: int) -> tuple:
+    """(the dynamic shared memory a K10 CTA may take, the largest cluster
+    the card schedules) of the current card for ``family``, asked once a
+    device."""
     lib = cuda_lib.library()
-    limit = {"fixed": lib.fixedvar_items_smem_limit,
-             "diag": lib.diag_items_smem_limit}[family]()
+    limit = getattr(lib, "%s_items_smem_limit" % _LIB_NAME[family])()
     if limit < 0:
         cuda_lib.check(-limit, "%s_items_smem_limit" % family)
-    return launch_plan(family, D, K, limit)
+    max_cluster = getattr(lib, "%s_items_max_cluster" % _LIB_NAME[family])()
+    if max_cluster < 0:
+        cuda_lib.check(-max_cluster, "%s_items_max_cluster" % family)
+    return limit, max_cluster
+
+
+def card_plan(family: str, D: int, K: int, cluster: int | None = None):
+    """:func:`launch_plan` under the current card's limits (its opt-in
+    shared memory a block less the kernel's static shared memory, and the
+    largest cluster it schedules)."""
+    dev = torch.cuda.current_device()
+    if family == "full":
+        return full_launch_plan(D, K, *full_card_limits(dev), cluster)
+    return item_launch_plan(family, D, K, *item_card_limits(family, dev),
+                            cluster)
 
 
 def _launch(family, Xe, log_prior_e, gumbel, k_old, counts, sum_xT, sum_sqT,
-            terms, temp, alpha, K, lms, use_argmax):
+            terms, temp, alpha, K, lms, use_argmax, probe=None, cluster=None):
+    """K10 on the card, on :func:`item_chain_inputs`' [1, ...] tensors:
+    the columns' tables and running sums on chip or, where the plan says,
+    in device memory (scratch, and the output sums).  ``cluster`` forces
+    the plan's C; ``probe`` (int64 [C, W, 2, 8], zeros) takes the probe
+    build's cycles a phase (``utils/item_probe.py``)."""
     global launches
     _, S, D = Xe.shape
     dev, f32 = Xe.device, torch.float32
@@ -497,23 +588,21 @@ def _launch(family, Xe, log_prior_e, gumbel, k_old, counts, sum_xT, sum_sqT,
         req(t, "prior term %d" % i, f32, (D,), dev)
     if family == "diag":
         req(terms[2], "gr", f32, (terms[2].shape[0],), dev)
-    plan = card_plan(family, D, K)
-    glob = plan.form == "global"
+    plan = card_plan(family, D, K, cluster)
+    glob = plan.tables == "global"
+    if probe is not None:
+        req(probe, "probe", torch.int64,
+            (plan.cluster, plan.threads // 32, 2, 8), dev)
     ks = torch.empty((1, S), dtype=torch.int32, device=dev)
     cnt = torch.empty((1, K), dtype=torch.int32, device=dev)
     sums = torch.empty((1, _SUMS, D, K), dtype=f32, device=dev)
-    touched = torch.empty((1, 2 * S, _SUMS, D), dtype=f32, device=dev)
-    tab_g = col_g = None
-    if glob:
-        tab_g = torch.empty((1, _TABLES[family]["global"], D, K), dtype=f32,
-                            device=dev)
-        col_g = torch.empty((1, col_arrays(family, True), K), dtype=f32,
-                            device=dev)
+    tab_g = (torch.empty((_TABLES[family]["global"] * D + _TERMS[family]) * K,
+                         dtype=f32, device=dev) if glob else None)
     p = cuda_lib.ptr
     head = (p(Xe), p(log_prior_e), p(gumbel), p(k_old), p(counts),
             p(sum_xT), p(sum_sqT))
-    tail = (p(touched), p(tab_g), p(col_g), p(ks), p(cnt), p(sums), 1, S, D,
-            K, int(glob), plan.threads, alpha / K, lms, temp)
+    tail = (p(tab_g), p(ks), p(cnt), p(sums), p(probe), S, D, K,
+            plan.cluster, int(glob), plan.threads, alpha / K, lms, temp)
     lib = cuda_lib.library()
     if family == "fixed":
         err = lib.fixedvar_items_launch(

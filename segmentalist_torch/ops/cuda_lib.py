@@ -85,21 +85,26 @@ _SIGNATURES = {
     "diag_chain_smem_bytes": [_I] * 5,
     # -> bytes (or minus a CUDA error code)
     "diag_chain_smem_limit": [],
-    # Xe, log_prior_e, gumbel, k_old, counts, sum_xT, sum_sqT, prec, prec0,
-    # p0m0, touched, tab_g, col_g, ks, cnt_out, sums_out, B, S, D, K,
-    # global, threads, alpha_over_K, lms, temp, c0, use_argmax, stream
-    "fixedvar_items_launch": [_P] * 16 + [_I] * 6 + [_F] * 4 + [_I, _P],
-    # Xe, log_prior_e, gumbel, k_old, counts, sum_xT, sum_sqT, k0m0, snp0,
-    # gr, k0, v0, touched, tab_g, col_g, ks, cnt_out, sums_out, B, S, D, K,
-    # global, threads, alpha_over_K, lms, temp, half_log_pi, use_argmax,
-    # stream
-    "diag_items_launch": [_P] * 10 + [_F] * 2 + [_P] * 6 + [_I] * 6
+    # X, log_prior, gumbel, k_old, counts, sum_xT, sum_sqT, prec, prec0,
+    # p0m0, tab_g, ks, cnt_out, sums_out, probe, n, D, K, cluster,
+    # tab_global, threads, alpha_over_K, lms, temp, c0, use_argmax, stream
+    "fixedvar_items_launch": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_I, _P],
+    # X, log_prior, gumbel, k_old, counts, sum_xT, sum_sqT, k0m0, snp0, gr,
+    # k0, v0, tab_g, ks, cnt_out, sums_out, probe, n, D, K, cluster,
+    # tab_global, threads, alpha_over_K, lms, temp, half_log_pi,
+    # use_argmax, stream
+    "diag_items_launch": [_P] * 10 + [_F] * 2 + [_P] * 5 + [_I] * 6
                          + [_F] * 4 + [_I, _P],
-    # global, D, K -> bytes; -> bytes (or minus a CUDA error code)
-    "fixedvar_items_smem_bytes": [_I] * 3,
+    # D, K, cluster, tab_global -> bytes; D, K, cluster -> threads; ->
+    # bytes, or the largest cluster (or minus a CUDA error code)
+    "fixedvar_items_smem_bytes": [_I] * 4,
+    "diag_items_smem_bytes": [_I] * 4,
+    "fixedvar_items_threads": [_I] * 3,
+    "diag_items_threads": [_I] * 3,
     "fixedvar_items_smem_limit": [],
-    "diag_items_smem_bytes": [_I] * 3,
+    "fixedvar_items_max_cluster": [],
     "diag_items_smem_limit": [],
+    "diag_items_max_cluster": [],
     # X, log_prior, gumbel, k_old, counts, k0m0, snp0, cterms, k0, v0,
     # sum_x, sum_sq, tab_g, work_g, ks, cnt_out, probe, n, D, K, cluster,
     # tab_global, work_global, threads, alpha_over_K, lms, temp, use_argmax,

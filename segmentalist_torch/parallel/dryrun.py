@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import faulthandler
+import gc
 import multiprocessing.connection
 import os
 import pickle
@@ -113,13 +115,20 @@ def launch(fn, world_size: int, args=(), device="cpu",
 
 def _read(tmp, rank, ext):
     path = os.path.join(tmp, "rank%d.%s" % (rank, ext))
-    if not os.path.exists(path):
-        return "(no traceback: the process ended before writing one)"
-    with open(path) as f:
-        return f.read()
+    text = ""
+    if os.path.exists(path):
+        with open(path, errors="replace") as f:
+            text = f.read()
+    return text or "(nothing on stderr: the process ended before writing)"
 
 
 def _rank_main(fn, rank, world_size, tmp, device, timeout, args):
+    # The rank's stderr, file descriptor 2 itself, goes to rank<r>.err:
+    # an abort in C++ (a backend's own threads) leaves its message there,
+    # and faulthandler the Python stacks at the signal.
+    err = open(os.path.join(tmp, "rank%d.err" % rank), "a")
+    os.dup2(err.fileno(), 2)
+    faulthandler.enable(err, all_threads=True)
     dev = torch.device(device)
     if dev.type == "cpu":
         torch.set_num_threads(1)
@@ -128,16 +137,40 @@ def _rank_main(fn, rank, world_size, tmp, device, timeout, args):
         backend, init_method="file://" + os.path.join(tmp, "init"),
         world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout))
+    failed, mesh, value = False, None, None
     try:
-        value = fn(make_mesh(world_size, device=device), *args)
+        mesh = make_mesh(world_size, device=device)
+        # Every rank is connected before any runs, and has run before any
+        # closes its connections: a rank that tears its group down while a
+        # peer still connects or reads makes the peer fail ("Connection
+        # closed by peer").
+        _barrier()
+        value = fn(mesh, *args)
         with open(os.path.join(tmp, "rank%d.pkl" % rank), "wb") as f:
             pickle.dump(value, f)
+        _barrier()
     except BaseException:
-        with open(os.path.join(tmp, "rank%d.err" % rank), "w") as f:
-            f.write(traceback.format_exc())
-        raise
-    finally:
-        dist.destroy_process_group()
+        err.write(traceback.format_exc())
+        err.flush()
+        failed = True
+    mesh = value = None
+    # The segmenters fn built hold the group in reference cycles (their
+    # Shard, their closures).  Freed here, they leave the group to
+    # destroy_process_group, which joins its threads; left to the
+    # interpreter's exit, the group's destructor ran there and aborted
+    # ("terminate called without an active exception").
+    gc.collect()
+    dist.destroy_process_group()
+    if failed:
+        raise SystemExit(1)  # the traceback is written once
+
+
+def _barrier():
+    """A barrier of the default group (NCCL: on this rank's card)."""
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
 
 
 def mesh_device(mesh) -> torch.device:
@@ -324,6 +357,109 @@ def shard_sweep_from_state(mesh, family: str, n_utterances: int,
             "log_prob": float(lp)}
 
 
+def shard_surface(mesh, family: str, n_utterances: int, batch_size: int,
+                  seed: int, state: dict, monitored, poisoned: int,
+                  noise=None) -> dict:
+    """What the per-shard mode reads of the corpus, on this rank: a toy
+    segmenter (:func:`build_segmenter`) takes ``state``
+    (``interop.load_state``), is sharded and switched to the per-shard
+    sweep, then gives (collectives all):
+
+    - ``traces``: the monitor traces of the utterances ``monitored``;
+    - ``flags``: the validate flags, and ``poisoned_flags`` with utterance
+      ``poisoned``'s final boundary cleared on its owner;
+    - ``scores`` (unigram and bigram): the batch scores of every
+      utterance, and ``scores_order`` those of a shuffled order;
+    - ``debug`` (the unigram driver and k-means, the drivers with a
+      debug-only flag; else None): the state after one debug-only sweep of
+      utterance ``monitored[-1]`` (``gibbs_sample(1, monitor_i,
+      debug_gibbs_only)`` on this rank's ``noise[rank]``, a list of (dp,
+      chain) numpy pairs, when given; ``segment(1, monitor_i,
+      segment_debug_only)`` for k-means);
+    - ``records`` and ``log``: ``gibbs_sample(2, monitor_i=0,
+      validate=True)`` (``segment`` for k-means) and the monitor lines it
+      logs;
+    - ``raised`` (the drivers with a debug-only flag): the error of a
+      validated debug-only sweep of ``monitored[-1]`` with ``poisoned``
+      poisoned again (its owner's rows only)."""
+    import logging
+
+    from ..interop import load_state
+    from ..utils.debug import ValidationError
+
+    dev = mesh_device(mesh)
+    seg = build_segmenter(family, n_utterances, batch_size, seed, dev)
+    load_state(seg, state)
+    use_shard_map_sweep(shard_segmenter(seg, mesh), mesh)
+    sh, utt = seg._shard, seg.utterances
+    kmeans = family == "kmeans"
+    gibbs = (seg.segment if kmeans else seg.gibbs_sample)
+    debug_flag = ("segment_debug_only" if kmeans else
+                  None if hasattr(seg, "lm") else "debug_gibbs_only")
+    out = {"traces": [tuple(t.cpu().numpy() for t in seg._monitor(i))
+                      for i in monitored],
+           "flags": seg._validate().cpu().numpy()}
+    if not kmeans:
+        score = (seg.get_vec_embed_log_probs_unigram_all if hasattr(seg, "lm")
+                 else seg.get_vec_embed_log_probs_all)
+        out["scores"] = score()
+        out["scores_order"] = score(np.random.RandomState(seed).permutation(
+            n_utterances))
+
+    def poison():
+        src, row = sh.owner(poisoned)
+        if src == sh.rank:
+            utt.boundaries_dev[row, int(utt.lengths_dev[row]) - 1] = False
+
+    saved = utt.boundaries_dev.clone()
+    poison()
+    out["poisoned_flags"] = seg._validate().cpu().numpy()
+    utt.boundaries_dev = saved.clone()
+
+    out["debug"] = out["raised"] = None
+    if debug_flag is not None:
+        run = seg._run_blocks
+        if noise is not None:
+            mine = [tuple(torch.as_tensor(a, device=dev) for a in pair)
+                    for pair in noise[sh.rank]]
+            seg._run_blocks = lambda blocks, *a, **k: run(blocks, *a,
+                                                         noise=mine, **k)
+        gibbs(1, monitor_i=monitored[-1], **{debug_flag: True})
+        seg._run_blocks = run
+        am = seg.acoustic_model
+        st = am.state if kmeans else am.stats
+        out["debug"] = {"assignments": (st.assignments if kmeans
+                                        else am.assignments).cpu().numpy(),
+                        "stats": [t.cpu().numpy() for t in (
+                            (st.counts, st.sum_x) if kmeans else st)],
+                        "boundaries": gather_boundaries(seg)}
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log = logging.getLogger("segmentalist_torch")
+    handler, level = Keep(level=logging.DEBUG), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.DEBUG)
+    try:
+        out["records"] = gibbs(2, monitor_i=0, validate=True)
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    out["log"] = [ln for ln in lines if "monitor" in ln]
+    if debug_flag is not None:
+        poison()
+        try:
+            gibbs(1, monitor_i=monitored[-1], validate=True,
+                  **{debug_flag: True})
+        except ValidationError as e:
+            out["raised"] = str(e)
+    return out
+
+
 def decollide_rows(mesh, new_ks, new_mask, lo_counts, counts0):
     """This rank's rows of the gathered decollision of a block whose [B, S]
     / [B, K] rows the ranks hold in order, B/n each: the rank's rows of
@@ -373,6 +509,14 @@ def shard_checks(mesh, n_utterances: int = 13, batch_size: int = 5) -> dict:
     return out
 
 
+def abort_rank(mesh, text: str) -> None:
+    """Write ``text`` (and this rank) to file descriptor 2 below Python,
+    then abort: a rank that dies in C, whose message the launcher must
+    keep."""
+    os.write(2, ("%s (rank %d)\n" % (text, mesh.get_rank())).encode())
+    os.abort()
+
+
 def collective_on(mesh, ranks) -> None:
     """An all-reduce that only ``ranks`` enter, the others returning at
     once: the group must fail it (a peer gone, or its timeout), not
@@ -386,7 +530,8 @@ def run_jobs(mesh, jobs) -> list:
     """Several rank functions of this module in one spawn: ``jobs`` lists
     (name, args) pairs; returns their values in order."""
     allowed = {f.__name__: f for f in (run_sweeps, shard_sweep_from_state,
-                                       decollide_rows, shard_checks)}
+                                       shard_surface, decollide_rows,
+                                       shard_checks)}
     return [allowed[name](mesh, *args) for name, args in jobs]
 
 

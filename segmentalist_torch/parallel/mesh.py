@@ -100,6 +100,7 @@ class Shard:
         self.per_shard = False
         self.gen = None      # per-shard mode: the rank's block-noise generator
         self.updates = []    # per-shard mode: this sweep's assignment updates
+        self.u_local = None  # per-shard mode: the utterance rows a rank owns
         self.timed = False
         self.seconds = 0.0
         self.bytes = 0
@@ -164,6 +165,81 @@ class Shard:
             for i, piece in zip(ids, total.split(
                     [tensors[i].numel() for i in ids])):
                 out[i] = piece.reshape(tensors[i].shape)
+        return out
+
+    def broadcast(self, tensors, src: int) -> list:
+        """``tensors`` as rank ``src`` holds them, on every rank (the others
+        pass tensors of the same shapes and dtypes): integer and boolean
+        tensors travel together as int32, floating ones together in their
+        dtype."""
+        tensors = list(tensors)
+        out = list(tensors)
+        for floating in (False, True):
+            ids = [i for i, t in enumerate(tensors)
+                   if t.is_floating_point() == floating]
+            if not ids:
+                continue
+            dtype = tensors[ids[0]].dtype if floating else torch.int32
+            flat = torch.cat([tensors[i].reshape(-1).to(dtype) for i in ids])
+            t0 = self._begin(flat)
+            buf = flat.cpu() if self._stage else flat
+            dist.broadcast(buf, src=dist.get_global_rank(self.group, src),
+                           group=self.group)
+            buf = buf.to(flat.device)
+            self._end(t0)
+            for i, piece in zip(ids, buf.split(
+                    [tensors[i].numel() for i in ids])):
+                out[i] = piece.reshape(tensors[i].shape).to(tensors[i].dtype)
+        return out
+
+    # ------------------------------------------------------ per-shard mode
+
+    def owner(self, i: int) -> tuple:
+        """(rank, local row) of global utterance ``i``."""
+        if not 0 <= int(i) < self.u_local * self.size:
+            raise IndexError("utterance %d is not in the corpus of %d rows"
+                             % (i, self.u_local * self.size))
+        return divmod(int(i), self.u_local)
+
+    def monitor(self, seg, i: int) -> tuple:
+        """``seg._monitor_device`` of global utterance ``i`` on every rank:
+        its owner traces it on its rows and broadcasts the trace (a
+        collective: every rank calls it)."""
+        src, row = self.owner(i)
+        if src == self.rank:
+            trace = seg._monitor_device(row)
+        else:  # the trace's shapes and dtypes
+            N, dev = seg.utterances.N_max, seg.device
+            trace = (seg.acoustic_model.X.new_zeros((N, seg.W_dp)),
+                     torch.zeros(N, dtype=torch.bool, device=dev),
+                     torch.zeros(N, dtype=torch.int32, device=dev))
+        return tuple(self.broadcast(trace, src))
+
+    def all_ok(self, flags: torch.Tensor) -> torch.Tensor:
+        """Invariant flags (True = OK) that each rank took on its own rows,
+        a violation on any rank made one on every rank (a collective)."""
+        return self.all_reduce((~flags).to(torch.int32)) == 0
+
+    def gather_utterances(self, utt_ids, compute, blank) -> torch.Tensor:
+        """``compute(local rows)`` of the global utterances ``utt_ids``, a
+        [len(utt_ids), ...] tensor in their order on every rank: each rank
+        computes the ones it owns, and the ranks' rows are gathered (a
+        collective).  ``blank(m)`` gives m rows of the same trailing shape
+        and dtype (a rank with none computes nothing)."""
+        ids = np.asarray(utt_ids, dtype=np.int64)
+        if ids.size and not (0 <= ids.min() and ids.max() < self.u_local
+                             * self.size):
+            raise IndexError("utterance ids outside the corpus of %d rows"
+                             % (self.u_local * self.size))
+        owner, local = np.divmod(ids, self.u_local)
+        per = [np.flatnonzero(owner == r) for r in range(self.size)]
+        m = max(len(p) for p in per)
+        mine = per[self.rank]
+        rows = compute(local[mine]) if len(mine) else blank(0)
+        whole = self.all_gather(torch.cat([rows, blank(m - len(mine))]))
+        out = blank(len(owner))
+        for r, sel in enumerate(per):
+            out[torch.as_tensor(sel, device=out.device)] = whole[r, :len(sel)]
         return out
 
     # --------------------------------------------------------- exact mode

@@ -160,10 +160,19 @@ def use_shard_map_sweep(seg, mesh):
     type) to the per-shard collective sweep; ``shard_segmenter`` must have
     put it on ``mesh`` first.  Mutates the segmenter and returns it.
 
-    The rank keeps its own rows of the corpus only: what reads the whole
-    corpus (``monitor_i``, ``validate``, the debug-only sweeps, the batch
-    scorers) is not available in this mode.  ``gather_boundaries`` gives
-    the whole boundary matrix."""
+    The rank keeps its own rows of the corpus only (rank r the global
+    utterances r U/n .. (r + 1) U/n - 1, ``Shard.owner``); the statistics
+    and assignments stay replicated.  What reads the corpus reads it on
+    the rank that owns the rows, as collectives that every rank calls:
+    ``monitor_i`` (the owner traces the utterance and broadcasts the
+    trace, so every rank logs the same record), ``validate`` (each rank
+    checks its rows, a violation on any rank raises on every rank), the
+    debug-only sweeps (the monitored utterance in its owner's block, the
+    others' blocks empty), and the batch scorers
+    (``get_vec_embed_log_probs_all``,
+    ``get_vec_embed_log_probs_unigram_all``: each owner scores its rows,
+    gathered in the caller's order).  ``gather_boundaries`` gives the whole
+    boundary matrix."""
     from ..segmenters.bigram import BigramAcousticWordseg
     from ..segmenters.kmeans_seg import SegmentalKMeansWordseg
     from ..segmenters.unigram import UnigramAcousticWordseg
@@ -189,6 +198,7 @@ def use_shard_map_sweep(seg, mesh):
 
     _localize(seg, n, u_local)
     sh.per_shard = True
+    sh.u_local = u_local
     if hasattr(seg, "_gen"):
         sh.gen = (seg._gen if n == 1
                   else rank_generator(seg._seed, sh.rank, seg.device))

@@ -275,7 +275,20 @@ class BlockedWordseg:
         am, utt = self.acoustic_model, self.utterances
         utt_ids = np.asarray(np.arange(utt.D) if utt_ids is None
                              else utt_ids, dtype=np.int64)
-        rows = _to_device(utt_ids, self.device)
+        sh = self._shard
+        if sh is not None and sh.per_shard:
+            dense = sh.gather_utterances(
+                utt_ids, lambda rows: self._dense_rows(rows, wvec),
+                lambda m: am.X.new_zeros((m,) + tuple(utt.seg_ids.shape[1:])))
+        else:
+            dense = self._dense_rows(utt_ids, wvec)
+        return dense.cpu().numpy(), [utt.lengths[i] for i in utt_ids]
+
+    def _dense_rows(self, rows_np, wvec: torch.Tensor) -> torch.Tensor:
+        """:meth:`_dense_candidate_scores` of the corpus rows ``rows_np``
+        this process holds, a device tensor [n, N_max, W_store]."""
+        am, utt = self.acoustic_model, self.utterances
+        rows = _to_device(rows_np, self.device)
         ids = utt.seg_ids[rows]  # [n, N_max, W_store]
         flat = ids.clamp_min(0).reshape(-1).long()
         x, lpv, counts = am.X[flat], am.log_prior_vec[flat], am.stats.counts
@@ -290,10 +303,9 @@ class BlockedWordseg:
                 am.cov.predictive_params(am.prior, am.stats), x)
             margs = logsumexp(wvec[None, :] + torch.where(
                 (counts > 0)[None, :], post, lpv[:, None]), dim=-1)
-        scores = masked_candidate_scores(
+        return masked_candidate_scores(
             margs.reshape(ids.shape), ids, utt.seg_durations[rows],
             self.time_power_term, self.wip)
-        return scores.cpu().numpy(), [utt.lengths[i] for i in utt_ids]
 
     def _sample_sweeps(self, temps, anneal_gibbs_am: bool,
                        am_n_iter: int = 0, monitor_i=None,
@@ -311,11 +323,6 @@ class BlockedWordseg:
         logged and the flags checked (``utils/debug.py``), as the JAX
         package does (``unigram.py:469-474``).  ``debug_only`` visits only
         utterance ``monitor_i``, in one padded block, every sweep."""
-        if self._shard is not None and self._shard.per_shard and (
-                monitor_i is not None or validate):
-            raise ValueError("monitor_i / validate / debug-only sweeps read "
-                             "the whole corpus, which the per-shard mode "
-                             "splits over the ranks")
         record = {k: [] for k in RECORD_KEYS}
         pending_monitor, pending_validate = [], []
         for temp in temps:
@@ -343,9 +350,9 @@ class BlockedWordseg:
             logger.info("iteration: %d, log_marg: %s",
                         len(record["log_marg"]) - 1, record["log_marg"][-1])
             if monitor_i is not None:
-                pending_monitor.append(self._monitor_device(int(monitor_i)))
+                pending_monitor.append(self._monitor(int(monitor_i)))
             if validate:
-                pending_validate.append(self._validate_device())
+                pending_validate.append(self._validate())
         if monitor_i is not None:
             dbg.log_monitor(logger, int(monitor_i), pending_monitor)
         if validate:
@@ -368,6 +375,22 @@ class BlockedWordseg:
     # ---------------------------------------------------------- debugging
 
     VALIDATION_CHECKS = dbg.FBGMM_CHECKS
+
+    def _monitor(self, i: int):
+        """:meth:`_monitor_device` of utterance ``i``; in the per-shard mode
+        a collective that gives every rank its owner's trace."""
+        sh = self._shard
+        if sh is not None and sh.per_shard:
+            return sh.monitor(self, i)
+        return self._monitor_device(i)
+
+    def _validate(self) -> torch.Tensor:
+        """:meth:`_validate_device`; in the per-shard mode each rank checks
+        its own rows and a violation on any rank is one on every rank (a
+        collective)."""
+        flags = self._validate_device()
+        sh = self._shard
+        return sh.all_ok(flags) if sh is not None and sh.per_shard else flags
 
     def _validate_device(self) -> torch.Tensor:
         """The invariant flags of ``VALIDATION_CHECKS`` on the current

@@ -232,11 +232,6 @@ class SegmentalKMeansWordseg:
         flag, kmeans_acoustic_wordseg.py:20; requires ``monitor_i``)."""
         if segment_debug_only and monitor_i is None:
             raise AssertionError("segment_debug_only requires monitor_i")
-        if self._shard is not None and self._shard.per_shard and (
-                monitor_i is not None or validate):
-            raise ValueError("monitor_i / validate / debug-only sweeps read "
-                             "the whole corpus, which the per-shard mode "
-                             "splits over the ranks")
         am = self.acoustic_model
         record = {k: [] for k in RECORD_KEYS}
         pending_monitor, pending_validate = [], []
@@ -258,9 +253,9 @@ class SegmentalKMeansWordseg:
                 (st.counts > 0).sum().to(f64),
                 (st.assignments >= 0).sum().to(f64)]).tolist()
             if monitor_i is not None:
-                pending_monitor.append(self._monitor_device(int(monitor_i)))
+                pending_monitor.append(self._monitor(int(monitor_i)))
             if validate:
-                pending_validate.append(self._validate_device())
+                pending_validate.append(self._validate())
             if n_iter_inbetween_kmeans > 0:
                 am.fit(n_iter_inbetween_kmeans, consider_unassigned=False)
             record["sum_neg_sqrd_norm"].append(snn)
@@ -314,6 +309,22 @@ class SegmentalKMeansWordseg:
         ks = torch.where(embeds >= 0,
                          am.state.assignments[embeds.clamp_min(0).long()], -1)
         return scores[0], utt.boundaries_dev[int(i)].clone(), ks[0]
+
+    def _monitor(self, i: int):
+        """:meth:`_monitor_device` of utterance ``i``; in the per-shard mode
+        a collective that gives every rank its owner's trace."""
+        sh = self._shard
+        if sh is not None and sh.per_shard:
+            return sh.monitor(self, i)
+        return self._monitor_device(i)
+
+    def _validate(self) -> torch.Tensor:
+        """:meth:`_validate_device`; in the per-shard mode each rank checks
+        its own rows and a violation on any rank is one on every rank (a
+        collective)."""
+        flags = self._validate_device()
+        sh = self._shard
+        return sh.all_ok(flags) if sh is not None and sh.per_shard else flags
 
     def _validate_device(self) -> torch.Tensor:
         """The invariant flags of ``utils.debug.KMEANS_CHECKS`` on the

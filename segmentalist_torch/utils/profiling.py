@@ -57,7 +57,7 @@ DP_RANGE = "segment_dp (profiled stage)"  # the profiler range of the DP
 # kernel K2: the whole DP, or the forward filter alone in a tree from
 # before the fusion
 K2_KERNELS = ("segment_dp_kernel", "forward_alphas_kernel")
-ITEM_KERNEL = "gibbs_items_kernel"  # K10, the FBGMM's item chain
+ITEM_KERNEL = "item_chain::items_kernel"  # K10, the FBGMM's item chain
 FULL_ITEM_KERNEL = "fullcov_items_kernel"  # K11, the full family's
 
 

@@ -205,34 +205,123 @@ def test_full_count_terms_are_the_student_t_constants():
 
 @pytest.mark.parametrize("family", ["fixed", "diag"])
 def test_launch_plans(family):
-    """The toy (K 4, D 2) and flagship (K 1000, D 13) shapes keep their
-    tables on chip, D 130 takes the global form, a D no form fits is
-    refused; threads cover K in whole warps up to 1024."""
-    toy = cuda_item_chain.launch_plan(family, 2, 4, LIMIT)
-    assert (toy.form, toy.threads) == ("smem", 32)
-    flag = cuda_item_chain.launch_plan(family, 13, 1000, LIMIT)
-    assert (flag.form, flag.threads) == ("smem", 1024)
-    assert flag.smem == cuda_item_chain.smem_bytes(family, False, 13, 1000)
-    long = cuda_item_chain.launch_plan(family, 130, 1000, LIMIT)
-    assert long.form == "global"
-    assert long.smem == cuda_item_chain.smem_bytes(family, True, 130, 1000)
-    assert cuda_item_chain.launch_plan(family, 13, 1000, 48 * 1024).form \
-        == "global"
+    """K10's plan on an H100 (clusters of up to 16): the toy (K 4) on one
+    CTA of a scoring warp and two update warps; the flagship on eight CTAs
+    (125 columns, four scoring warps a CTA, tables and sums on chip); D 40
+    on eight too; D 130 on sixteen (63 columns), still on chip, or in
+    device memory where clusters stop at eight; K 4000 at D 130 in device
+    memory on sixteen CTAs of eight scoring warps.  Above D 32 the diag
+    family scores a column with a group of threads (pairs at D 40, fours
+    at D 130: eight scoring warps), the fixed family with one.  A small
+    limit moves the flagship to sixteen CTAs, then off chip; a card of
+    single-CTA clusters runs it on one CTA of 320 threads.  A forced C the
+    card cannot schedule, a C that is no power of two, a K whose counts,
+    weights and noise alone do not fit, and an empty shape are refused."""
+    lp, sb = cuda_item_chain.launch_plan, cuda_item_chain.smem_bytes
+    split = family == "diag"
+    assert lp(family, 2, 4, LIMIT, 16) == (1, 96, "smem",
+                                           sb(family, 2, 4, 1, False))
+    assert lp(family, 13, 1000, LIMIT, 16) == (
+        8, 192, "smem", sb(family, 13, 1000, 8, False))
+    assert lp(family, 40, 1000, LIMIT, 16)[:3] == (
+        8, 320 if split else 192, "smem")
+    assert lp(family, 130, 1000, LIMIT, 16) == (
+        16, 320 if split else 128, "smem",
+        sb(family, 130, 1000, 16, False))
+    assert lp(family, 130, 1000, LIMIT, 8) == (
+        8, 320 if split else 192, "global", sb(family, 130, 1000, 8, True))
+    assert lp(family, 130, 4000, LIMIT, 16) == (
+        16, 320, "global", sb(family, 130, 4000, 16, True))
+    assert lp(family, 13, 1000, 20 * 1024, 16)[:3] == (16, 128, "smem")
+    assert lp(family, 13, 1000, 5 * 1024, 16)[:3] == (16, 128, "global")
+    one = lp(family, 13, 1000, LIMIT, 1)
+    assert one[:2] == (1, 320) and one.smem == sb(family, 13, 1000, 1,
+                                                  one.tables == "global")
+    assert lp(family, 13, 1000, LIMIT, 16, cluster=2)[:2] == (2, 320)
+    assert lp(family, 130, 1000, LIMIT, 16, cluster=4)[:3] == (
+        4, 320, "global")
+    for C, cap in ((8, 16), (3, 16), (16, 8)):
+        with pytest.raises(ValueError, match="not schedulable"):
+            lp(family, 2 if C == 8 else 13, 4 if C == 8 else 1000, LIMIT,
+               cap, cluster=C)
     with pytest.raises(ValueError, match="no %s item chain form" % family):
-        cuda_item_chain.launch_plan(family, 8000, 1000, LIMIT)
+        lp(family, 2, 300000, LIMIT, 16)
+    with pytest.raises(ValueError, match="no K10 item chain"):
+        lp(family, 0, 1000, LIMIT, 16)
 
 
 def test_smem_bytes_by_hand():
-    """The carving of ``smem_words`` in item mode, counted by hand: fixed
-    per column mu, pp, cnt, term, weight, slot and two noise words; diag
-    one term more; both x and the log prior [3, D + 1], the prior vectors
-    and two (logs, sx, ssq) sets [D]."""
-    assert cuda_item_chain.smem_bytes("fixed", False, 13, 1000) == 4 * (
-        (2 * 13 + 6) * 1000 + 3 * 14 + (3 + 6) * 13)
-    assert cuda_item_chain.smem_bytes("diag", False, 13, 1000) == 4 * (
-        (2 * 13 + 7) * 1000 + 3 * 14 + (2 + 6) * 13)
-    assert cuda_item_chain.smem_bytes("diag", True, 130, 1000) == 4 * (
-        3 * 131 + 8 * 130)
+    """K10's carving counted by hand for the flagship at its plan's C 8
+    (P 125 columns, W 6 warps, a thread a column) and D 130 at C 16 (P
+    63; fixed: W 4, a thread a column; diag: W 10, groups of four a
+    column): the entry slots 2 C W uint4 (8 C W words); on chip the tables
+    (two), the running sums (two) and the terms (fixed one, diag two) a
+    column; counts, weights and two noise rows [4, P]; x and the log prior
+    of three items [3, D + 1]; the prior vectors (fixed three, diag two)
+    and the two update warps' logs and fit addends [4, D]; the diag
+    family's 64 scoring groups' addends [64, D]."""
+    sb = cuda_item_chain.smem_bytes
+    assert sb("fixed", 13, 1000, 8, False) == 4 * (
+        8 * 8 * 6 + (4 * 13 + 1) * 125 + 4 * 125 + 3 * 14 + 3 * 13
+        + 4 * 13) == 30568
+    assert sb("diag", 13, 1000, 8, False) == 4 * (
+        8 * 8 * 6 + (4 * 13 + 2) * 125 + 4 * 125 + 3 * 14 + 2 * 13
+        + 4 * 13) == 31016
+    assert sb("fixed", 130, 1000, 16, False) == 4 * (
+        8 * 16 * 4 + (4 * 130 + 1) * 63 + 4 * 63 + 3 * 131 + 3 * 130
+        + 4 * 130) == 139560
+    assert sb("diag", 130, 1000, 16, False) == 4 * (
+        8 * 16 * 10 + (4 * 130 + 2) * 63 + 4 * 63 + 3 * 131 + 2 * 130
+        + 4 * 130 + 64 * 130) == 175644
+    assert sb("diag", 130, 1000, 16, True) == 4 * (
+        8 * 16 * 10 + 4 * 63 + 3 * 131 + 2 * 130 + 4 * 130 + 64 * 130)
+    split, threads = cuda_item_chain.item_split, cuda_item_chain.item_threads
+    assert [split("diag", 130, 1000, C) for C in (1, 2, 4, 8, 16)] == [
+        1, 1, 1, 2, 4]
+    assert [split("diag", D, 1000, 16) for D in (13, 32, 33, 130)] == [
+        1, 1, 4, 4]
+    assert [split("fixed", 130, 1000, C) for C in (1, 8, 16)] == [1, 1, 1]
+    for family in ("fixed", "diag"):
+        assert [threads(family, 13, 1000, C) for C in (
+            1, 2, 4, 8, 16)] == [320, 320, 320, 192, 128]
+        assert threads(family, 2, 4, 1) == 96
+        assert threads(family, 130, 4000, 16) == 320
+    assert threads("fixed", 130, 1000, 16) == 128
+    assert threads("diag", 130, 1000, 16) == 320
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("D", [13, 40, 130])
+@pytest.mark.parametrize("family", ["fixed", "diag"])
+def test_item_smem_bytes_every_cluster(family, D, C):
+    """K10's bytes a CTA at K 1000 for every C, on chip and in device
+    memory, from the carving: P = ceil(K / C) columns, S scoring threads a
+    column (1 up to D 32 and for the fixed family; else 4, 2 or 1 so that
+    S P fits 256 threads), W = 2 + min(8, ceil(S P / 32)) warps, and where
+    S > 1 the scoring groups' addends; what fits the H100's limit is what
+    the plan may pick (D 13 from C 1, fixed, or C 2, diag; D 40 from C 4;
+    D 130 at C 16 only)."""
+    P = -(-1000 // C)
+    S = 1
+    if D > 32 and family == "diag":
+        S = 4
+        while S > 1 and S * P > 256:
+            S //= 2
+    W = 2 + min(8, -(-S * P // 32))
+    terms, prior = (1, 3) if family == "fixed" else (2, 2)
+    base = (8 * C * W + 4 * P + 3 * (D + 1) + prior * D + 4 * D
+            + (32 * (W - 2) // S * D if S > 1 else 0))
+    on_chip = 4 * (base + (4 * D + terms) * P)
+    assert cuda_item_chain.item_split(family, D, 1000, C) == S
+    assert cuda_item_chain.item_threads(family, D, 1000, C) == 32 * W
+    assert cuda_item_chain.smem_bytes(family, D, 1000, C, False) == on_chip
+    assert cuda_item_chain.smem_bytes(family, D, 1000, C, True) == 4 * base
+    fits = on_chip <= LIMIT
+    least = {13: 1 if family == "fixed" else 2, 40: 4, 130: 16}[D]
+    assert fits == (C >= least)
+    plan = cuda_item_chain.launch_plan(family, D, 1000, LIMIT, 16, cluster=C)
+    assert plan == (C, 32 * W, "smem" if fits else "global",
+                    on_chip if fits else 4 * base)
 
 
 def test_full_launch_plans():
@@ -308,9 +397,9 @@ def test_full_smem_bytes_by_hand():
 @pytest.mark.parametrize("C", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("K", [4, 200, 1000, 1500])
 def test_full_column_ranges_cover_every_column_once(K, C):
-    """The CTAs' column ranges (the kernel's r K / C split) cover 0 .. K -
-    1 once each, in order, none empty where C <= K, none wider than the
-    largest share the plan sizes (ceil(K / C))."""
+    """The CTAs' column ranges (K11's and K10's r K / C split) cover 0 ..
+    K - 1 once each, in order, none empty where C <= K, none wider than
+    the largest share the plans size (ceil(K / C))."""
     ranges = [cuda_item_chain.full_col_range(K, C, r) for r in range(C)]
     owned = np.concatenate([np.arange(lo, hi) for lo, hi in ranges])
     npt.assert_array_equal(owned, np.arange(K))

@@ -91,13 +91,126 @@ def _jax_shard_case(seed=4, n_utterances=16, batch_size=8, temps=(2.0, 1.5)):
     return job, want
 
 
+# ---------------------------------------- the JAX per-shard surface case
+
+SURFACE = ("unigram_fixed", "bigram", "kmeans")
+MONITORED = (0, 11, 3)  # rank 0, rank 1; the last is the debug-only sweep's
+POISONED = 11           # a rank-1 utterance whose final boundary is cleared
+
+
+def _jax_family(family, n_utterances, batch_size, seed):
+    """The JAX toy ``dryrun.build_segmenter`` mirrors: ``ge._build_segmenter``
+    (unigram_fixed) and ``tests/test_parallel.py``'s ``_build_family``
+    (bigram, kmeans)."""
+    if family == "unigram_fixed":
+        return ge._build_segmenter(n_utterances=n_utterances,
+                                   batch_size=batch_size, seed=seed)
+    from segmentalist_tpu import FixedVarPrior
+    from segmentalist_tpu.segmenters.bigram import BigramAcousticWordseg
+    from segmentalist_tpu.segmenters.kmeans_seg import SegmentalKMeansWordseg
+    from segmentalist_tpu.utils.synth import synthetic_corpus
+
+    D = 10
+    mats, vec_ids, durs, lms = synthetic_corpus(
+        n_utterances=n_utterances, n_landmarks_max=6, D=D, K_true=4,
+        n_slices_max=3, seed=seed)[:4]
+    corpus = dict(embedding_mats=mats, vec_ids_dict=vec_ids,
+                  durations_dict=durs, landmarks_dict=lms,
+                  p_boundary_init=0.5, n_slices_max=3,
+                  batch_size=batch_size, seed=seed)
+    np.random.seed(seed)
+    if family == "kmeans":
+        return SegmentalKMeansWordseg(am_K=8, **corpus)
+    prior = FixedVarPrior.create(0.05 * np.ones(D), np.zeros(D), np.ones(D))
+    return BigramAcousticWordseg(
+        am_K=8, am_param_prior=prior, covariance_type="fixed",
+        lm_params={"type": "smooth", "intrp_lambda": 0.1, "a": 1.0,
+                   "b": 1.0},
+        fb_type="unigram", beta_sent_boundary=-1, **corpus)
+
+
+def _jax_state(jseg) -> dict:
+    """The JAX segmenter's state under ``interop``'s keys."""
+    am = jseg.acoustic_model
+    out = {"X": am.X, "boundaries": jseg._boundaries_dev}
+    if hasattr(am, "state"):  # k-means
+        out.update(am.state._asdict(), random_means=am.random_means)
+    else:
+        out.update(am.stats._asdict(), assignments=am.assignments,
+                   **am.prior._asdict())
+        if hasattr(jseg, "lm"):
+            out.update(jseg.lm.state._asdict())
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _jax_surface_case(family, seed=5, n_utterances=16, batch_size=8):
+    """What the per-shard surface gives in JAX's ``shard_map`` mode on a
+    2-device mesh, from the toy's initial state: the monitor traces, the
+    validate flags (healthy, and with utterance POISONED's final boundary
+    cleared), the batch scores (all utterances, and a shuffled order) and
+    the state after one debug-only sweep (the unigram driver on a known
+    key, each shard's noise recreated from it; k-means).  Returns the
+    port's rank job and the wanted values."""
+    jseg = _jax_family(family, n_utterances, batch_size, seed)
+    state = _jax_state(jseg)
+    mesh = jax_make_mesh(2)
+    jax_shard_segmenter(jseg, mesh)
+    jax_shard_sweep.use_shard_map_sweep(jseg, mesh)
+    want = {"traces": [tuple(np.asarray(t) for t in jseg._monitor_device(i))
+                       for i in MONITORED],
+            "flags": np.asarray(jseg._validate_device())}
+    if family != "kmeans":
+        score = (jseg.get_vec_embed_log_probs_unigram_all
+                 if family == "bigram" else jseg.get_vec_embed_log_probs_all)
+        want["scores"] = score()
+        want["scores_order"] = score(
+            np.random.RandomState(seed).permutation(n_utterances))
+    bounds = jseg._boundaries_dev
+    L = jseg.utterances.lengths[POISONED]
+    jseg._boundaries_dev = bounds.at[POISONED, L - 1].set(False)
+    want["poisoned_flags"] = np.asarray(jseg._validate_device())
+    jseg._boundaries_dev = bounds
+    noise, want["debug"] = None, None
+    m = MONITORED[-1]
+    if family == "unigram_fixed":
+        am, utt = jseg.acoustic_model, jseg.utterances
+        key = jax.random.PRNGKey(11)
+        am.key = key
+        jseg.gibbs_sample(1, monitor_i=m, debug_gibbs_only=True)
+        # each shard's noise: fold_in(key, shard), then split(key, 3) for
+        # the one block (as _jax_shard_case)
+        b, dt = batch_size // 2, am.X.dtype
+        noise = []
+        for r in range(2):
+            _, k_dp, k_assign = jax.random.split(jax.random.fold_in(key, r),
+                                                 3)
+            noise.append([(
+                np.asarray(jax.random.gumbel(k_dp, (b, utt.N_max, 3), dt)),
+                np.asarray(jax.random.gumbel(k_assign, (b, utt.N_max,
+                                                        am.K_max), dt)))])
+        want["debug"] = {"assignments": np.asarray(am.assignments),
+                         "stats": [np.asarray(t) for t in am.stats],
+                         "boundaries": np.asarray(jseg._boundaries_dev)}
+    elif family == "kmeans":
+        jseg.segment(1, monitor_i=m, segment_debug_only=True)
+        st = jseg.acoustic_model.state
+        want["debug"] = {"assignments": np.asarray(st.assignments),
+                         "stats": [np.asarray(st.counts),
+                                   np.asarray(st.sum_x)],
+                         "boundaries": np.asarray(jseg._boundaries_dev)}
+    job = ("shard_surface", (family, n_utterances, batch_size, seed, state,
+                             list(MONITORED), POISONED, noise))
+    return job, want
+
+
 # ------------------------------------------------------- the spawns
 
 @pytest.fixture(scope="module")
 def two_ranks():
-    """One spawn of 2 ranks for the exact-mode, per-shard and
-    shard_segmenter cases."""
+    """One spawn of 2 ranks for the exact-mode, per-shard,
+    per-shard-surface and shard_segmenter cases."""
     jax_job, jax_want = _jax_shard_case()
+    surface = {fam: _jax_surface_case(fam) for fam in SURFACE}
     jobs = {
         "exact": ("run_sweeps", ("unigram_fixed", 13, 8, 9, 3, "exact")),
         "exact_viterbi": ("run_sweeps", ("unigram_fixed", 13, 8, 6, 2,
@@ -108,11 +221,15 @@ def two_ranks():
     for fam in FAMILIES_B:
         jobs["per_shard_" + fam] = ("run_sweeps",
                                     (fam, 16, 8, 5, 2, "per_shard"))
+    for fam, (job, _) in surface.items():
+        jobs["surface_" + fam] = job
     names = list(jobs)
     res = dryrun.launch(dryrun.run_jobs, 2, args=([jobs[k] for k in names],),
                         timeout=TIMEOUT)
     out = {k: [r[i] for r in res] for i, k in enumerate(names)}
     out["jax_want"] = jax_want
+    for fam, (_, want) in surface.items():
+        out["surface_want_" + fam] = want
     return out
 
 
@@ -259,6 +376,58 @@ def test_shard_map_sweep_all_families(two_ranks, family):
     assert res[0]["boundaries"].shape[0] == 16
 
 
+def _same_scores(got, want):
+    """Scores equal to 1e-9 relative at float64, -inf where masked."""
+    npt.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    npt.assert_allclose(got[fin], want[fin], rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("family", SURFACE)
+def test_shard_map_surface_matches_jax(two_ranks, family):
+    """After ``use_shard_map_sweep`` on 2 gloo ranks, what reads the corpus
+    equals JAX's ``shard_map`` mode on a 2-device mesh from the same state,
+    at float64, on every rank: the monitor traces of utterances on both
+    ranks (the owner's, broadcast), the validate flags, healthy and with a
+    rank-1 utterance poisoned (the flags ORed over the ranks), the batch
+    scores of all 16 utterances and of a shuffled order (each owner's rows,
+    gathered), and the state after one debug-only sweep (the unigram
+    driver on JAX's per-shard noise; k-means; the bigram driver has no
+    debug-only flag).  Then ``gibbs_sample(2, monitor_i=0, validate=True)``
+    (``segment`` for k-means) runs and logs the same monitor lines on both
+    ranks, and a validated debug-only sweep with the rank-1 utterance
+    poisoned raises on both."""
+    want = two_ranks["surface_want_" + family]
+    got = two_ranks["surface_" + family]
+    assert not want["poisoned_flags"].all() and want["flags"].all()
+    for r in got:
+        for (ts, tb, tk), (js, jb, jk) in zip(r["traces"], want["traces"]):
+            _same_scores(ts, js)
+            npt.assert_array_equal(tb, jb)
+            npt.assert_array_equal(tk, jk)
+        npt.assert_array_equal(r["flags"], want["flags"])
+        npt.assert_array_equal(r["poisoned_flags"], want["poisoned_flags"])
+        if family != "kmeans":
+            for key in ("scores", "scores_order"):
+                assert len(r[key]) == len(want[key])
+                for a, b in zip(r[key], want[key]):
+                    _same_scores(a, b)
+        if want["debug"] is None:
+            assert r["debug"] is None and r["raised"] is None
+        else:
+            d, w = r["debug"], want["debug"]
+            npt.assert_array_equal(d["assignments"], w["assignments"])
+            npt.assert_array_equal(d["boundaries"], w["boundaries"])
+            for a, b in zip(d["stats"], w["stats"]):
+                npt.assert_allclose(a, b, rtol=1e-10, atol=1e-10)
+            assert "missing final utterance boundary" in r["raised"]
+        recs = r["records"]
+        vals = recs.get("log_marg", recs.get("sum_neg_sqrd_norm"))
+        assert len(vals) == 2 and np.all(np.isfinite(vals))
+        assert len(r["log"]) == 4 and r["log"] == got[0]["log"]
+        assert "monitor utterance 0" in r["log"][0]
+
+
 @pytest.mark.parametrize("job", [1, 2], ids=["unigram", "bigram"])
 def test_uneven_corpus_shard_map_sweep(three_ranks, job):
     """The per-shard sweep on 3 ranks and 4 utterances: the third rank's
@@ -298,6 +467,19 @@ def test_launcher_fails_when_a_rank_fails():
                       args=("no_such_family", 8, 2, 0, 1), timeout=60.0)
     with pytest.raises((RuntimeError, TimeoutError)):
         dryrun.launch(dryrun.collective_on, 2, args=([0],), timeout=20.0)
+
+
+def test_launcher_keeps_a_dying_ranks_stderr():
+    """A rank that writes to file descriptor 2 below Python and aborts
+    (SIGABRT, as an uncaught C++ exception in a backend's thread does)
+    fails the launch with that text and faulthandler's Python stack."""
+    with pytest.raises(RuntimeError) as info:
+        dryrun.launch(dryrun.abort_rank, 2, args=("a C-level abort",),
+                      timeout=60.0)
+    msg = str(info.value)
+    assert "exit code -6" in msg
+    assert "a C-level abort (rank" in msg
+    assert "Fatal Python error: Aborted" in msg and "abort_rank" in msg
 
 
 def test_dryrun_multichip_entry():

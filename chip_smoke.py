@@ -105,10 +105,29 @@ check that does not hold:
    scores, the same on both ranks and within ``SCORE_TOL`` of an
    unsharded segmenter's on the card from the ranks' final state.
 
-The fourth-to-last line is phase 7's JSON summary, the third-to-last
-phase 6's, the second-to-last a JSON summary of the kernels (their
-launches by path include each rank's of phase 7), the last line ``{"ok":
-true, "device": {...}}``.
+8. the exact-posterior oracles (``tests/torch_oracle.py``; the cases of
+   ``tests/test_torch_exact_posterior*.py``,
+   ``tests/test_torch_fbgmm_stationary.py`` and
+   ``tests/test_torch_blocked_sweep_oracle.py``, whose CPU tests hold the
+   plain versions to them) on the card, every draw through the kernels
+   and the card's generator, at the CPU tests' trials and bounds: the
+   unigram move of the fixed family at T 1, annealed (T 3) and Viterbi
+   (K1, K2, K3), of the diag family sampled and Viterbi (K5 in its
+   grouped and its exact composition, K2, K6), of the full family
+   sampled and Viterbi (K8, K2, K9); the bigram move with fixed-variance,
+   diag and full components (K1 / K5 / K8, K2, K4 / K7 / K9's bigram
+   mode); the FBGMM's sequential stationary distribution in the three
+   families (K10, K10's exact diag policy, K11) and its blocked sweep's
+   exact product; each case's total variation within its bound and each
+   of its kernels launched (:data:`P8_KERNELS`); the cases run in
+   ``P8_WORKERS`` spawned processes side by side.
+
+The fifth-to-last line is phase 8's JSON summary (each case's total
+variation, bound, trials, seconds and launches; the phase's seconds and
+processes), the fourth-to-last
+phase 7's, the third-to-last phase 6's, the second-to-last a JSON summary
+of the kernels (their launches by path include each rank's of phase 7),
+the last line ``{"ok": true, "device": {...}}``.
 
 To time some kernels alone (phases 1-3 of the named kernels, with their
 kernels line and no result line):
@@ -2860,6 +2879,117 @@ def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
     return paths, out
 
 
+# Phase 8: the exact-posterior oracles of the CPU tests, their cases run on
+# the card (tests/torch_oracle.py; each module's CARD_CASES)
+P8_MODULES = ("test_torch_exact_posterior", "test_torch_exact_posterior_diag",
+              "test_torch_exact_posterior_bigram_fullcov",
+              "test_torch_exact_posterior_bigram_diag",
+              "test_torch_exact_posterior_bigram_full",
+              "test_torch_fbgmm_stationary", "test_torch_blocked_sweep_oracle")
+# each case's kernels, by their wrappers' counters
+# (utils/profiling.launch_counts); every one must launch in the case
+_K2 = {"K2": "cuda_dp.launches"}
+_FIXED = {"K1": "cuda_score.launches", **_K2, "K3": "cuda_chain.launches"}
+_DIAG = {"K5": "cuda_score.diag_launches", **_K2,  # grouped composition
+         "K6": "cuda_diag_chain.launches"}
+_FULL = {"K8": "cuda_fullcov_score.launches", **_K2,
+         "K9": "cuda_fullcov_chain.launches"}
+P8_KERNELS = {
+    "unigram_fixed": _FIXED, "unigram_fixed_annealed": _FIXED,
+    "unigram_fixed_viterbi": _FIXED,
+    "unigram_diag": _DIAG,
+    # the Viterbi DP takes K5's exact composition
+    "unigram_diag_viterbi": {**_DIAG,
+                             "K5": "cuda_score.diag_exact_launches"},
+    "unigram_full": _FULL, "unigram_full_viterbi": _FULL,
+    "bigram": {"K1": "cuda_score.launches", **_K2,
+               "K4": "cuda_chain.bigram_launches"},
+    "bigram_diag": {"K5": "cuda_score.diag_launches", **_K2,
+                    "K7": "cuda_diag_chain.bigram_launches"},
+    "bigram_full": {**_FULL, "K9": "cuda_fullcov_chain.bigram_launches"},
+    "fbgmm_stationary_fixed": {"K10": "cuda_item_chain.launches"},
+    "fbgmm_stationary_diag": {"K10": "cuda_item_chain.launches"},
+    "fbgmm_stationary_full": {"K11": "cuda_item_chain.full_launches"},
+    "fbgmm_blocked": {},  # plain tensor code on the card too
+}
+
+
+P8_WORKERS = 4  # processes that run the cases side by side: a move is
+                # host-bound (~5 ms of Python and ~300 launches)
+
+
+def p8_cases() -> dict:
+    """Phase 8's cases: name -> run(device), from the oracle modules."""
+    import importlib
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    cases = {}
+    for mod in P8_MODULES:
+        cases.update(importlib.import_module(mod).CARD_CASES)
+    return cases
+
+
+def p8_case(job):
+    """Phase 8's worker: run the case ``job = (name, device)``; returns
+    (name, its summary with the launches of its kernels in this process,
+    the failed check's message or None)."""
+    import torch
+
+    from segmentalist_torch.utils.profiling import launch_counts
+
+    name, device = job
+    run = p8_cases()[name]
+    before = launch_counts()
+    try:
+        res = run(device)
+    except AssertionError as e:
+        return name, None, str(e)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    after = launch_counts()
+    res["launches"] = {k: after[c] - before[c]
+                       for k, c in P8_KERNELS[name].items()}
+    return name, res, None
+
+
+def run_oracles(workers=P8_WORKERS):
+    """Phase 8: every exact-posterior oracle of the CPU tests
+    (``tests/test_torch_exact_posterior*.py``,
+    ``tests/test_torch_fbgmm_stationary.py``,
+    ``tests/test_torch_blocked_sweep_oracle.py``) with its segmenter or
+    model on the card, so that every draw goes through the hand-written
+    kernels and the card's generator: the same trials and bounds as on the
+    CPU, the oracle computed from the card's state.  The cases run in
+    ``workers`` spawned processes (each builds nothing: the parent has
+    built the kernels).  Each case must hold its bound and launch each of
+    its kernels (:data:`P8_KERNELS`).  Returns (each kernel's launches in
+    the phase, each case's total variation, bound, trials, seconds and
+    launches)."""
+    import multiprocessing
+
+    cases = list(p8_cases())
+    check(set(cases) == set(P8_KERNELS),
+          "phase 8's cases %s, kernels listed for %s"
+          % (sorted(cases), sorted(P8_KERNELS)))
+    t0 = time.time()
+    out, launches = {}, {}
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        for name, res, err in pool.imap_unordered(
+                p8_case, [(name, DEVICE) for name in cases]):
+            check(err is None, "phase 8 %s: %s" % (name, err))
+            log("phase 8 %s: %s" % (name, json.dumps(res)))
+            idle = sorted(k for k, n in res["launches"].items() if n == 0)
+            check(not idle, "phase 8 %s: no launch of %s" % (name, idle))
+            out[name] = res
+            for k, n in res["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    seconds = time.time() - t0
+    log("phase 8: %d oracle cases in %.1f s on %d processes"
+        % (len(out), seconds, workers))
+    return launches, {"cases": {name: out[name] for name in cases},
+                      "seconds": seconds, "workers": workers, "card": CARD}
+
+
 def parse_args(argv):
     import argparse
 
@@ -2940,6 +3070,7 @@ def main(argv=None) -> int:
     paths.update(aux_paths)
     p7_paths, multichip = run_multichip()
     paths.update(p7_paths)
+    paths["oracles"], oracles = run_oracles()
 
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
@@ -3039,6 +3170,7 @@ def main(argv=None) -> int:
                 "fbgmm_toy": fbgmm["fbgmm_toy"][
                     "full_sequential_ms_per_item"]}
         kernels.append(entry)
+    print(json.dumps({"oracles": oracles}))
     print(json.dumps({"multichip": multichip}))
     print(json.dumps({"auxiliary": aux}))
     print(json.dumps({"kernels": kernels}))

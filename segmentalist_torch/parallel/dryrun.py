@@ -46,16 +46,18 @@ FAMILIES = ("unigram_fixed", "unigram_diag", "unigram_full", "bigram",
 
 # ------------------------------------------------------------- launcher
 
-def launch(fn, world_size: int, args=(), device="cpu",
+def launch(fn, world_size: int, args=(), device="cuda",
            timeout: float = 600.0) -> list:
     """Run ``fn(mesh, *args)`` on ``world_size`` ranks and return each
     rank's return value, in rank order.
 
     One spawned process a rank, in a process group over a file in a
     temporary directory, with a 1-D mesh over it (``mesh.make_mesh``).
-    ``device``: "cpu" (gloo; one intra-op thread a rank); "cuda", one card
-    a rank (NCCL); or one card "cuda:<i>" that every rank shares (gloo:
-    NCCL refuses two ranks on one device).  ``fn`` must be importable (a
+    ``device``: "cuda" (the default), one card a rank (NCCL); one card
+    "cuda:<i>" that every rank shares (gloo: NCCL refuses two ranks on one
+    device); or, when the caller asks for it, "cpu" (gloo; one intra-op
+    thread a rank).  Without a card a CUDA device raises, before any rank
+    starts.  ``fn`` must be importable (a
     module-level function of a module that spawned processes import) and
     its value picklable.
 
@@ -553,19 +555,21 @@ def _dryrun_rank(mesh):
     return out
 
 
-def dryrun_multichip(n_devices: int, device="cpu",
+def dryrun_multichip(n_devices: int, device="cuda",
                      timeout: float = 600.0) -> list:
-    """The dry run on ``n_devices`` ranks (see the module docstring):
-    each rank's results, in rank order; raises when a check fails on any
-    rank."""
+    """The dry run on ``n_devices`` ranks (see the module docstring), on
+    the card unless ``device`` is "cpu" or one shared "cuda:<i>": each
+    rank's results, in rank order; raises when a check fails on any rank,
+    and without a card when ``device`` is a CUDA one."""
     return launch(_dryrun_rank, n_devices, device=device, timeout=timeout)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=2)
-    ap.add_argument("--device", default="cpu",
-                    help='"cpu", "cuda" (a card a rank) or "cuda:<i>"')
+    ap.add_argument("--device", default="cuda",
+                    help='"cuda" (a card a rank; the default), "cuda:<i>" '
+                    '(one card the ranks share) or "cpu"')
     args = ap.parse_args(argv)
     t0 = time.time()
     res = dryrun_multichip(args.ranks, args.device)

@@ -317,10 +317,12 @@ class BigramAcousticWordseg(BlockedWordseg):
     def gibbs_sample_i(self, i: int, anneal_temp: float = 1.0,
                        anneal_gibbs_am: bool = False,
                        assignments_only: bool = False) -> float:
-        """Resample utterance ``i`` alone (one padded block)."""
-        order = np.full((self.batch_size,), -1, dtype=np.int64)
-        order[0] = i
-        return float(self.block_step(
+        """Resample utterance ``i`` alone (one padded block), through the
+        sweep's block runner (in the per-shard mode: on the rank that owns
+        it, with the sweep's assignment merge)."""
+        order = np.full((1, self.batch_size), -1, dtype=np.int64)
+        order[0, 0] = i
+        return float(self._run_blocks(
             order, anneal_temp, anneal_temp if anneal_gibbs_am else 1.0,
             assignments_only=assignments_only))
 

@@ -273,10 +273,13 @@ class UnigramAcousticWordseg(BlockedWordseg):
         """Resample the boundaries and components of utterance ``i`` alone:
         a block of one (reference ``gibbs_sample_i``,
         unigram_acoustic_wordseg.py:252-360; the JAX package's
-        ``unigram.py:376-382``).  Returns its DP log probability."""
+        ``unigram.py:376-382``), through the sweep's block runner, so that
+        in the per-shard mode the rank that owns ``i`` resamples it and
+        the sweep's assignment merge runs.  Returns its DP log
+        probability."""
         assign_temp = anneal_temp if anneal_gibbs_am else 1.0
-        return float(self.block_step(np.array([int(i)]), anneal_temp,
-                                     assign_temp))
+        return float(self._run_blocks(np.array([[int(i)]]), anneal_temp,
+                                      assign_temp))
 
     def get_log_margs_i(self, i: int):
         """Log marginals of utterance ``i``'s segments with the utterance

@@ -33,6 +33,13 @@ same way; run the file by its path then (``python
 segmentalist_torch/utils/profiling.py --root DIR ...``).
 
 Needs a CUDA card (the profile is of the card's time).
+
+The hooks of the JAX package's ``utils/profiling.py`` (``trace``,
+``annotate``, ``device_timer``) are here too, for any code of the port:
+:func:`trace` captures a host and device profile of a block into a
+directory (a Chrome trace, for TensorBoard or Perfetto), :func:`annotate`
+names a host span inside it, and :func:`device_timer` times a call with
+one synchronisation of its tensors' card before and one after.
 """
 
 from __future__ import annotations
@@ -59,6 +66,58 @@ DP_RANGE = "segment_dp (profiled stage)"  # the profiler range of the DP
 K2_KERNELS = ("segment_dp_kernel", "forward_alphas_kernel")
 ITEM_KERNEL = "item_chain::items_kernel"  # K10, the FBGMM's item chain
 FULL_ITEM_KERNEL = "fullcov_items_kernel"  # K11, the full family's
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Capture a profile of the enclosed block (host ops and, with a card,
+    its kernels) into ``logdir`` as a Chrome trace
+    (``torch.profiler.tensorboard_trace_handler``); yields the
+    ``torch.profiler.profile`` (its ``key_averages()`` are there once the
+    block has closed)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof
+
+
+def annotate(name: str):
+    """A named host span inside a :func:`trace` (a context manager)."""
+    return torch.profiler.record_function(name)
+
+
+def _cuda_devices(tree) -> set:
+    """The CUDA devices of the tensors in nested tuples, lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        return {tree.device} if tree.device.type == "cuda" else set()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return set().union(*map(_cuda_devices, tree))
+    return set()
+
+
+def device_timer(fn, *args, n_iter: int = 10, **kwargs):
+    """``(result, seconds a call)`` of ``fn(*args, **kwargs)``: one call
+    to warm up, then ``n_iter`` calls queued back to back, with the card
+    of the arguments' and results' tensors synchronised once before them
+    and once after (a one-off measurement: a synchronisation in the
+    sampling loops would stall them)."""
+    out = fn(*args, **kwargs)
+    devices = _cuda_devices((args, kwargs, out))
+    for d in devices:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        out = fn(*args, **kwargs)
+    for d in devices | _cuda_devices(out):
+        torch.cuda.synchronize(d)
+    return out, (time.perf_counter() - t0) / n_iter
 
 
 def bench_prior(cov: str, D: int, device):

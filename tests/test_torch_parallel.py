@@ -225,7 +225,7 @@ def two_ranks():
         jobs["surface_" + fam] = job
     names = list(jobs)
     res = dryrun.launch(dryrun.run_jobs, 2, args=([jobs[k] for k in names],),
-                        timeout=TIMEOUT)
+                        device="cpu", timeout=TIMEOUT)
     out = {k: [r[i] for r in res] for i, k in enumerate(names)}
     out["jax_want"] = jax_want
     for fam, (_, want) in surface.items():
@@ -256,7 +256,8 @@ def three_ranks():
     jobs = [("decollide_rows", case),
             ("run_sweeps", ("unigram_fixed", 4, 6, 10, 2, "per_shard")),
             ("run_sweeps", ("bigram", 4, 6, 10, 2, "per_shard"))]
-    res = dryrun.launch(dryrun.run_jobs, 3, args=(jobs,), timeout=TIMEOUT)
+    res = dryrun.launch(dryrun.run_jobs, 3, args=(jobs,), device="cpu",
+                        timeout=TIMEOUT)
     return case, [[r[i] for r in res] for i in range(len(jobs))]
 
 
@@ -314,7 +315,7 @@ def test_sharded_matches_unsharded(two_ranks, ranks):
     else:
         res = dryrun.launch(dryrun.run_sweeps, 4,
                             args=("unigram_fixed", 13, 8, 9, 3, "exact"),
-                            timeout=TIMEOUT)
+                            device="cpu", timeout=TIMEOUT)
     seg, recs = _unsharded("unigram_fixed", 13, 8, 9, 3)
     for r in res:
         assert r["u_pad"] == -(-13 // ranks) * ranks
@@ -464,9 +465,11 @@ def test_launcher_fails_when_a_rank_fails():
     the timeout) instead of hanging."""
     with pytest.raises(RuntimeError, match="unknown family"):
         dryrun.launch(dryrun.run_sweeps, 2,
-                      args=("no_such_family", 8, 2, 0, 1), timeout=60.0)
+                      args=("no_such_family", 8, 2, 0, 1), device="cpu",
+                      timeout=60.0)
     with pytest.raises((RuntimeError, TimeoutError)):
-        dryrun.launch(dryrun.collective_on, 2, args=([0],), timeout=20.0)
+        dryrun.launch(dryrun.collective_on, 2, args=([0],), device="cpu",
+                      timeout=20.0)
 
 
 def test_launcher_keeps_a_dying_ranks_stderr():
@@ -475,17 +478,30 @@ def test_launcher_keeps_a_dying_ranks_stderr():
     fails the launch with that text and faulthandler's Python stack."""
     with pytest.raises(RuntimeError) as info:
         dryrun.launch(dryrun.abort_rank, 2, args=("a C-level abort",),
-                      timeout=60.0)
+                      device="cpu", timeout=60.0)
     msg = str(info.value)
     assert "exit code -6" in msg
     assert "a C-level abort (rank" in msg
     assert "Fatal Python error: Aborted" in msg and "abort_rank" in msg
 
 
+def test_launcher_defaults_to_the_card(monkeypatch):
+    """The launcher and the dry run run on the card unless the caller asks
+    for the CPU: without one, the default raises before any rank starts
+    (no fallback to the CPU)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: dryrun.launch(dryrun.collective_on, 2, args=([0],),
+                                       timeout=20.0),
+                 lambda: dryrun.dryrun_multichip(2, timeout=20.0),
+                 lambda: dryrun.main(["--ranks", "2"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 def test_dryrun_multichip_entry():
     """The dry run on 2 ranks: the exact mode and the per-shard mode of
     every driver on an uneven corpus of 7 utterances."""
-    res = dryrun.dryrun_multichip(2, timeout=TIMEOUT)
+    res = dryrun.dryrun_multichip(2, device="cpu", timeout=TIMEOUT)
     assert len(res) == 2
     for what, r in res[0].items():
         assert r["u_pad"] == 8 and r["batch_size"] == 2

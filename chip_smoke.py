@@ -122,12 +122,36 @@ check that does not hold:
    of its kernels launched (:data:`P8_KERNELS`); the cases run in
    ``P8_WORKERS`` spawned processes side by side.
 
-The fifth-to-last line is phase 8's JSON summary (each case's total
-variation, bound, trials, seconds and launches; the phase's seconds and
-processes), the fourth-to-last
-phase 7's, the third-to-last phase 6's, the second-to-last a JSON summary
-of the kernels (their launches by path include each rank's of phase 7),
-the last line ``{"ok": true, "device": {...}}``.
+9. the papers' shapes end to end, at full width (1000 utterances, K 1000,
+   ``batch_size=125``, the bench priors), each corpus built once and
+   shared by its paths: ``unigram_fixed_long`` (``bench.py:414-441``:
+   N_max 120, D 13, 359,813 candidate spans; 137 sweeps, K2 and K3
+   launched, F1 >= 0.47) and nine paths on the bench corpus at D 130
+   (the papers' embedding width): unigram_fixed, bigram, unigram_diag,
+   bigram_diag, unigram_full and bigram_full for 73 sweeps, unigram_fixed
+   and unigram_full with the one-by-one init and ``am_n_iter=1`` for 4
+   (the statistics equal to their rebuild after the init and every
+   sweep), kmeans_wordseg for 73 (its objective rising); each D 130 path's
+   kernels launched in the forms D 130 selects (:data:`D130_FORMS`: K3 /
+   K4 / K6 / K7 global, K9 stream in both modes, K10 at C 16, K11's CTA
+   form with its tables in device memory; each wrapper counts its
+   launches by form, ``cuda_lib.form_launches``), log_marg finite and F1
+   risen by ``F1_RISE_MIN`` over sweep 0; then phase 4's card-vs-CPU block
+   steps at D 130 with K 1000 (unigram fixed, bigram, both diag, both
+   full, full Viterbi) and at N_max 120 (unigram fixed, bigram), and the
+   FBGMM's sequential sweep at D 130 in the three families.
+
+The sixth-to-last line is phase 9's JSON summary (each path's sweeps, ms
+a sweep per call and the best timed one, F1 at sweep 0 and at the end
+with its floor and the floor's source, log_marg first and last, each
+kernel's launches and launches by form, the candidate spans and the
+setup's seconds; the block steps' forms; the phase's seconds), the
+fifth-to-last phase 8's (each case's total variation, bound, trials,
+seconds and launches; the phase's seconds and processes), the
+fourth-to-last phase 7's, the third-to-last phase 6's, the second-to-last
+a JSON summary of the kernels (their launches by path include each rank's
+of phase 7 and phase 9's paths; ``forms_by_path`` the forms phase 9's
+paths launched), the last line ``{"ok": true, "device": {...}}``.
 
 To time some kernels alone (phases 1-3 of the named kernels, with their
 kernels line and no result line):
@@ -1620,18 +1644,19 @@ def toy_reference():
     check(np.allclose(got, want, atol=1e-5), "toy reference scores differ")
 
 
-def block_steps_vs_cpu(name, build, exact=True):
+def block_steps_vs_cpu(name, build, exact=True, D=13, n_landmarks_max=12):
     """Three block steps on the card (kernels) and on the CPU (plain
-    versions), float32, from one initial state on shared numpy noise.
-    ``build(corpus, device)`` makes the segmenter.  Boundaries and
-    assignments (and a bigram segmenter's LM tables) must be identical, or
-    with ``exact=False`` agree to ``AGREE_MIN``."""
+    versions), float32, from one initial state on shared numpy noise, on a
+    24-utterance corpus of ``D`` dims and up to ``n_landmarks_max``
+    landmarks.  ``build(corpus, device)`` makes the segmenter.  Boundaries
+    and assignments (and a bigram segmenter's LM tables) must be
+    identical, or with ``exact=False`` agree to ``AGREE_MIN``."""
     import torch
     from segmentalist_torch.utils.synth import synthetic_corpus
 
-    em, vi, du, lm, _ = synthetic_corpus(n_utterances=24, n_landmarks_max=12,
-                                         D=13, K_true=6, n_slices_max=6,
-                                         seed=4)
+    em, vi, du, lm, _ = synthetic_corpus(
+        n_utterances=24, n_landmarks_max=n_landmarks_max, D=D, K_true=6,
+        n_slices_max=6, seed=4)
     corpus = ({k: v.astype(np.float32) for k, v in em.items()}, vi, du, lm)
     segs = {dev: build(corpus, dev) for dev in ("cpu", DEVICE)}
     rng = np.random.RandomState(5)
@@ -1674,24 +1699,35 @@ def block_steps_vs_cpu(name, build, exact=True):
           "%s: non-finite statistics" % name)
 
 
-def small_block_steps():
-    """The small card-vs-CPU block steps of both segmenters and both
-    families; the diag Viterbi steps must take K5's exact composition."""
+def block_segmenters(K):
+    """``(unigram, bigram)``: ``unigram(prior, **kw)`` and ``bigram(prior,
+    **kw)`` give the ``build(corpus, device)`` of
+    :func:`block_steps_vs_cpu` for a segmenter of K components."""
     import segmentalist_torch as pt
-    from segmentalist_torch.ops import cuda_score
-    from segmentalist_torch.utils.profiling import BENCH_LM, bench_prior
+    from segmentalist_torch.utils.profiling import BENCH_LM
 
     def unigram(prior, **kw):
         return lambda c, dev: pt.UnigramAcousticWordseg(
-            pt.FBGMM, 1.0, 40, prior, *c, p_boundary_init=0.5,
+            pt.FBGMM, 1.0, K, prior, *c, p_boundary_init=0.5,
             beta_sent_boundary=2.0, n_slices_max=6, batch_size=8, seed=4,
             device=dev, **kw)
 
     def bigram(prior, **kw):
         return lambda c, dev: pt.BigramAcousticWordseg(
-            40, prior, BENCH_LM, *c, p_boundary_init=0.5,
+            K, prior, BENCH_LM, *c, p_boundary_init=0.5,
             beta_sent_boundary=-1, n_slices_max=6, fb_type="unigram",
             batch_size=8, seed=4, device=dev, **kw)
+
+    return unigram, bigram
+
+
+def small_block_steps():
+    """The small card-vs-CPU block steps of both segmenters and both
+    families; the diag Viterbi steps must take K5's exact composition."""
+    from segmentalist_torch.ops import cuda_score
+    from segmentalist_torch.utils.profiling import bench_prior
+
+    unigram, bigram = block_segmenters(40)
 
     fixed = bench_prior("fixed", 13, "cpu")
     diag = bench_prior("diag", 13, "cpu")
@@ -1716,20 +1752,20 @@ def small_block_steps():
         full, covariance_type="full"))
 
 
-def fbgmm_vs_cpu():
+def fbgmm_vs_cpu(D=13, modes=("sequential", "blocked"), sweeps=3):
     """FBGMM sweeps on the card against the same sweeps on the CPU, on
-    shared noise, float32, in the three families: three sequential sweeps
-    (one K10 launch each, K11 for the full family; the plain version on
-    the CPU) must leave identical assignments and statistics, three
-    blocked sweeps (float32 products in another order on each device)
-    agree to ``AGREE_MIN``."""
+    shared noise, float32, in the three families (N 300, K 24, ``D``
+    dims): ``sweeps`` sequential sweeps (one K10 launch each, K11 for the
+    full family; the plain version on the CPU) must leave identical
+    assignments and statistics, ``sweeps`` blocked sweeps (float32
+    products in another order on each device) agree to ``AGREE_MIN``."""
     import torch
     import segmentalist_torch as pt
     from segmentalist_torch.ops import cuda_item_chain
     from segmentalist_torch.utils.profiling import bench_prior
 
     rng = np.random.RandomState(8)
-    N, D, K = 300, 13, 24
+    N, K = 300, 24
     X = ((3.0 * rng.randn(6, D))[rng.randint(0, 6, N)]
          + rng.randn(N, D)).astype(np.float32)
     asg = rng.randint(-1, 10, N)
@@ -1739,8 +1775,8 @@ def fbgmm_vs_cpu():
                                 device=dev) for dev in ("cpu", DEVICE)}
         counter = "full_launches" if family == "full" else "launches"
         before = getattr(cuda_item_chain, counter)
-        for mode in ("sequential", "blocked"):
-            for i in range(3):
+        for mode in modes:
+            for i in range(sweeps):
                 noise = -np.log(-np.log(rng.uniform(1e-30, 1.0, (N, K))))
                 for dev, am in models.items():
                     sweep = getattr(am, mode + "_sweep")
@@ -1749,8 +1785,8 @@ def fbgmm_vs_cpu():
             a_c = models["cpu"].assignments.numpy()
             a_d = models[DEVICE].assignments.cpu().numpy()
             same = int((a_c == a_d).sum())
-            log("FBGMM %s %s sweeps, card vs CPU: identical assignments "
-                "%d/%d" % (family, mode, same, N))
+            log("FBGMM %s %s sweeps at D %d, card vs CPU: identical "
+                "assignments %d/%d" % (family, mode, D, same, N))
             if mode == "sequential":
                 check(same == N and all(
                     torch.equal(a.cpu(), b) for a, b in zip(
@@ -1762,7 +1798,7 @@ def fbgmm_vs_cpu():
                       "sweeps disagree" % family)
             models["cpu"].setup_components(K, a_d)  # resume from one state
             models[DEVICE].setup_components(K, a_d)
-        check(getattr(cuda_item_chain, counter) == before + 3,
+        check(getattr(cuda_item_chain, counter) == before + sweeps,
               "the %s sequential sweeps did not run one item-chain launch "
               "each" % family)
 
@@ -1838,7 +1874,7 @@ def reset_launches():
     from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
                                         cuda_fullcov_chain,
                                         cuda_fullcov_score, cuda_item_chain,
-                                        cuda_score)
+                                        cuda_lib, cuda_score)
 
     cuda_item_chain.launches = cuda_item_chain.full_launches = 0
     cuda_score.launches = cuda_score.diag_launches = 0
@@ -1847,6 +1883,7 @@ def reset_launches():
     cuda_diag_chain.launches = cuda_diag_chain.bigram_launches = 0
     cuda_fullcov_score.launches = 0
     cuda_fullcov_chain.launches = cuda_fullcov_chain.bigram_launches = 0
+    cuda_lib.form_launches.clear()
 
 
 def read_launches():
@@ -1869,6 +1906,13 @@ def read_launches():
                    + cuda_fullcov_chain.bigram_launches),
             "K10": cuda_item_chain.launches,
             "K11": cuda_item_chain.full_launches}
+
+
+def read_forms():
+    """Each kernel's launches by form since `reset_launches`."""
+    from segmentalist_torch.ops import cuda_lib
+
+    return {k: dict(v) for k, v in sorted(cuda_lib.form_launches.items())}
 
 
 PATH_KERNELS = {"unigram_fixed": ("K1", "K2", "K3"),
@@ -1922,11 +1966,12 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
     f1_end = f1()
     log("%s slice: %d sweeps, ms/sweep per call %s (timed %s, best %.3f), "
         "log_marg first %.6g last %.6g, F1 sweep 0 %.4f -> end %.4f, "
-        "active components first %d last %d of %d, launches %s" % (
-            name, len(log_marg), [round(v, 3) for v in sweep_ms],
-            [round(v, 3) for v in sweep_ms[2:]], min(sweep_ms[2:]),
-            log_marg[0], log_marg[-1], f1_0, f1_end, comps[0], comps[-1],
-            seg.acoustic_model.K_max, launches))
+        "active components first %d last %d of %d, launches %s, by form "
+        "%s" % (name, len(log_marg), [round(v, 3) for v in sweep_ms],
+                [round(v, 3) for v in sweep_ms[2:]], min(sweep_ms[2:]),
+                log_marg[0], log_marg[-1], f1_0, f1_end, comps[0],
+                comps[-1], seg.acoustic_model.K_max, launches,
+                read_forms()))
     check(len(log_marg) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
     check(all(math.isfinite(v) for v in log_marg), "non-finite log_marg")
     for k in PATH_KERNELS[name]:
@@ -2162,9 +2207,9 @@ def run_am_slice(sweeps=(1, 3), cov="fixed", n_utterances=1000):
             for i, u in enumerate(seg.ids_to_utterance_labels)}
     f1 = boundary_f_score(pred, truth)[2]
     log("%s: %d sweeps with am_n_iter=1, ms/sweep per call %s, log_marg "
-        "%s, F1 %.4f, launches %s [%s]" % (
+        "%s, F1 %.4f, launches %s, by form %s [%s]" % (
             name, len(lm), [round(v, 3) for v in sweep_ms],
-            [round(v, 1) for v in lm], f1, launches, CARD))
+            [round(v, 1) for v in lm], f1, launches, read_forms(), CARD))
     check(all(math.isfinite(v) for v in lm), "non-finite log_marg")
     check(launches[item] == len(lm), "%s: %d %s launches for %d sweeps"
           % (name, launches[item], item, len(lm)))
@@ -2214,12 +2259,12 @@ def run_kmeans_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
     log("kmeans_wordseg slice: %d sweeps, ms/sweep per call %s (timed %s, "
         "best %.3f), sum_neg_len_sqrd_norm first %.9g last %.9g, "
         "sum_neg_sqrd_norm first %.9g last %.9g, components first %d last "
-        "%d of %d, F1 sweep 0 %.4f -> end %.4f, launches %s" % (
+        "%d of %d, F1 sweep 0 %.4f -> end %.4f, launches %s, by form %s" % (
             len(obj), [round(v, 3) for v in sweep_ms],
             [round(v, 3) for v in sweep_ms[2:]], min(sweep_ms[2:]), obj[0],
             obj[-1], rec["sum_neg_sqrd_norm"][0],
             rec["sum_neg_sqrd_norm"][-1], comps[0], comps[-1],
-            seg.acoustic_model.K_max, f1_0, f1_end, launches))
+            seg.acoustic_model.K_max, f1_0, f1_end, launches, read_forms()))
     check(len(obj) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
     check(all(math.isfinite(v) for v in obj + rec["sum_neg_sqrd_norm"]),
           "kmeans_wordseg: a non-finite record")
@@ -2990,6 +3035,218 @@ def run_oracles(workers=P8_WORKERS):
                       "seconds": seconds, "workers": workers, "card": CARD}
 
 
+
+# ------------------------------------------------------------- phase 9
+
+P9_LONG_SWEEPS = (1, 8, 64, 64)  # unigram_fixed_long: bench.py's 137 sweeps
+P9_SWEEPS = (1, 8, 64)   # the D 130 Gibbs and k-means paths: 73 sweeps
+P9_AM_SWEEPS = 4         # the D 130 am paths: sweeps, one call each
+P9_SUM_RTOL = P7_SUM_RTOL  # the am paths' statistics against their rebuild
+F1_MIN_LONG = 0.47       # unigram_fixed_long (JAX on a TPU: 0.499)
+F1_RISE_MIN = 0.05       # a D 130 path's F1 over its sweep-0 F1: no JAX
+                         # floor was taken at this width (PERF.md §6)
+# the forms that D 130 and K 1000 select: each launch of these kernels on
+# a D 130 path takes a form whose name starts so (cuda_lib.form_launches)
+D130_FORMS = {"K3": "global", "K4": "global", "K6": "global",
+              "K7": "global", "K9": "stream", "K10": "C16 ",
+              "K11": "cta C16 tables global"}
+# phase 9's paths on the D 130 corpus: (family, bigram, kind); the kind
+# "gibbs" runs gibbs_sample, "am" adds the one-by-one init and
+# am_n_iter=1, "kmeans" is the segmental k-means segmenter
+P9_PATHS = {
+    "unigram_fixed_d130": ("fixed", False, "gibbs"),
+    "bigram_d130": ("fixed", True, "gibbs"),
+    "unigram_diag_d130": ("diag", False, "gibbs"),
+    "bigram_diag_d130": ("diag", True, "gibbs"),
+    "unigram_full_d130": ("full", False, "gibbs"),
+    "bigram_full_d130": ("full", True, "gibbs"),
+    "unigram_fixed_am_d130": ("fixed", False, "am"),
+    "unigram_full_am_d130": ("full", False, "am"),
+    "kmeans_wordseg_d130": (None, False, "kmeans"),
+}
+
+
+def check_d130_forms(name, forms):
+    """Every launch of a kernel of :data:`D130_FORMS` in ``forms`` took
+    the form that D 130 selects."""
+    for k, want in D130_FORMS.items():
+        other = sorted(f for f in forms.get(k, {}) if not f.startswith(want))
+        check(not other, "%s: %s took the form %s, not %r" % (
+            name, k, other, want.strip()))
+
+
+def p9_path(name, corpus, sweeps, kind="gibbs", family="fixed",
+            bigram=False):
+    """One path of phase 9 at full width on ``corpus`` (built once a
+    shape): ``sweeps`` calls of ``gibbs_sample`` (``segment`` for k-means;
+    with ``am_n_iter=1`` after the one-by-one init for the am paths, whose
+    statistics must equal their rebuild after the init and every sweep).
+    Checks the path's kernels' launches, the record finite (k-means: its
+    objective rising); F1 is checked by the caller.  Returns the path's
+    summary."""
+    from segmentalist_torch.parallel.dryrun import consistency
+    from segmentalist_torch.utils.profiling import (bench_kmeans_segmenter,
+                                                    bench_segmenter)
+    from segmentalist_torch.utils.synth import boundary_f_score
+
+    kernels = PATH_KERNELS[name.rsplit("_", 1)[0]]
+    t0 = time.time()
+    reset_launches()
+    if kind == "kmeans":
+        seg, truth = bench_kmeans_segmenter(device=DEVICE, corpus=corpus)
+    else:
+        kw = {"init_am_assignments": "one-by-one"} if kind == "am" else {}
+        seg, truth = bench_segmenter(family, bigram, device=DEVICE,
+                                     corpus=corpus, **kw)
+    sync()
+    setup_s = time.time() - t0
+    init, forms = read_launches(), read_forms()
+
+    def f1():
+        pred = {u: seg.utterances.boundaries[i]
+                for i, u in enumerate(seg.ids_to_utterance_labels)}
+        return boundary_f_score(pred, truth)[2]
+
+    def consistent(when):
+        c = consistency(seg)
+        check(c["counts_equal"] and c["sum_rel_err"] <= P9_SUM_RTOL,
+              "%s: the statistics differ from their rebuild %s (%s)"
+              % (name, when, c))
+        return c["sum_rel_err"]
+
+    out = {"candidate_spans": int((seg.utterances.seg_ids >= 0).sum()),
+           "setup_s": setup_s, "f1_0": f1()}
+    if kind == "am":
+        item = kernels[-1]
+        check(init[item] == 1, "%s: the one-by-one init ran %d %s launches"
+              % (name, init[item], item))
+        out.update(init_items=int((seg.acoustic_model.assignments >= 0)
+                                  .sum()), sum_rel_err=[consistent(
+                                      "after the init")])
+    reset_launches()
+    records, ms = [], []
+    for i, n in enumerate(sweeps):
+        sync()
+        t = time.time()
+        if kind == "kmeans":
+            records.append(seg.segment(n))
+        elif kind == "am":
+            records.append(seg.gibbs_sample(n, am_n_iter=1))
+        else:
+            records.append(seg.gibbs_sample(n))
+        sync()
+        ms.append((time.time() - t) / n * 1e3)
+        if kind == "am":
+            out["sum_rel_err"].append(consistent("after sweep %d" % (i + 1)))
+    launches = read_launches()
+    for k, v in read_forms().items():
+        for f, n in v.items():
+            forms.setdefault(k, {})[f] = forms.get(k, {}).get(f, 0) + n
+    if kind == "am":
+        launches[kernels[-1]] += 1  # the init's
+    key = "sum_neg_len_sqrd_norm" if kind == "kmeans" else "log_marg"
+    trace = [v for r in records for v in r[key]]
+    out.update(sweeps=len(trace), ms_per_sweep=ms,
+               best_ms_per_sweep=min(ms[2:] or ms), f1=f1(),
+               first=trace[0], last=trace[-1], record=key,
+               launches={k: launches[k] for k in kernels}, forms=forms)
+    log("%s: %s [%s]" % (name, json.dumps(out), CARD))
+    check(len(trace) == sum(sweeps), "%s: expected %d sweeps"
+          % (name, sum(sweeps)))
+    check(all(math.isfinite(v) for v in trace), "%s: non-finite %s"
+          % (name, key))
+    if kind == "kmeans":
+        check(trace[-1] > trace[0], "%s: the objective did not rise" % name)
+    idle = [k for k in kernels if out["launches"][k] == 0]
+    check(not idle, "%s: no launch of %s" % (name, idle))
+    return out
+
+
+def p9_block_steps():
+    """Card against CPU at the papers' shapes (phase 4's checks): three
+    block steps of 8 utterances at D 130 with K 1000, so that the card
+    takes the global and stream forms (unigram fixed, bigram, both diag,
+    both full, full Viterbi), and at N_max 120 (unigram fixed, bigram);
+    then the FBGMM's sequential sweep at D 130 in the three families (N
+    300, K 24).  Returns each block steps' forms."""
+    from segmentalist_torch.utils.profiling import bench_prior
+
+    unigram, bigram = block_segmenters(1000)
+    p = {f: bench_prior(f, 130, "cpu") for f in ("fixed", "diag", "full")}
+    fixed13 = bench_prior("fixed", 13, "cpu")
+    cases = {  # name: (build, exact, shape); exact as in phase 4
+        "D 130 unigram": (unigram(p["fixed"]), False, dict(D=130)),
+        "D 130 bigram": (bigram(p["fixed"]), True, dict(D=130)),
+        "D 130 unigram diag": (unigram(p["diag"], covariance_type="diag"),
+                               True, dict(D=130)),
+        "D 130 bigram diag": (bigram(p["diag"], covariance_type="diag"),
+                              True, dict(D=130)),
+        "D 130 unigram full": (unigram(p["full"], covariance_type="full"),
+                               True, dict(D=130)),
+        "D 130 unigram full viterbi": (unigram(
+            p["full"], covariance_type="full", fb_type="viterbi"), True,
+            dict(D=130)),
+        "D 130 bigram full": (bigram(p["full"], covariance_type="full"),
+                              True, dict(D=130)),
+        "N_max 120 unigram": (unigram(fixed13), False,
+                              dict(n_landmarks_max=120)),
+        "N_max 120 bigram": (bigram(fixed13), True,
+                             dict(n_landmarks_max=120)),
+    }
+    forms = {}
+    for name, (build, exact, shape) in cases.items():
+        reset_launches()
+        block_steps_vs_cpu(name, build, exact, **shape)
+        forms[name] = read_forms()
+        if "D" in shape:
+            check_d130_forms(name + " block steps", forms[name])
+    fbgmm_vs_cpu(D=130, modes=("sequential",), sweeps=1)
+    return forms
+
+
+def run_paper_shapes(n_utterances=1000):
+    """Phase 9: the papers' shapes end to end at full width, each corpus
+    built once and shared by its paths: ``unigram_fixed_long``
+    (``bench.py:414-441``: N_max 120, D 13; 137 sweeps, F1 >=
+    ``F1_MIN_LONG``) and the nine paths of :data:`P9_PATHS` on the bench
+    corpus at D 130 (73 sweeps; the am paths 4), each of whose kernels
+    must take the form D 130 selects (:data:`D130_FORMS`) and whose F1
+    must rise by ``F1_RISE_MIN``; then :func:`p9_block_steps`.  Returns
+    (each path's kernel launches, the phase's summary)."""
+    from segmentalist_torch.utils.profiling import bench_corpus
+
+    t0 = time.time()
+    paths = {}
+    corpus = bench_corpus(n_utterances, n_landmarks_max=120)
+    paths["unigram_fixed_long"] = p9_path(
+        "unigram_fixed_long", corpus, P9_LONG_SWEEPS)
+    paths["unigram_fixed_long"].update(
+        floor=F1_MIN_LONG, floor_source="JAX on a TPU: 0.499 "
+        "(BENCH_r05.json), less 0.03")
+    check(paths["unigram_fixed_long"]["f1"] >= F1_MIN_LONG,
+          "unigram_fixed_long: final F1 %.4f < %.2f"
+          % (paths["unigram_fixed_long"]["f1"], F1_MIN_LONG))
+    corpus = bench_corpus(n_utterances, D=130)
+    for name, (family, bigram, kind) in P9_PATHS.items():
+        sweeps = ((1,) * P9_AM_SWEEPS if kind == "am" else P9_SWEEPS)
+        out = p9_path(name, corpus, sweeps, kind, family, bigram)
+        check_d130_forms(name, out["forms"])
+        out.update(floor=None, floor_source="none: F1 must rise by %.2f "
+                   "over sweep 0 (PERF.md §6)" % F1_RISE_MIN)
+        check(out["f1"] - out["f1_0"] >= F1_RISE_MIN,
+              "%s: F1 %.4f -> %.4f rose by less than %.2f"
+              % (name, out["f1_0"], out["f1"], F1_RISE_MIN))
+        paths[name] = out
+    del corpus
+    block_forms = p9_block_steps()
+    seconds = time.time() - t0
+    log("phase 9: %d paths and the card-vs-CPU steps in %.1f s"
+        % (len(paths), seconds))
+    return ({name: p["launches"] for name, p in paths.items()},
+            {"paths": paths, "block_steps_forms": block_forms,
+             "seconds": seconds, "card": CARD})
+
+
 def parse_args(argv):
     import argparse
 
@@ -3071,6 +3328,8 @@ def main(argv=None) -> int:
     p7_paths, multichip = run_multichip()
     paths.update(p7_paths)
     paths["oracles"], oracles = run_oracles()
+    p9_paths, papers = run_paper_shapes()
+    paths.update(p9_paths)
 
     meta = {
         "K1": ("fixedvar_scores", "segmentalist_torch/csrc/fixedvar_score.cu",
@@ -3169,7 +3428,11 @@ def main(argv=None) -> int:
                 "flagship_launch": fl["ms_per_item"],
                 "fbgmm_toy": fbgmm["fbgmm_toy"][
                     "full_sequential_ms_per_item"]}
+        entry["forms_by_path"] = {
+            p: v["forms"][k] for p, v in papers["paths"].items()
+            if k in v["forms"]}
         kernels.append(entry)
+    print(json.dumps({"paper_shapes": papers}))
     print(json.dumps({"oracles": oracles}))
     print(json.dumps({"multichip": multichip}))
     print(json.dumps({"auxiliary": aux}))

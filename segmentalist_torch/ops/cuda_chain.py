@@ -372,6 +372,7 @@ def _launch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec, prec0,
         temp, -0.5 * D * _LOG_2PI, int(use_argmax), cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "fixedvar_chain")
     launches += 1
+    cuda_lib.count_form("K3", plan.form)
     return ks
 
 
@@ -397,4 +398,5 @@ def _launch_bigram(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, prec,
         -0.5 * D * _LOG_2PI, cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "bigram_fixedvar_chain")
     bigram_launches += 1
+    cuda_lib.count_form("K4", plan.form)
     return ks

@@ -307,6 +307,7 @@ def _launch(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT, k0m0,
         cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "diag_chain")
     launches += 1
+    cuda_lib.count_form("K6", plan.form)
     return ks
 
 
@@ -333,4 +334,5 @@ def _launch_bigram(embeds, Xe, log_prior_e, gumbel, counts, sum_xT, sum_sqT,
         cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "bigram_diag_chain")
     bigram_launches += 1
+    cuda_lib.count_form("K7", plan.form)
     return ks

@@ -157,6 +157,7 @@ def segment_dp(scores, lengths, log_p_continue, anneal_temp, n_slices_min,
         cuda_lib.stream_of(scores))
     cuda_lib.check(err, "segment_dp")
     launches += 1
+    cuda_lib.count_form("K2", "%s %d warps" % (plan.form, plan.warps))
     if with_alphas:
         return log_prob, bounds, alphas
     return log_prob, bounds

@@ -308,7 +308,8 @@ def _check_and_scratch(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0,
                        t_invP0, t_ldP0, tk0, g_m, g_invP, g_ldP, K, bigram):
     """Validate the chain inputs; pick the plan; allocate the stream
     form's slot records [B, T, rec_words] and U [B, T, D] in device memory
-    (empty in the smem form) and ks."""
+    (empty in the smem form) and ks.  Returns the C launch's dimensions,
+    the scratch and the plan's form ("smem", or "stream ring R")."""
     B, S = embeds.shape
     D = Xe.shape[-1]
     T0 = tk0.shape[1]
@@ -334,8 +335,10 @@ def _check_and_scratch(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0,
                torch.empty((n, D), dtype=f32, device=dev),
                torch.empty((B, S), dtype=i32, device=dev)]
     # C order: recs, Ug, ks, then B, S, D, K, T0, form, threads, ring
+    form = ("stream ring %d" % plan.ring if plan.form == "stream"
+            else plan.form)
     return (B, S, D, K, T0, int(plan.form == "stream"), plan.threads,
-            plan.ring), scratch
+            plan.ring), scratch, form
 
 
 def _launch(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0,
@@ -344,7 +347,7 @@ def _launch(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0,
     global launches
     tables = (embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0,
               t_ldP0, tk0, g_m, g_invP, g_ldP)
-    dims, scratch = _check_and_scratch(*tables, K, False)
+    dims, scratch, form = _check_and_scratch(*tables, K, False)
     p = cuda_lib.ptr
     err = cuda_lib.library().fullcov_chain_launch(
         *(p(a) for a in tables), k0, v0, 0.5 * dims[2], _LOG_PI,
@@ -352,6 +355,7 @@ def _launch(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0,
         int(use_argmax), cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "fullcov_chain")
     launches += 1
+    cuda_lib.count_form("K9", form)
     return scratch[-1]
 
 
@@ -361,7 +365,7 @@ def _launch_bigram(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0,
     global bigram_launches
     tables = (embeds, Xe, log_prior_e, gumbel, base, counts, t_m0, t_invP0,
               t_ldP0, tk0, g_m, g_invP, g_ldP)
-    dims, scratch = _check_and_scratch(*tables, K, True)
+    dims, scratch, form = _check_and_scratch(*tables, K, True)
     B, S = dims[:2]
     dev = Xe.device
     req = cuda_lib.require
@@ -376,4 +380,5 @@ def _launch_bigram(embeds, Xe, log_prior_e, gumbel, base, counts, t_m0,
         *consts, lms, temp, cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "bigram_fullcov_chain")
     bigram_launches += 1
+    cuda_lib.count_form("K9", form + " bigram")
     return scratch[-1]

@@ -178,4 +178,5 @@ def _launch(Xc, prior_c, g, t, tslot, wvec, counts, valid_m):
         cuda_lib.stream_of(Xc))
     cuda_lib.check(err, "fullcov_scores")
     launches += 1
+    cuda_lib.count_form("K8", "%d rows" % plan.rows)
     return out

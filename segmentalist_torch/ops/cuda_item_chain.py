@@ -615,6 +615,7 @@ def _launch(family, Xe, log_prior_e, gumbel, k_old, counts, sum_xT, sum_sqT,
             int(use_argmax), cuda_lib.stream_of(Xe))
     cuda_lib.check(err, "%s_items" % family)
     launches += 1
+    cuda_lib.count_form("K10", "C%d %s" % (plan.cluster, plan.tables))
     return ks, cnt, sums
 
 
@@ -662,4 +663,6 @@ def _launch_full(X, log_prior, noise, k_old, counts, sum_x, sum_sq, terms,
         int(use_argmax), cuda_lib.stream_of(X))
     cuda_lib.check(err, "fullcov_items")
     full_launches += 1
+    cuda_lib.count_form("K11", "%s C%d tables %s work %s" % (
+        plan.form, plan.cluster, plan.tables, plan.work))
     return ks, SuffStats(cnt, sx, ssq)

@@ -155,6 +155,16 @@ _RESTYPES = {"diag_family_smem_bytes": ctypes.c_longlong,
              "segment_dp_smem_bytes": ctypes.c_longlong}
 
 build_seconds = None  # wall time of the last nvcc build in this process
+# each kernel's launches by the form its launch plan chose, since the last
+# reset (``form_launches.clear()``): {"K3": {"global": 8}, ...}; the
+# wrappers' own counters count the launches, this says which form ran them
+form_launches: dict = {}
+
+
+def count_form(kernel: str, form: str) -> None:
+    """Count one launch of ``kernel`` ("K1" to "K11") in ``form``."""
+    by_form = form_launches.setdefault(kernel, {})
+    by_form[form] = by_form.get(form, 0) + 1
 
 
 def _nvcc() -> str:

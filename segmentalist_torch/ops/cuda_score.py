@@ -160,7 +160,7 @@ def _launch(Xc, prior_c, muT, precT, wvec, counts, valid_m):
     req(counts, "counts", torch.int32, (B, K), dev)
     if valid_m is not None:
         req(valid_m, "valid_m", torch.int32, (B,), dev)
-    card_plan(D, K, M)  # raises where a block would not fit
+    plan = card_plan(D, K, M)  # raises where a block would not fit
     out = torch.empty((B, M), dtype=f32, device=dev)
     p = cuda_lib.ptr
     err = cuda_lib.library().fixedvar_scores_launch(
@@ -168,6 +168,7 @@ def _launch(Xc, prior_c, muT, precT, wvec, counts, valid_m):
         p(out), B, M, D, K, -0.5 * D * _LOG_2PI, cuda_lib.stream_of(Xc))
     cuda_lib.check(err, "fixedvar_scores")
     launches += 1
+    cuda_lib.count_form("K1", "%d rows" % plan.rows)
     return out
 
 
@@ -243,7 +244,7 @@ def _launch_diag(Xc, prior_c, muT, inv_varT, log_prod_var, v, wvec, counts,
     req(counts, "counts", torch.int32, (B, K), dev)
     if valid_m is not None:
         req(valid_m, "valid_m", torch.int32, (B,), dev)
-    card_plan(D, K, M)  # raises where a block would not fit
+    plan = card_plan(D, K, M)  # raises where a block would not fit
     out = torch.empty((B, M), dtype=f32, device=dev)
     p = cuda_lib.ptr
     err = cuda_lib.library().diag_scores_launch(
@@ -251,6 +252,8 @@ def _launch_diag(Xc, prior_c, muT, inv_varT, log_prod_var, v, wvec, counts,
         p(wvec), p(counts), p(valid_m), p(out), B, M, D, K, int(exact),
         cuda_lib.stream_of(Xc))
     cuda_lib.check(err, "diag_scores")
+    cuda_lib.count_form("K5", "%d rows %s" % (
+        plan.rows, "exact" if exact else "grouped"))
     if exact:
         diag_exact_launches += 1
     else:

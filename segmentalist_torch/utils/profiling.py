@@ -15,6 +15,14 @@ device time.
 
     python -m segmentalist_torch.utils.profiling --cov {fixed,diag,full} [--bigram] [--am-n-iter N]
     python -m segmentalist_torch.utils.profiling --kmeans
+    python -m segmentalist_torch.utils.profiling --cov full --D 130
+    python -m segmentalist_torch.utils.profiling --cov fixed --n-landmarks-max 120
+
+``--D`` and ``--n-landmarks-max`` build the corpus at another embedding
+width (130: the papers') or longest utterance (120: ``bench.py``'s
+``unigram_fixed_long``).  The line also holds the device's idle share
+of a sweep (1 - device ms / ms a sweep, the latter without the profiler)
+and each kernel's launches a sweep by the form its launch plan chose.
 
 The DP stage is every kernel launched inside the segmenters'
 ``segment_dp`` call (the noise draw and the DP; in a tree whose DP is not
@@ -135,46 +143,60 @@ def bench_prior(cov: str, D: int, device):
     return NIW.create(np.zeros(D, f32), 0.05, D + 3.0, S_0, device=device)
 
 
-def bench_corpus(n_utterances: int = 1000):
+def bench_corpus(n_utterances: int = 1000, D: int = 13,
+                 n_landmarks_max: int = 20):
     """The ``bench.py`` corpus (float32 embeddings): ``(embedding_mats,
-    vec_ids_dict, durations_dict, landmarks_dict, true boundaries)``."""
+    vec_ids_dict, durations_dict, landmarks_dict, true boundaries)``.
+    ``D`` 130 gives the papers' embedding width, ``n_landmarks_max`` 120
+    the corpus of ``bench.py``'s ``unigram_fixed_long`` row."""
     from segmentalist_torch.utils.synth import synthetic_corpus
 
     em, vi, du, lm, truth = synthetic_corpus(
-        n_utterances=n_utterances, n_landmarks_max=20, D=13, K_true=50,
-        n_slices_max=6, seed=0)
+        n_utterances=n_utterances, n_landmarks_max=n_landmarks_max, D=D,
+        K_true=50, n_slices_max=6, seed=0)
     em = {k: v.astype(np.float32) for k, v in em.items()}
     return em, vi, du, lm, truth
 
 
-def bench_kmeans_segmenter(n_utterances: int = 1000, device="cuda"):
+def bench_kmeans_segmenter(n_utterances: int = 1000, device="cuda",
+                           D: int = 13, n_landmarks_max: int = 20,
+                           corpus=None):
     """(segmenter, ground-truth boundaries): the segmental k-means
     segmenter of ``bench.py:442-452`` (``am_K=1000``,
     ``p_boundary_init=0.5``, ``n_slices_max=6``, ``batch_size=125``,
     ``seed=0``: the initial draws the JAX package makes after
-    ``np.random.seed(0)``) on the bench corpus."""
+    ``np.random.seed(0)``) on the bench corpus (:func:`bench_corpus` at
+    ``D`` and ``n_landmarks_max``, or ``corpus``, one it built)."""
     from segmentalist_torch import SegmentalKMeansWordseg
 
-    em, vi, du, lm, truth = bench_corpus(n_utterances)
+    em, vi, du, lm, truth = corpus or bench_corpus(n_utterances, D,
+                                                   n_landmarks_max)
     return SegmentalKMeansWordseg(
         1000, em, vi, du, lm, p_boundary_init=0.5, n_slices_max=6,
         batch_size=125, seed=0, device=device), truth
 
 
 def bench_segmenter(cov: str = "fixed", bigram: bool = False,
-                    n_utterances: int = 1000, device="cuda", **kw):
-    """(segmenter, ground-truth boundaries) at the bench configuration;
-    ``kw`` go to the segmenter (e.g. ``init_am_assignments``)."""
+                    n_utterances: int = 1000, device="cuda", D: int = 13,
+                    n_landmarks_max: int = 20, corpus=None, **kw):
+    """(segmenter, ground-truth boundaries) at the bench configuration,
+    on :func:`bench_corpus` at ``D`` and ``n_landmarks_max`` (or
+    ``corpus``, one it built) with :func:`bench_prior` at the corpus's
+    D; ``kw`` go to the segmenter (e.g. ``init_am_assignments``) and
+    override the configuration's keywords."""
     from segmentalist_torch import (BigramAcousticWordseg, FBGMM,
                                     UnigramAcousticWordseg)
 
-    em, vi, du, lm, truth = bench_corpus(n_utterances)
+    em, vi, du, lm, truth = corpus or bench_corpus(n_utterances, D,
+                                                   n_landmarks_max)
+    D = next(iter(em.values())).shape[1]
     common = dict(
-        am_K=1000, am_param_prior=bench_prior(cov, 13, "cpu"),
+        am_K=1000, am_param_prior=bench_prior(cov, D, "cpu"),
         embedding_mats=em, vec_ids_dict=vi, durations_dict=du,
         landmarks_dict=lm, covariance_type=cov, p_boundary_init=0.5,
         beta_sent_boundary=-1, n_slices_max=6, batch_size=125, seed=0,
-        device=device, **kw)
+        device=device)
+    common.update(kw)
     if bigram:
         seg = BigramAcousticWordseg(lm_params=BENCH_LM, fb_type="unigram",
                                     **common)
@@ -261,6 +283,8 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     ``segment``)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from segmentalist_torch.ops import cuda_lib
+
     kmeans = not hasattr(seg, "gibbs_sample")
     if kmeans:
         def sweeps(n):
@@ -276,6 +300,8 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     ms = (time.time() - t0) / SWEEPS * 1e3
     t0 = time.time()
     counted = launch_counts()
+    forms = getattr(cuda_lib, "form_launches", {})  # {} in an older tree
+    forms.clear()
     with dp_range(), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
         last = sweeps(SWEEPS)
@@ -329,10 +355,16 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     ops = sorted((e for e in events if e.device_type.name == "CPU"
                   and e.device_time_total > 0),
                  key=lambda e: -e.device_time_total)[:12]
+    device_ms = per_sweep_ms(sum(e.self_device_time_total for e in kernels))
     return {
         "ms_per_sweep": ms, "ms_per_sweep_profiled": ms_prof,
-        "device_ms_per_sweep": per_sweep_ms(
-            sum(e.self_device_time_total for e in kernels)),
+        "device_ms_per_sweep": device_ms,
+        # the share of a sweep's wall time (unprofiled) that no kernel ran
+        "idle_share": 1.0 - device_ms / ms,
+        # each kernel's launches a sweep by the form its plan chose
+        "form_launches_per_sweep": {
+            k: {f: n / SWEEPS for f, n in v.items()}
+            for k, v in sorted(forms.items())},
         "kernels_per_sweep": sum(e.count for e in kernels) / SWEEPS,
         "blocks_per_sweep": blocks,
         # active components (the scorers' active columns) of K_max
@@ -387,6 +419,11 @@ def main(argv=None) -> int:
                     "K11 with --cov full)")
     ap.add_argument("--kmeans", action="store_true",
                     help="the segmental k-means segmenter (K2, Viterbi)")
+    ap.add_argument("--D", type=int, default=13,
+                    help="the corpus's embedding width (130: the papers')")
+    ap.add_argument("--n-landmarks-max", type=int, default=20,
+                    help="the corpus's longest utterance (120: bench.py's "
+                    "unigram_fixed_long)")
     ap.add_argument("--root", default=None,
                     help="import segmentalist_torch from this checkout")
     args = ap.parse_args(argv)
@@ -402,13 +439,14 @@ def main(argv=None) -> int:
                          "path (python segmentalist_torch/utils/"
                          "profiling.py --root DIR): %s was imported already"
                          % here)
+    shape = dict(D=args.D, n_landmarks_max=args.n_landmarks_max)
     if args.kmeans:
-        seg, _ = bench_kmeans_segmenter()
+        seg, _ = bench_kmeans_segmenter(**shape)
     else:
-        seg, _ = bench_segmenter(args.cov, args.bigram)
+        seg, _ = bench_segmenter(args.cov, args.bigram, **shape)
     out = profile_sweeps(seg, args.am_n_iter)
     out.update(cov=None if args.kmeans else args.cov, bigram=args.bigram,
-               kmeans=args.kmeans,
+               kmeans=args.kmeans, **shape,
                device=torch.cuda.get_device_name(0),
                package=os.path.dirname(here))
     print(json.dumps(out))

@@ -37,6 +37,7 @@ from ..ops.stats import (SuffStats, add_item, canonicalize_new_component,
 from ..device import resolve_device
 from ..priors import Prior
 from ..utils.annealing import anneal_temperatures
+from ..utils.tracing import blocking, fetch
 from . import cov_module
 
 RECORD_KEYS = ("sample_time", "log_marg", "log_prob_z", "log_prob_X_given_z",
@@ -61,7 +62,8 @@ def log_prob_z_dirichlet(counts: torch.Tensor, alpha,
     """log P(z) under the symmetric Dirichlet prior, Murphy (24.24)
     (reference ``FBGMM.log_prob_z``, ``fbgmm.py:208-225``), in float64."""
     c = counts.to(torch.float64)
-    a = torch.tensor(float(alpha), dtype=torch.float64, device=c.device)
+    with blocking("alpha"):  # a copy from pageable memory
+        a = torch.tensor(float(alpha), dtype=torch.float64, device=c.device)
     return (torch.lgamma(a) - torch.lgamma(a + c.sum())
             + (torch.lgamma(c + a / K_max) - torch.lgamma(a / K_max)).sum())
 
@@ -191,7 +193,10 @@ class FBGMM:
 
     @staticmethod
     def metrics_to_dict(fetched) -> dict:
-        lpz, lpx, k_act, n_assigned, n_tokens = (float(v) for v in fetched)
+        """The record dict of :meth:`sweep_metrics_device`'s scalars,
+        fetched."""
+        lpz, lpx, k_act, n_assigned, n_tokens = (fetch("metrics", v)
+                                                 for v in fetched)
         return {
             "log_prob_z": lpz,
             "log_prob_X_given_z": lpx,
@@ -325,7 +330,8 @@ class FBGMM:
         if consider_unassigned:
             ids = torch.arange(self.N, device=self.device)
         else:
-            ids = torch.nonzero(self.assignments >= 0)[:, 0]
+            with blocking("am_items"):
+                ids = torch.nonzero(self.assignments >= 0)[:, 0]
         noise = (self.draw_noise(ids.shape[0]) if noise is None
                  else noise[ids])
         self._item_steps(ids, True, noise, anneal_temp)

@@ -53,6 +53,7 @@ from .cuda_chain import _LOG_2PI, FixedVarCols, _chain_plain
 from .cuda_diag_chain import _HALF_LOG_PI, DiagCols, gr_table, prior_terms
 from .random import annealed_gumbel_max
 from .stats import SuffStats, canonicalize_new_component
+from ..utils.tracing import fetch
 
 FAMILIES = ("fixed", "diag", "full")
 
@@ -114,8 +115,8 @@ def item_chain_inputs(family, X, log_prior, noise, k_old, stats, prior,
         terms = (1.0 / prior.var, prec0, prec0 * prior.mu_0)
     else:
         k0m0, snp0, k0 = prior_terms(prior.m_0, prior.k_0, prior.S_0)
-        max_count = int(stats.counts.sum()) + n
-        v0 = float(prior.v_0)
+        max_count = fetch("item_counts", stats.counts.sum()) + n
+        v0 = fetch("prior", prior.v_0)
         terms = (k0m0, snp0, gr_table(v0, max_count, X.dtype, X.device),
                  k0, v0)
     return (family, *data, terms, float(temp), float(alpha), int(K),
@@ -274,12 +275,13 @@ def full_chain_inputs(X, log_prior, noise, k_old, stats, prior, alpha, K,
         if not use_argmax:
             raise ValueError("noise is required unless use_argmax")
         noise = X.new_zeros((n, K))
-    k0, v0 = float(prior.k_0), float(prior.v_0)
+    k0, v0 = fetch("prior", prior.k_0), fetch("prior", prior.v_0)
     m0 = prior.m_0
     terms = (prior.k_0 * m0,
              prior.S_0 + prior.k_0 * (m0[:, None] * m0[None, :]),
-             full_count_terms(v0, D, int(stats.counts.sum()) + n, X.dtype,
-                              X.device), k0, v0)
+             full_count_terms(v0, D,
+                              fetch("item_counts", stats.counts.sum()) + n,
+                              X.dtype, X.device), k0, v0)
     data = tuple(t.contiguous() for t in (X, log_prior, noise, k_old,
                                           *stats))
     return (*data, terms, float(temp), float(alpha), int(K), float(lms),

@@ -48,6 +48,7 @@ from ..ops.random import annealed_gumbel_max, gumbel, logsumexp
 from ..ops.stats import add_item, canonicalize_new_component, num_active
 from ..utils import debug as dbg
 from ..utils.annealing import anneal_temperatures
+from ..utils.tracing import annotate, fetch
 from .blocked import BlockedWordseg
 from .common import gather_block_segments
 from .unigram import _dense_to_tri
@@ -187,11 +188,11 @@ class BigramAcousticWordseg(BlockedWordseg):
     def sweep_metrics(self) -> dict:
         """The record quantities of the current state, in one fetch."""
         am = self.acoustic_model
-        lpz, lpx, k_act, n_assigned = torch.stack([
+        lpz, lpx, k_act, n_assigned = fetch("metrics", torch.stack([
             v.to(torch.float64) for v in (
                 self._log_prob_z(), am.cov.log_marg(am.prior, am.stats),
                 num_active(am.stats), (am.assignments >= 0).sum())
-        ]).tolist()
+        ]))
         return {"log_prob_z": lpz, "log_prob_X_given_z": lpx,
                 "log_marg": lpz + lpx, "components": int(k_act),
                 "n_assigned": int(n_assigned)}
@@ -375,57 +376,66 @@ class BigramAcousticWordseg(BlockedWordseg):
         """
         am, lm = self.acoustic_model, self.lm
         X, K, prior = am.X, am.K_max, am.prior
+        with annotate("seg.block"):
+            # 1. old segments, their LM pairs and the leave-outs
+            with annotate("seg.block.leave_out"):
+                blk = self._leave_out(idx_blk, split=True)
+                dp_noise, chain_noise = self._own_noise(
+                    blk, dp_noise, chain_noise, not assignments_only)
+                pairs_old = transcript_pairs_batch(blk.old_ks)
+                uni_lo = self._lm_leave_out(blk)
 
-        # 1. old segments, their LM pairs and the leave-outs
-        blk = self._leave_out(idx_blk, split=True)
-        dp_noise, chain_noise = self._own_noise(
-            blk, dp_noise, chain_noise, not assignments_only)
-        pairs_old = transcript_pairs_batch(blk.old_ks)
-        uni_lo = self._lm_leave_out(blk)
+            # 2. scoring with the LM's unigram weights (K1 / K5 / K8),
+            # boundaries (K2)
+            with annotate("seg.block.score"):
+                scores = (None if assignments_only else
+                          self._candidate_scores(
+                              blk, self._candidate_weights(blk), "sample"))
+            with annotate("seg.block.dp"):
+                if assignments_only:
+                    log_prob = torch.zeros(blk.idx.shape[0], dtype=X.dtype,
+                                           device=self.device)
+                    new_bounds = self.utterances.boundaries_dev[blk.idx]
+                else:
+                    log_prob, new_bounds = self._resample_boundaries(
+                        blk, scores, anneal_temp, "sample", dp_noise)
 
-        # 2. scoring with the LM's unigram weights (K1 / K5 / K8),
-        # boundaries (K2)
-        if assignments_only:
-            log_prob = torch.zeros(blk.idx.shape[0], dtype=X.dtype,
-                                   device=self.device)
-            new_bounds = self.utterances.boundaries_dev[blk.idx]
-        else:
-            log_prob, new_bounds = self._resample_boundaries(
-                blk, self._candidate_weights(blk), anneal_temp, "sample",
-                dp_noise)
+            # 3. bigram-conditioned assignment chains (kernel K4 / K7 / K9)
+            with annotate("seg.block.chain"):
+                new_embeds, Xe_new, lpe_new = self._new_segments(blk,
+                                                                 new_bounds)
+                noise = self._chain_noise(chain_noise, blk.idx.shape[0])
+                data = (new_embeds, Xe_new, lpe_new, noise, blk.lo_counts,
+                        blk.sum_xT)
+                lm_args = (uni_lo, lm.state.bigram_counts, *pairs_old)
+                opts = dict(alpha_a=lm.a, intrp_lambda=lm.intrp_lambda,
+                            b_smooth=lm.b, K=K, lms=self.lms)
+                if self._family == "full":
+                    new_ks = self._full_chain(
+                        blk, new_embeds, Xe_new, noise, 0.0, self.lms,
+                        assign_temp,
+                        lm=(*lm_args, lm.a, lm.intrp_lambda, lm.b))
+                elif self._family == "diag":
+                    new_ks = bigram_diag_chain(
+                        *data, blk.sum_sqT, prior.m_0, *self._k0_v0,
+                        prior.S_0, assign_temp, *lm_args, **opts)
+                else:
+                    new_ks = bigram_fixedvar_chain(
+                        *data, prior.var, prior.var_0, prior.mu_0,
+                        assign_temp, *lm_args, **opts)
 
-        # 3. bigram-conditioned assignment chains (kernel K4 / K7 / K9)
-        new_embeds, Xe_new, lpe_new = self._new_segments(blk, new_bounds)
-        noise = self._chain_noise(chain_noise, blk.idx.shape[0])
-        data = (new_embeds, Xe_new, lpe_new, noise, blk.lo_counts,
-                blk.sum_xT)
-        lm_args = (uni_lo, lm.state.bigram_counts, *pairs_old)
-        opts = dict(alpha_a=lm.a, intrp_lambda=lm.intrp_lambda,
-                    b_smooth=lm.b, K=K, lms=self.lms)
-        if self._family == "full":
-            new_ks = self._full_chain(
-                blk, new_embeds, Xe_new, noise, 0.0, self.lms, assign_temp,
-                lm=(*lm_args, lm.a, lm.intrp_lambda, lm.b))
-        elif self._family == "diag":
-            new_ks = bigram_diag_chain(
-                *data, blk.sum_sqT, prior.m_0, *self._k0_v0, prior.S_0,
-                assign_temp, *lm_args, **opts)
-        else:
-            new_ks = bigram_fixedvar_chain(
-                *data, prior.var, prior.var_0, prior.mu_0, assign_temp,
-                *lm_args, **opts)
+            # 4. decollision, the acoustic merge, then the LM count delta
+            with annotate("seg.block.merge"):
+                def lm_delta(old_ks, new_ks, valid):
+                    # the exact mode merges the gathered block, whose old
+                    # pairs are not this step's
+                    pairs = pairs_old if old_ks is blk.old_ks else None
+                    return block_count_delta(old_ks, new_ks, valid, K,
+                                             pairs_old=pairs)
 
-        # 4. decollision, the acoustic merge, then the LM count delta
-        def lm_delta(old_ks, new_ks, valid):
-            # the exact mode merges the gathered block, whose old pairs are
-            # not this step's
-            pairs = pairs_old if old_ks is blk.old_ks else None
-            return block_count_delta(old_ks, new_ks, valid, K,
-                                     pairs_old=pairs)
-
-        lp, delta = self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks,
-                                log_prob, lm_delta)
-        lm.state = apply_delta(lm.state, BigramLMState(*delta))
+                lp, delta = self._merge(blk, new_bounds, new_embeds, Xe_new,
+                                        new_ks, log_prob, lm_delta)
+                lm.state = apply_delta(lm.state, BigramLMState(*delta))
         return lp
 
 

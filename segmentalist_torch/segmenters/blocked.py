@@ -11,9 +11,9 @@ state and resample a block of utterances through the same stages
      full-covariance one the global predictive parameters and each
      utterance's touched-component leave-outs (``segmenters/fullcov.py``);
   2. fused candidate scoring (kernel K1 for the fixed-variance family, K5
-     for the diagonal-covariance one, K8 for the full-covariance one) and
-     the boundary-resampling DP (kernel K2)
-     (:meth:`BlockedWordseg._resample_boundaries`);
+     for the diagonal-covariance one, K8 for the full-covariance one;
+     :meth:`BlockedWordseg._candidate_scores`) and the boundary-resampling
+     DP (kernel K2; :meth:`BlockedWordseg._resample_boundaries`);
   3. the sequential assignment chain of the new segments -- the one stage
      the segmenters do differently (K3 / K6 / K9 with Dirichlet weights,
      K4 / K7 / K9's bigram mode with the bigram LM);
@@ -21,7 +21,11 @@ state and resample a block of utterances through the same stages
      (:meth:`BlockedWordseg._merge`).
 
 The segmenters differ only in the mixture weights they hand to stage 2, the
-chain of stage 3 and the bookkeeping around it.
+chain of stage 3 and the bookkeeping around it.  Each ``block_step`` runs
+the stages in the profiler spans ``seg.block.leave_out``, ``.score``,
+``.dp``, ``.chain`` and ``.merge`` inside ``seg.block``, and
+:meth:`BlockedWordseg._sample_sweeps` a sweep in ``seg.sweep``
+(``utils/tracing.py``).
 
 On a mesh (``parallel/``) the same stages run on a rank's rows: in the
 exact mode :meth:`BlockedWordseg._leave_out` takes this rank's rows of the
@@ -50,6 +54,7 @@ from ..ops.dp import segment_dp
 from ..ops.random import gumbel, logsumexp
 from ..ops.stats import SuffStats
 from ..utils import debug as dbg
+from ..utils.tracing import annotate, fetch
 from .common import (
     cand_tables,
     counts_contrib,
@@ -326,33 +331,39 @@ class BlockedWordseg:
         record = {k: [] for k in RECORD_KEYS}
         pending_monitor, pending_validate = [], []
         for temp in temps:
-            t0 = time.time()
-            if am_n_iter > 0:
-                self.acoustic_model.gibbs_sample(am_n_iter,
-                                                 consider_unassigned=False)
-            temp = float(temp)
-            assign_temp = temp if anneal_gibbs_am else 1.0
-            order = (np.asarray([int(monitor_i)], dtype=np.int64)
-                     if debug_only else
-                     self._rng.permutation(self.utterances.D))
-            blocks = pad_utterance_order(order, self.batch_size)
-            log_prob = self._run_blocks(blocks, temp, assign_temp,
-                                        **step_kwargs)
-            m = self.sweep_metrics()
-            record["log_marg"].append(m["log_marg"])
-            record["log_marg*length"].append(float(log_prob))
-            record["log_prob_z"].append(m["log_prob_z"])
-            record["log_prob_X_given_z"].append(m["log_prob_X_given_z"])
-            record["anneal_temp"].append(temp)
-            record["components"].append(m["components"])
-            record["n_tokens"].append(m["n_assigned"])
-            record["sample_time"].append(time.time() - t0)
-            logger.info("iteration: %d, log_marg: %s",
-                        len(record["log_marg"]) - 1, record["log_marg"][-1])
-            if monitor_i is not None:
-                pending_monitor.append(self._monitor(int(monitor_i)))
-            if validate:
-                pending_validate.append(self._validate())
+            with annotate("seg.sweep"):
+                t0 = time.time()
+                if am_n_iter > 0:
+                    with annotate("seg.sweep.am"):
+                        self.acoustic_model.gibbs_sample(
+                            am_n_iter, consider_unassigned=False)
+                temp = float(temp)
+                assign_temp = temp if anneal_gibbs_am else 1.0
+                order = (np.asarray([int(monitor_i)], dtype=np.int64)
+                         if debug_only else
+                         self._rng.permutation(self.utterances.D))
+                blocks = pad_utterance_order(order, self.batch_size)
+                with annotate("seg.sweep.blocks"):
+                    log_prob = self._run_blocks(blocks, temp, assign_temp,
+                                                **step_kwargs)
+                with annotate("seg.sweep.metrics"):
+                    m = self.sweep_metrics()
+                    log_prob = fetch("log_prob", log_prob)
+                record["log_marg"].append(m["log_marg"])
+                record["log_marg*length"].append(log_prob)
+                record["log_prob_z"].append(m["log_prob_z"])
+                record["log_prob_X_given_z"].append(m["log_prob_X_given_z"])
+                record["anneal_temp"].append(temp)
+                record["components"].append(m["components"])
+                record["n_tokens"].append(m["n_assigned"])
+                record["sample_time"].append(time.time() - t0)
+                logger.info("iteration: %d, log_marg: %s",
+                            len(record["log_marg"]) - 1,
+                            record["log_marg"][-1])
+                if monitor_i is not None:
+                    pending_monitor.append(self._monitor(int(monitor_i)))
+                if validate:
+                    pending_validate.append(self._validate())
         if monitor_i is not None:
             dbg.log_monitor(logger, int(monitor_i), pending_monitor)
         if validate:
@@ -508,24 +519,30 @@ class BlockedWordseg:
         return (None if dp_noise is None else dp_noise[rows],
                 chain_noise[rows])
 
-    def _resample_boundaries(self, blk: Block, w_b: torch.Tensor,
-                             anneal_temp: float, mode: str,
-                             dp_noise: Optional[torch.Tensor]):
-        """Stage 2: score every candidate span of the block with mixture
-        weights ``w_b`` [B, K] (kernel K1, K5 for the diag family, K8 for
-        the full one) and resample the boundaries (kernel K2).  Returns
-        (log_prob [B], new boundaries [B, N_max]).
+    def _candidate_scores(self, blk: Block, w_b: torch.Tensor,
+                          mode: str) -> torch.Tensor:
+        """Stage 2a: the duration-scaled scores [B, N_max, W_dp] of every
+        candidate span of the block with mixture weights ``w_b`` [B, K]
+        (kernel K1, K5 for the diag family, K8 for the full one), -inf
+        where masked, for a DP in ``mode``.
 
         The diag Viterbi DP takes K5's exact per-dimension composition: a
         deterministic argmax must not see the grouped form's rounding
         (the JAX driver's gate, ``unigram.py:863-871``).  The full family
         has one composition, K8, for both DP modes (``unigram.py:905-916``).
         """
-        am = self.acoustic_model
-        scores = masked_candidate_scores(
+        return masked_candidate_scores(
             self._candidate_log_margs(blk, w_b, exact=mode == "viterbi"),
             self._seg_ids_dp[blk.idx], self._seg_durs_dp[blk.idx],
             self.time_power_term, self.wip)
+
+    def _resample_boundaries(self, blk: Block, scores: torch.Tensor,
+                             anneal_temp: float, mode: str,
+                             dp_noise: Optional[torch.Tensor]):
+        """Stage 2b: resample the block's boundaries from its candidate
+        ``scores`` (:meth:`_candidate_scores`; kernel K2).  Returns
+        (log_prob [B], new boundaries [B, N_max])."""
+        am = self.acoustic_model
         return segment_dp(
             scores, blk.lengths, self._log_p_continue(am.stats.counts),
             anneal_temp, n_slices_min=self.n_slices_min,

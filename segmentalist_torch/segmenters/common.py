@@ -27,6 +27,7 @@ import torch
 
 from ..ops.random import NEG_INF
 from ..ops.stats import SuffStats, item_sq, moment_sums, one_hot_rows
+from ..utils.tracing import blocking
 
 
 class Segments(NamedTuple):
@@ -142,7 +143,8 @@ def put_assignments(pad: torch.Tensor, valid: torch.Tensor,
     put = torch.where(vm & (new_embeds >= 0), new_embeds, N)
     pad.index_put_((put.reshape(-1).long(),),
                    new_ks.reshape(-1).to(pad.dtype))
-    pad[N] = -1
+    with blocking("assign_sink"):  # a copy from pageable memory
+        pad[N] = -1
 
 
 def merge_flat(global_stats: SuffStats, old_flat: SuffStats,

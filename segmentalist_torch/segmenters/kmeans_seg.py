@@ -51,6 +51,7 @@ from ..models.kmeans import (KMeans, KMeansState,
 from ..ops.dp import segment_dp
 from ..ops.random import NEG_INF
 from ..utils import debug as dbg
+from ..utils.tracing import annotate, fetch
 from .blocked import _to_device, build_corpus
 from .common import (cand_tables, dp_window, flat_contrib,
                      gather_block_segments, pad_utterance_order,
@@ -236,35 +237,40 @@ class SegmentalKMeansWordseg:
         record = {k: [] for k in RECORD_KEYS}
         pending_monitor, pending_validate = [], []
         for _ in range(n_iter):
-            t0 = time.time()
-            order = (np.asarray([int(monitor_i)], dtype=np.int64)
-                     if segment_debug_only else
-                     self._rng.permutation(self.utterances.D))
-            blocks = pad_utterance_order(order, self.batch_size)
-            obj = self._run_blocks(blocks)
-            self._sweeps_since_resync += 1
-            if self._sweeps_since_resync >= _RESYNC_EVERY:
-                self._resync_stats()
-            st = am.state
-            f64 = torch.float64
-            obj, snn, k_act, n_tok = torch.stack([
-                obj.to(f64),
-                sum_neg_sqrd_norm(am.X, st, am.random_means).to(f64),
-                (st.counts > 0).sum().to(f64),
-                (st.assignments >= 0).sum().to(f64)]).tolist()
-            if monitor_i is not None:
-                pending_monitor.append(self._monitor(int(monitor_i)))
-            if validate:
-                pending_validate.append(self._validate())
-            if n_iter_inbetween_kmeans > 0:
-                am.fit(n_iter_inbetween_kmeans, consider_unassigned=False)
-            record["sum_neg_sqrd_norm"].append(snn)
-            record["sum_neg_len_sqrd_norm"].append(obj)
-            record["components"].append(int(k_act))
-            record["n_tokens"].append(int(n_tok))
-            record["sample_time"].append(time.time() - t0)
-            logger.info("iteration: %d, sum_neg_len_sqrd_norm: %s",
-                        len(record["sample_time"]) - 1, obj)
+            with annotate("seg.sweep"):
+                t0 = time.time()
+                order = (np.asarray([int(monitor_i)], dtype=np.int64)
+                         if segment_debug_only else
+                         self._rng.permutation(self.utterances.D))
+                blocks = pad_utterance_order(order, self.batch_size)
+                with annotate("seg.sweep.blocks"):
+                    obj = self._run_blocks(blocks)
+                self._sweeps_since_resync += 1
+                if self._sweeps_since_resync >= _RESYNC_EVERY:
+                    self._resync_stats()
+                with annotate("seg.sweep.metrics"):
+                    st = am.state
+                    f64 = torch.float64
+                    obj, snn, k_act, n_tok = fetch("metrics", torch.stack([
+                        obj.to(f64),
+                        sum_neg_sqrd_norm(am.X, st, am.random_means).to(f64),
+                        (st.counts > 0).sum().to(f64),
+                        (st.assignments >= 0).sum().to(f64)]))
+                if monitor_i is not None:
+                    pending_monitor.append(self._monitor(int(monitor_i)))
+                if validate:
+                    pending_validate.append(self._validate())
+                if n_iter_inbetween_kmeans > 0:
+                    with annotate("seg.sweep.am"):
+                        am.fit(n_iter_inbetween_kmeans,
+                               consider_unassigned=False)
+                record["sum_neg_sqrd_norm"].append(snn)
+                record["sum_neg_len_sqrd_norm"].append(obj)
+                record["components"].append(int(k_act))
+                record["n_tokens"].append(int(n_tok))
+                record["sample_time"].append(time.time() - t0)
+                logger.info("iteration: %d, sum_neg_len_sqrd_norm: %s",
+                            len(record["sample_time"]) - 1, obj)
         if monitor_i is not None:
             dbg.log_monitor(logger, int(monitor_i), pending_monitor)
         if validate:
@@ -346,69 +352,85 @@ class SegmentalKMeansWordseg:
         the assignments to the sweep's merge."""
         am, utt, sh = self.acoustic_model, self.utterances, self._shard
         X, K, st = am.X, am.K_max, am.state
-        idx_np = np.asarray(idx_blk, dtype=np.int64)
-        exact = sh is not None and not sh.per_shard
-        if exact:
-            idx_np, rows = sh.own_rows(idx_np)
-        B = idx_np.shape[0]
-        packed = _to_device(
-            np.concatenate([idx_np, np.nonzero(idx_np >= 0)[0]]), self.device)
-        valid = packed[:B] >= 0
-        idx, live = packed[:B].clamp_min(0), packed[B:]
-        if exact:
-            full = (idx, valid, live)
-            idx, valid = idx[rows], valid[rows]
-        lengths = torch.where(valid, utt.lengths_dev[idx], 0)
-        seg_ids = utt.seg_ids[idx]
+        with annotate("seg.block"):
+            # 1. the block's rows; the means of the global statistics; the
+            # old segments
+            with annotate("seg.block.leave_out"):
+                idx_np = np.asarray(idx_blk, dtype=np.int64)
+                exact = sh is not None and not sh.per_shard
+                if exact:
+                    idx_np, rows = sh.own_rows(idx_np)
+                B = idx_np.shape[0]
+                packed = _to_device(np.concatenate(
+                    [idx_np, np.nonzero(idx_np >= 0)[0]]), self.device)
+                valid = packed[:B] >= 0
+                idx, live = packed[:B].clamp_min(0), packed[B:]
+                if exact:
+                    full = (idx, valid, live)
+                    idx, valid = idx[rows], valid[rows]
+                lengths = torch.where(valid, utt.lengths_dev[idx], 0)
+                seg_ids = utt.seg_ids[idx]
+                means = means_from_state(st, am.random_means)
+                old_embeds, _ = gather_block_segments(
+                    utt.boundaries_dev[idx], lengths, seg_ids)
 
-        # 1. the means of the global statistics; the old segments
-        means = means_from_state(st, am.random_means)
-        old_embeds, _ = gather_block_segments(utt.boundaries_dev[idx],
-                                              lengths, seg_ids)
+            # 2. best-component distance x duration + wip for every
+            # candidate
+            with annotate("seg.block.score"):
+                scores = self._candidate_scores(idx, means)
 
-        # 2. best-component distance x duration + wip for every candidate
-        scores = self._candidate_scores(idx, means)
+            # 3. the Viterbi DP (kernel K2)
+            with annotate("seg.block.dp"):
+                obj, new_bounds = segment_dp(
+                    scores, lengths, 0.0, 1.0,
+                    n_slices_min=self.n_slices_min, n_slices_max=self.W_dp,
+                    mode="viterbi")
 
-        # 3. the Viterbi DP (kernel K2)
-        obj, new_bounds = segment_dp(
-            scores, lengths, 0.0, 1.0, n_slices_min=self.n_slices_min,
-            n_slices_max=self.W_dp, mode="viterbi")
+            # 4. the new segments to their nearest (frozen) means
+            with annotate("seg.block.chain"):
+                new_embeds, _ = gather_block_segments(new_bounds, lengths,
+                                                      seg_ids)
+                Xe_new = X[new_embeds.clamp_min(0).long()]
+                new_ks = neg_sqrd_norms(
+                    Xe_new.reshape(-1, X.shape[-1]),
+                    means).argmax(-1).reshape(new_embeds.shape)
+                new_ks = torch.where(new_embeds >= 0, new_ks.to(torch.int32),
+                                     -1)
 
-        # 4. the new segments to their nearest (frozen) means
-        new_embeds, _ = gather_block_segments(new_bounds, lengths, seg_ids)
-        Xe_new = X[new_embeds.clamp_min(0).long()]
-        new_ks = neg_sqrd_norms(Xe_new.reshape(-1, X.shape[-1]),
-                                means).argmax(-1).reshape(new_embeds.shape)
-        new_ks = torch.where(new_embeds >= 0, new_ks.to(torch.int32), -1)
-
-        # 5. the statistics' deltas, the assignments and the boundaries
-        if exact:
-            idx, valid, live = full
-            old_embeds, new_embeds, new_ks, new_bounds, obj = sh.gather_rows(
-                old_embeds, new_embeds, new_ks, new_bounds, obj)
-            Xe_new = X[new_embeds.clamp_min(0).long()]
-        old_rows = old_embeds.clamp_min(0).long()
-        old_ks = torch.where(old_embeds >= 0, st.assignments[old_rows], -1)
-        old_c = flat_contrib(X, old_embeds, old_ks, K, valid,
-                             rows=X[old_rows], second_moments=False)
-        new_c = flat_contrib(X, new_embeds, new_ks, K, valid, rows=Xe_new,
-                             second_moments=False)
-        d_counts = new_c.counts - old_c.counts
-        d_sum_x = new_c.sum_x - old_c.sum_x
-        obj = torch.where(valid, obj, 0.0).sum()
-        if sh is not None and sh.per_shard:
-            d_counts, d_sum_x, obj = sh.sum_ranks([d_counts, d_sum_x, obj])
-            sh.updates.append((valid, old_embeds, new_embeds, new_ks))
-            assignments = st.assignments
-        else:
-            pad = torch.cat([st.assignments,
-                             st.assignments.new_full((1,), -1)])
-            put_assignments(pad, valid, old_embeds, new_embeds, new_ks)
-            assignments = pad[:-1]
-        am.state = KMeansState(assignments=assignments,
-                               counts=st.counts + d_counts,
-                               sum_x=st.sum_x + d_sum_x)
-        utt.boundaries_dev[idx[live]] = new_bounds[live]
+            # 5. the statistics' deltas, the assignments and the boundaries
+            with annotate("seg.block.merge"):
+                if exact:
+                    idx, valid, live = full
+                    old_embeds, new_embeds, new_ks, new_bounds, obj = \
+                        sh.gather_rows(old_embeds, new_embeds, new_ks,
+                                       new_bounds, obj)
+                    Xe_new = X[new_embeds.clamp_min(0).long()]
+                old_rows = old_embeds.clamp_min(0).long()
+                old_ks = torch.where(old_embeds >= 0,
+                                     st.assignments[old_rows], -1)
+                old_c = flat_contrib(X, old_embeds, old_ks, K, valid,
+                                     rows=X[old_rows], second_moments=False)
+                new_c = flat_contrib(X, new_embeds, new_ks, K, valid,
+                                     rows=Xe_new, second_moments=False)
+                d_counts = new_c.counts - old_c.counts
+                d_sum_x = new_c.sum_x - old_c.sum_x
+                obj = torch.where(valid, obj, 0.0).sum()
+                if sh is not None and sh.per_shard:
+                    d_counts, d_sum_x, obj = sh.sum_ranks([d_counts, d_sum_x,
+                                                           obj])
+                    sh.updates.append((valid, old_embeds, new_embeds,
+                                       new_ks))
+                    assignments = st.assignments
+                else:
+                    pad = torch.cat([st.assignments,
+                                     st.assignments.new_full((1,), -1)])
+                    put_assignments(pad, valid, old_embeds, new_embeds,
+                                    new_ks)
+                    assignments = pad[:-1]
+                am.state = KMeansState(assignments=assignments,
+                                       counts=st.counts + d_counts,
+                                       sum_x=st.sum_x + d_sum_x)
+                utt.boundaries_dev[idx[live]] = new_bounds[live]
         return obj
 
     def _resync_stats(self):

@@ -42,6 +42,7 @@ from ..ops.cuda_chain import fixedvar_chain
 from ..ops.cuda_diag_chain import diag_chain
 from ..ops.dp import segment_dp
 from ..utils.annealing import anneal_temperatures
+from ..utils.tracing import annotate
 from .blocked import RECORD_KEYS, BlockedWordseg
 
 __all__ = ["RECORD_KEYS", "UnigramAcousticWordseg", "forward_backward",
@@ -310,40 +311,51 @@ class UnigramAcousticWordseg(BlockedWordseg):
         """
         am = self.acoustic_model
         K, prior = am.K_max, am.prior
+        with annotate("seg.block"):
+            # 1. current segments and leave-one-utterance-out statistics
+            with annotate("seg.block.leave_out"):
+                blk = self._leave_out(idx_blk, split=True)
+                dp_noise, chain_noise = self._own_noise(
+                    blk, dp_noise, chain_noise, self._dp_mode == "sample")
 
-        # 1. current segments and leave-one-utterance-out statistics
-        blk = self._leave_out(idx_blk, split=True)
-        dp_noise, chain_noise = self._own_noise(
-            blk, dp_noise, chain_noise, self._dp_mode == "sample")
+            # 2. fused candidate scoring (K1 / K5 / K8), boundary
+            # resampling (K2)
+            with annotate("seg.block.score"):
+                scores = self._candidate_scores(
+                    blk, self._candidate_weights(blk), self._dp_mode)
+            with annotate("seg.block.dp"):
+                log_prob, new_bounds = self._resample_boundaries(
+                    blk, scores, anneal_temp, self._dp_mode, dp_noise)
 
-        # 2. fused candidate scoring (K1 / K5 / K8), boundary resampling (K2)
-        log_prob, new_bounds = self._resample_boundaries(
-            blk, self._candidate_weights(blk), anneal_temp, self._dp_mode,
-            dp_noise)
+            # 3. sequential assignment of the new segments (kernel K3 / K6
+            # / K9); Viterbi takes the argmax without the lms scaling
+            # (fbgmm.py:475)
+            with annotate("seg.block.chain"):
+                new_embeds, Xe_new, lpe_new = self._new_segments(blk,
+                                                                 new_bounds)
+                viterbi = self.fb_type == "viterbi"
+                noise = self._chain_noise(chain_noise, blk.idx.shape[0])
+                opts = dict(alpha=am.alpha, K=K,
+                            lms=1.0 if viterbi else am.lms,
+                            use_argmax=viterbi)
+                data = (new_embeds, Xe_new, lpe_new, noise, blk.lo_counts,
+                        blk.sum_xT)
+                if self._family == "full":
+                    new_ks = self._full_chain(
+                        blk, new_embeds, Xe_new, noise, am.alpha,
+                        opts["lms"], assign_temp, use_argmax=viterbi)
+                elif self._family == "diag":
+                    new_ks = diag_chain(*data, blk.sum_sqT, prior.m_0,
+                                        *self._k0_v0, prior.S_0, assign_temp,
+                                        **opts)
+                else:
+                    new_ks = fixedvar_chain(*data, prior.var, prior.var_0,
+                                            prior.mu_0, assign_temp, **opts)
 
-        # 3. sequential assignment of the new segments (kernel K3 / K6 /
-        # K9); Viterbi takes the argmax without the lms scaling (fbgmm.py:475)
-        new_embeds, Xe_new, lpe_new = self._new_segments(blk, new_bounds)
-        viterbi = self.fb_type == "viterbi"
-        noise = self._chain_noise(chain_noise, blk.idx.shape[0])
-        opts = dict(alpha=am.alpha, K=K, lms=1.0 if viterbi else am.lms,
-                    use_argmax=viterbi)
-        data = (new_embeds, Xe_new, lpe_new, noise, blk.lo_counts,
-                blk.sum_xT)
-        if self._family == "full":
-            new_ks = self._full_chain(blk, new_embeds, Xe_new, noise,
-                                      am.alpha, opts["lms"], assign_temp,
-                                      use_argmax=viterbi)
-        elif self._family == "diag":
-            new_ks = diag_chain(*data, blk.sum_sqT, prior.m_0,
-                                *self._k0_v0, prior.S_0, assign_temp, **opts)
-        else:
-            new_ks = fixedvar_chain(*data, prior.var, prior.var_0,
-                                    prior.mu_0, assign_temp, **opts)
-
-        # 4. decollision and the merge into the global state
-        return self._merge(blk, new_bounds, new_embeds, Xe_new, new_ks,
-                           log_prob)[0]
+            # 4. decollision and the merge into the global state
+            with annotate("seg.block.merge"):
+                return self._merge(blk, new_bounds, new_embeds, Xe_new,
+                                   new_ks, log_prob)[0]
 
 
 if __name__ == "__main__":  # smoke demo (reference unigram_acoustic_wordseg.py:871-963)

@@ -24,12 +24,12 @@ width (130: the papers') or longest utterance (120: ``bench.py``'s
 of a sweep (1 - device ms / ms a sweep, the latter without the profiler)
 and each kernel's launches a sweep by the form its launch plan chose.
 
-The DP stage is every kernel launched inside the segmenters'
-``segment_dp`` call (the noise draw and the DP; in a tree whose DP is not
-fused, also its eager backward pass), which the profiled sweeps wrap in a
-profiler range.  ``--am-n-iter N`` runs N acoustic-model sweeps before
-each sweep (the unigram segmenter's ``am_n_iter``, the item-chain kernel:
-K10, or K11 with ``--cov full``; its device time and launches a sweep).
+The DP stage is every kernel launched inside the block steps' span
+``seg.block.dp`` (the noise draw and K2; ``utils/tracing.py``), matched
+to the span by its launch (:func:`span_events`).  ``--am-n-iter N`` runs
+N acoustic-model sweeps before each sweep (the unigram segmenter's
+``am_n_iter``, the item-chain kernel: K10, or K11 with ``--cov full``; its
+device time and launches a sweep).
 Each path's own kernels (the scorer, K2 in the DP range, the chain, and
 the item chain with ``--am-n-iter``; for k-means K2 alone)
 must show launches in the profiled sweeps, by the profiler and by the
@@ -38,7 +38,8 @@ longer finds would read 0.
 ``--root DIR`` imports ``segmentalist_torch`` from another checkout (a
 parent tree unpacked beside this one), so that two trees are measured the
 same way; run the file by its path then (``python
-segmentalist_torch/utils/profiling.py --root DIR ...``).
+segmentalist_torch/utils/profiling.py --root DIR ...``).  A tree without
+the program's spans shows no launch in the DP stage, and the run raises.
 
 Needs a CUDA card (the profile is of the card's time).
 
@@ -46,8 +47,17 @@ The hooks of the JAX package's ``utils/profiling.py`` (``trace``,
 ``annotate``, ``device_timer``) are here too, for any code of the port:
 :func:`trace` captures a host and device profile of a block into a
 directory (a Chrome trace, for TensorBoard or Perfetto), :func:`annotate`
-names a host span inside it, and :func:`device_timer` times a call with
-one synchronisation of its tensors' card before and one after.
+(``utils/tracing.py``) names a host span inside it, and
+:func:`device_timer` times a call with one synchronisation of its tensors'
+card before and one after.  An operator captures the program's own spans
+(``seg.sweep``, ``seg.block`` and its five stages, ``seg.sync.*``; the
+tree in ``utils/tracing.py``) the same way:
+
+    with profiling.trace("logdir"):
+        seg.gibbs_sample(3)
+
+gives one Chrome trace with the ``seg.*`` spans on the host's timeline,
+above the kernels they launched.
 """
 
 from __future__ import annotations
@@ -68,7 +78,7 @@ BENCH_LM = {"type": "smooth", "intrp_lambda": 0.1, "a": 1.0, "b": 1.0}
 WARMUP, SWEEPS = 9, 5  # warm-up sweeps, then sweeps timed and profiled
 # the batched factorisations of the full-covariance family
 LINALG_OPS = ("aten::linalg_cholesky_ex", "aten::linalg_solve_triangular")
-DP_RANGE = "segment_dp (profiled stage)"  # the profiler range of the DP
+DP_SPAN = "seg.block.dp"  # the program's span of the DP stage
 # kernel K2: the whole DP, or the forward filter alone in a tree from
 # before the fusion
 K2_KERNELS = ("segment_dp_kernel", "forward_alphas_kernel")
@@ -95,8 +105,13 @@ def trace(logdir: str):
 
 
 def annotate(name: str):
-    """A named host span inside a :func:`trace` (a context manager)."""
-    return torch.profiler.record_function(name)
+    """A named host span inside a :func:`trace`: ``utils/tracing.py``'s
+    :func:`~segmentalist_torch.utils.tracing.annotate`, the program's own
+    (imported when called: this file also runs by its path, before
+    ``--root`` picks the package)."""
+    from segmentalist_torch.utils.tracing import annotate as span
+
+    return span(name)
 
 
 def _cuda_devices(tree) -> set:
@@ -205,42 +220,15 @@ def bench_segmenter(cov: str = "fixed", bigram: bool = False,
     return seg, truth
 
 
-@contextlib.contextmanager
-def dp_range():
-    """Run the segmenters' ``segment_dp`` (``segmenters/blocked.py``, and
-    ``segmenters/kmeans_seg.py`` where the tree has it) inside the profiler
-    range ``DP_RANGE`` while the block is open."""
-    mods = []
-    for name in ("blocked", "kmeans_seg"):
-        try:
-            mods.append(importlib.import_module(
-                "segmentalist_torch.segmenters." + name))
-        except ImportError:
-            continue
-    inner = mods[0].segment_dp
-
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(DP_RANGE):
-            return inner(*args, **kwargs)
-
-    for mod in mods:
-        mod.segment_dp = wrapped
-    try:
-        yield
-    finally:
-        for mod in mods:
-            mod.segment_dp = inner
-
-
-def dp_stage_events(events) -> list:
-    """The device events (kernels, copies, fills) of the DP stage: those
-    whose launch call on the host (a CUDA API event such as
-    cudaLaunchKernel, matched by its correlation id) falls inside a
-    ``DP_RANGE`` range.  Matching by the launch's time also catches the
+def span_events(events, name: str) -> list:
+    """The device events (kernels, copies, fills) launched inside the host
+    spans called ``name``: those whose launch call on the host (a CUDA API
+    event such as cudaLaunchKernel, matched by its correlation id) falls
+    inside such a span.  Matching by the launch's time also catches the
     kernels launched by ctypes, which the profiler does not attach to the
-    range as it attaches aten ops'."""
+    span as it attaches aten ops'."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == DP_RANGE and e.device_type.name == "CPU")
+                   if e.name == name and e.device_type.name == "CPU")
     starts = [a for a, _ in spans]
 
     def inside(t):
@@ -252,7 +240,7 @@ def dp_stage_events(events) -> list:
                 and inside(e.time_range.start)}
     return [e for e in events if e.device_type.name == "CUDA"
             and not getattr(e, "is_user_annotation", False)
-            and e.name != DP_RANGE and e.id in launched]
+            and e.id in launched]
 
 
 def launch_counts() -> dict:
@@ -302,18 +290,17 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     counted = launch_counts()
     forms = getattr(cuda_lib, "form_launches", {})  # {} in an older tree
     forms.clear()
-    with dp_range(), profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         last = sweeps(SWEEPS)
         torch.cuda.synchronize()
     ms_prof = (time.time() - t0) / SWEEPS * 1e3
     counted = {k: v - counted.get(k, 0) for k, v in launch_counts().items()}
     events = prof.key_averages()
-    # device kernels (the range's own span on the device timeline is not one)
+    # device kernels (a span's own row on the device timeline is not one)
     kernels = [e for e in events if e.device_type.name == "CUDA"
-               and not getattr(e, "is_user_annotation", False)
-               and e.key != DP_RANGE]
-    dp = dp_stage_events(prof.events())
+               and not getattr(e, "is_user_annotation", False)]
+    dp = span_events(prof.events(), DP_SPAN)
     k2 = [e for e in kernels if any(n in e.key for n in K2_KERNELS)]
 
     def per_sweep_ms(us):

@@ -486,9 +486,11 @@ class BlockedWordseg:
         own_counts = counts_contrib(old_ks, old_ok, K)
         sum_xT = sum_sqT = params_g = touched = None
         if self._family == "full":
-            params_g = am.cov.predictive_params(am.prior, am.stats)
+            # the host reads the live touched slots' count before the
+            # global derivation is enqueued, so it waits on little work
             touched = touched_leave_out(am.prior, am.stats, X, old_embeds,
                                         old_ks, rows=Xe_old)
+            params_g = am.cov.predictive_params(am.prior, am.stats)
         elif self._family == "diag":
             sum_xT, sum_sqT = leave_out_moments_T(
                 am.stats, X, old_embeds, old_ks, K, rows=Xe_old, with_sq=True)

@@ -36,8 +36,14 @@ from ..models.components_full import (
 )
 from ..ops import cuda_fullcov_chain
 from ..ops.stats import SuffStats, packed_outer, sym_pack, unpack_sym
+from ..utils.tracing import blocking
 
 _LOG_PI = math.log(math.pi)
+
+# slots :func:`touched_leave_out` derived (live) and slots of its tables
+# (B * S), summed over its calls in this process (readers take differences)
+touched_slots_live = 0
+touched_slots_table = 0
 
 
 def n_to_sv(k_0, v_0, D: int, n, dtype):
@@ -59,16 +65,35 @@ def params_to_P(inv_covar, logdet_covar, n, k_0, v_0, D: int):
 
 
 class Touched(NamedTuple):
-    """Per-utterance touched-component view (all [B, S, ...]).
+    """Per-utterance touched-component view: the [B, S] slot table, and
+    the leave-out predictive parameters of its live slots alone.
 
     tk      [B, S]      touched component ids; -1 for pads and duplicates
     counts  [B, S]      leave-one-utterance-out member counts (int32)
-    params  PredParams  leave-out predictive parameters, [B, S, ...]
+    slots   [n]         flat indices ``b * S + s`` of the live slots (tk >=
+                        0), ascending
+    live    PredParams  the live slots' leave-out predictive parameters,
+                        [n, ...]
     """
 
     tk: torch.Tensor
     counts: torch.Tensor
-    params: PredParams
+    slots: torch.Tensor
+    live: PredParams
+
+    def scatter(self, rows: torch.Tensor) -> torch.Tensor:
+        """[n, ...] rows of the live slots in the [B, S, ...] slot layout,
+        zeros in pads and duplicates."""
+        B, S = self.tk.shape
+        out = rows.new_zeros((B * S,) + rows.shape[1:])
+        out.index_copy_(0, self.slots, rows)
+        return out.reshape((B, S) + rows.shape[1:])
+
+    @property
+    def params(self) -> PredParams:
+        """The leave-out predictive parameters in the slot layout, [B, S,
+        ...] (zeros in pads and duplicates)."""
+        return PredParams(*(self.scatter(t) for t in self.live))
 
 
 def touched_leave_out(prior, stats: SuffStats, X: torch.Tensor,
@@ -77,32 +102,47 @@ def touched_leave_out(prior, stats: SuffStats, X: torch.Tensor,
     """Leave-one-utterance-out statistics restricted to the components each
     utterance touches (its old segments' assignments).  Duplicate ids are
     collapsed to their first slot (later ones get tk = -1): each correction
-    subtracts the utterance's whole contribution to its component.  The
-    second moments are contracted in the packed lanes and unpacked once.
-    ``rows`` [B, S, D] supplies the old segments' vectors directly."""
+    subtracts the utterance's whole contribution to its component.  Only
+    the live slots (tk >= 0) are derived and factorised: their components'
+    statistics are gathered before packing, the second moments contracted
+    in the packed lanes and unpacked once; the host reads their number once
+    (``seg.sync.touched_live``).  ``rows`` [B, S, D] supplies the old
+    segments' vectors directly."""
+    global touched_slots_live, touched_slots_table
     B, S = old_ks.shape
     D = X.shape[-1]
     valid = (old_embeds >= 0) & (old_ks >= 0)
-    ks_safe = old_ks.clamp_min(0).long()
     same = ((old_ks[:, :, None] == old_ks[:, None, :])
             & valid[:, :, None] & valid[:, None, :])
     earlier = torch.ones((S, S), dtype=torch.bool,
                          device=X.device).tril(-1)
     is_dup = (same & earlier).any(-1)
     tk = torch.where(valid & ~is_dup, old_ks, -1)
+    with blocking("touched_live"):  # nonzero waits for the live count
+        slots = (tk.reshape(-1) >= 0).nonzero().squeeze(1)
+    n = slots.numel()
+    touched_slots_live += n
+    touched_slots_table += B * S
 
     x_old = X[old_embeds.clamp_min(0).long()] if rows is None else rows
     x_old = torch.where(valid[..., None], x_old, 0.0)
     same_f = same.to(X.dtype)
     pk = sym_pack(D, X.device)
-    lo_counts = (stats.counts[ks_safe] - same.sum(-1)).to(torch.int32)
-    lo_sum_x = stats.sum_x[ks_safe] - same_f @ x_old
-    lo_sum_sq_p = (stats.sum_sq[:, pk.iu0, pk.iu1][ks_safe]
-                   - same_f @ packed_outer(x_old))
-    m_n, covar, v = _derive_covar(prior, lo_counts, lo_sum_x,
-                                  unpack_sym(lo_sum_sq_p, D))
-    inv, logdet, L_inv = _chol_inv_logdet(covar)
-    return Touched(tk, lo_counts, PredParams(m_n, inv, logdet, v, L_inv))
+    lo_counts = (stats.counts[old_ks.clamp_min(0).long()]
+                 - same.sum(-1)).to(torch.int32)
+    ks = old_ks.reshape(-1)[slots].long()
+    own_x = (same_f @ x_old).reshape(B * S, D)[slots]
+    own_sq = (same_f @ packed_outer(x_old)).reshape(B * S, -1)[slots]
+    lo_sum_x = stats.sum_x[ks] - own_x
+    lo_sum_sq_p = stats.sum_sq[ks[:, None], pk.iu0, pk.iu1] - own_sq
+    m_n, covar, v = _derive_covar(prior, lo_counts.reshape(-1)[slots],
+                                  lo_sum_x, unpack_sym(lo_sum_sq_p, D))
+    if n:
+        inv, logdet, L_inv = _chol_inv_logdet(covar)
+    else:  # nothing to factorise
+        inv, logdet, L_inv = covar, covar.new_zeros(0), covar
+    return Touched(tk, lo_counts, slots,
+                   PredParams(m_n, inv, logdet, v, L_inv))
 
 
 def corrected_candidate_post(post: torch.Tensor, Xc: torch.Tensor,
@@ -146,13 +186,14 @@ def fullcov_score_inputs(params_g: PredParams, touched: Touched):
     """K8's inputs (``ops.cuda_fullcov_score.fullcov_scores``): the global
     tables with the whitening ones feature-major (``LT`` [F, K], ``LmuT``
     [D, K]; F = D(D+1)/2), the touched-slot tables slot-major ([B, S, F],
-    [B, S, D], [B, S]), and ``tslot`` [B, K] int32, the slot of each
-    touched component (-1 elsewhere): the JAX package's slot one-hot
-    matrix product picks exactly these values."""
+    [B, S, D], [B, S]; built from the live slots, zeros in the others),
+    and ``tslot`` [B, K] int32, the slot of each touched component (-1
+    elsewhere): the JAX package's slot one-hot matrix product picks
+    exactly these values, so no pad or duplicate is read."""
     L, Lmu, *g_rest = _score_tables(params_g)
     g = (L.T.contiguous(), Lmu.T.contiguous(),
          *(t.contiguous() for t in g_rest))
-    t = tuple(x.contiguous() for x in _score_tables(touched.params))
+    t = tuple(touched.scatter(x) for x in _score_tables(touched.live))
     B, S = touched.tk.shape
     K = params_g.mu.shape[0]
     col = torch.where(touched.tk >= 0, touched.tk, K).long()
@@ -166,18 +207,21 @@ def fullcov_score_inputs(params_g: PredParams, touched: Touched):
 def chain_inputs(prior, params_g: PredParams, global_counts: torch.Tensor,
                  touched: Touched):
     """K9's tables in P-form (``ops.cuda_fullcov_chain.fullcov_chain``):
-    touched-slot (m, inv P, logdet P, tk), then the global (m, inv P,
+    touched-slot (m, inv P, logdet P, tk; built from the live slots,
+    zeros in pads and duplicates, which the chain scores into its dropped
+    column and overwrites when it claims them), then the global (m, inv P,
     logdet P) that claimed slots pull (an untouched component's leave-out
     factors are the global ones)."""
     D = params_g.mu.shape[-1]
     k0, v0 = prior.k_0, prior.v_0
-    t_invP, t_ldP = params_to_P(touched.params.inv_covar,
-                                touched.params.logdet_covar, touched.counts,
+    live = touched.live
+    t_invP, t_ldP = params_to_P(live.inv_covar, live.logdet_covar,
+                                touched.counts.reshape(-1)[touched.slots],
                                 k0, v0, D)
     g_invP, g_ldP = params_to_P(params_g.inv_covar, params_g.logdet_covar,
                                 global_counts, k0, v0, D)
-    return (touched.params.mu.contiguous(), t_invP.contiguous(),
-            t_ldP.contiguous(), touched.tk.to(torch.int32).contiguous(),
+    return (touched.scatter(live.mu), touched.scatter(t_invP),
+            touched.scatter(t_ldP), touched.tk.to(torch.int32).contiguous(),
             params_g.mu.contiguous(), g_invP.contiguous(),
             g_ldP.contiguous())
 

@@ -22,7 +22,10 @@ device time.
 width (130: the papers') or longest utterance (120: ``bench.py``'s
 ``unigram_fixed_long``).  The line also holds the device's idle share
 of a sweep (1 - device ms / ms a sweep, the latter without the profiler)
-and each kernel's launches a sweep by the form its launch plan chose.
+and each kernel's launches a sweep by the form its launch plan chose.  For
+the full family it holds the touched slots a sweep that
+``segmenters.fullcov.touched_leave_out`` derived (live) and the slots of
+its tables, and the live share.
 
 The DP stage is every kernel launched inside the block steps' span
 ``seg.block.dp`` (the noise draw and K2; ``utils/tracing.py``), matched
@@ -265,6 +268,16 @@ def launch_counts() -> dict:
     return counts
 
 
+def touched_slot_counts() -> tuple:
+    """(live, table): the touched slots ``segmenters.fullcov``'s
+    ``touched_leave_out`` derived and the slots of its tables so far
+    (0, 0 in a tree without the counters)."""
+    from segmentalist_torch.segmenters import fullcov
+
+    return (getattr(fullcov, "touched_slots_live", 0),
+            getattr(fullcov, "touched_slots_table", 0))
+
+
 def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     """Warm up, time ``SWEEPS`` sweeps, then profile as many (each after
     ``am_n_iter`` acoustic-model sweeps; a k-means segmenter's
@@ -288,6 +301,7 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     ms = (time.time() - t0) / SWEEPS * 1e3
     t0 = time.time()
     counted = launch_counts()
+    slots = touched_slot_counts()
     forms = getattr(cuda_lib, "form_launches", {})  # {} in an older tree
     forms.clear()
     with profile(activities=[ProfilerActivity.CPU,
@@ -296,6 +310,7 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
         torch.cuda.synchronize()
     ms_prof = (time.time() - t0) / SWEEPS * 1e3
     counted = {k: v - counted.get(k, 0) for k, v in launch_counts().items()}
+    live, table = (b - a for a, b in zip(slots, touched_slot_counts()))
     events = prof.key_averages()
     # device kernels (a span's own row on the device timeline is not one)
     kernels = [e for e in events if e.device_type.name == "CUDA"
@@ -363,6 +378,11 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
             if e.key in LINALG_OPS},
         "linalg_launches_per_sweep": {
             e.key: e.count / SWEEPS for e in events if e.key in LINALG_OPS},
+        # the full family's touched slots a sweep: derived (live) and in
+        # the tables (B * S a block), and the live share
+        "touched_slots_live_per_sweep": live / SWEEPS,
+        "touched_slots_table_per_sweep": table / SWEEPS,
+        "touched_live_share": live / table if table else None,
         # the candidate scorer's (K1, K5 or K8) device time
         "scorer_ms_per_sweep": per_sweep_ms(sum(
             e.self_device_time_total for e in kernels

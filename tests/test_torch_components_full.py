@@ -27,6 +27,8 @@ from segmentalist_torch.priors import NIW
 from segmentalist_torch.segmenters import common as tcommon
 from segmentalist_torch.segmenters import fullcov as tfull
 
+from touched_reference import all_slot_leave_out, all_slot_touched
+
 RTOL = 1e-10
 
 
@@ -286,3 +288,129 @@ def test_n_to_sv_and_params_to_P_match_jax():
             jfull.params_to_P(jpg.inv_covar, jpg.logdet_covar, js.counts,
                               jp.k_0, jp.v_0, D)):
         _close(got, want)
+
+
+# -- touched_leave_out derives the live slots alone ----------------------------
+
+# the components of each block's old segments ([B, S], -1 pads)
+LIVE_CASES = {
+    "duplicate": [[0, 1, 2, -1, -1], [3, 3, 4, 5, -1], [1, 6, 0, 2, 3],
+                  [4, -1, -1, -1, -1]],
+    "all_pad_utterance": [[0, 1, -1, -1, -1], [-1] * 5, [2, 3, 4, 5, 6],
+                          [6, -1, -1, -1, -1]],
+    "no_live_slot": [[-1] * 5] * 4,
+    "every_slot_live": [[0, 1, 2, 3, 4], [5, 6, 0, 1, 2], [3, 4, 5, 6, 0],
+                        [1, 2, 3, 4, 5]],
+}
+
+
+def _live_case(case, D, K=8, N=64, seed=3):
+    """A float32 state (7 occupied components, slot K-1 empty) and a block
+    of old segments whose components ``LIVE_CASES[case]`` gives, each a
+    distinct member of its component."""
+    rng = np.random.RandomState(seed)
+    X = torch.as_tensor(rng.randn(N, D), dtype=torch.float32)
+    assign = rng.permutation(np.arange(N) % (K - 1))
+    A = rng.randn(D, D)
+    prior = NIW.create(*(torch.as_tensor(a, dtype=torch.float32) for a in (
+        0.3 * rng.randn(D), 0.4, D + 2.0, 0.3 * np.eye(D) + 0.05 * A @ A.T)))
+    stats = tstats.suff_stats_from_assignments(
+        X, torch.as_tensor(assign), K, full_cov=True)
+    old_ks = np.array(LIVE_CASES[case], np.int32)
+    old_embeds = np.full_like(old_ks, -1)
+    used = {k: iter(np.nonzero(assign == k)[0]) for k in range(K - 1)}
+    for (b, s), k in np.ndenumerate(old_ks):
+        if k >= 0:
+            old_embeds[b, s] = next(used[k])
+    return (X, prior, stats, torch.as_tensor(old_embeds),
+            torch.as_tensor(old_ks))
+
+
+@pytest.mark.parametrize("D", [4, 13])
+@pytest.mark.parametrize("case", sorted(LIVE_CASES))
+def test_touched_live_slots_match_all_slot_derivation(case, D):
+    """Each live slot's (m_n, inv_covar, logdet, v, chol_inv) is bitwise
+    the all-slot derivation's; tk and counts are identical on every slot;
+    the slot layout holds zeros in pads and duplicates."""
+    X, prior, stats, old_embeds, old_ks = _live_case(case, D)
+    t = tfull.touched_leave_out(prior, stats, X, old_embeds, old_ks)
+    tk, counts, want = all_slot_leave_out(prior, stats, X, old_embeds,
+                                          old_ks)
+    assert torch.equal(t.tk, tk) and torch.equal(t.counts, counts)
+    live = (tk >= 0).reshape(-1)
+    assert torch.equal(t.slots, live.nonzero().squeeze(1))
+    B, S = tk.shape
+    for got, w, laid in zip(t.live, want, t.params):
+        flat = (B * S,) + w.shape[2:]
+        assert torch.equal(got, w.reshape(flat)[live])
+        assert laid.shape == w.shape
+        assert torch.equal(laid.reshape(flat)[live], got)
+        assert not laid.reshape(flat)[~live].any()
+
+
+@pytest.mark.parametrize("D", [4, 13])
+@pytest.mark.parametrize("case", sorted(LIVE_CASES))
+def test_kernels_on_live_slot_tables_match_all_slot_tables(case, D):
+    """The plain K8 and K9 (both weight modes, sampling and argmax) give
+    exactly the scores and ks on the tables built from the live slots that
+    they give on the all-slot tables; the tables agree on every live
+    slot."""
+    from segmentalist_torch.models.bigram_lm import transcript_pairs_batch
+    from segmentalist_torch.ops import cuda_fullcov_score
+    from segmentalist_torch.ops.random import gumbel
+
+    X, prior, stats, old_embeds, old_ks = _live_case(case, D)
+    K = stats.counts.shape[0]
+    B, S = old_ks.shape
+    t = tfull.touched_leave_out(prior, stats, X, old_embeds, old_ks)
+    ref = all_slot_touched(prior, stats, X, old_embeds, old_ks)
+    pg = tcf.predictive_params(prior, stats)
+    lo = stats.counts[None] - tcommon.counts_contrib(old_ks, old_embeds >= 0,
+                                                     K)
+    live = (t.tk >= 0).reshape(-1)
+    gen = torch.Generator().manual_seed(D)
+    M = 6
+    Xc = X[torch.randint(0, X.shape[0], (B, M), generator=gen)] + 0.1
+    w = torch.log(0.5 / K + lo.to(X.dtype))
+    (g, tt, tslot), (rg, rt, rslot) = (
+        tfull.fullcov_score_inputs(pg, x) for x in (t, ref))
+    assert torch.equal(tslot, rslot)
+    for a, b in zip(tt, rt):
+        assert torch.equal(a.reshape(B * S, -1)[live],
+                           b.reshape(B * S, -1)[live])
+    scores = [cuda_fullcov_score.fullcov_scores_plain(
+        Xc, tcf.log_prior_batch(prior, Xc), g, x, tslot, w, lo)
+        for x in (tt, rt)]
+    assert torch.isfinite(scores[0]).all()
+    assert torch.equal(*scores)
+
+    tables = [tfull.chain_inputs(prior, pg, stats.counts, x) for x in (t, ref)]
+    for a, b in zip(tables[0][:3], tables[1][:3]):
+        assert torch.equal(a.reshape(B * S, -1)[live],
+                           b.reshape(B * S, -1)[live])
+    new = torch.randint(-1, X.shape[0], (B, S), generator=gen,
+                        dtype=torch.int32)
+    base = tcf.log_post_pred_batch(pg, X[new.clamp_min(0).long()].reshape(
+        B * S, D)).reshape(B, S, K)
+    noise = gumbel((B, S, K), gen, X.device, X.dtype)
+    lpv = tcf.log_prior_batch(prior, X)
+    pj, pi = transcript_pairs_batch(old_ks)
+    lm = (lo + 1, torch.randint(0, 4, (K, K), generator=gen,
+                                dtype=torch.int32), pj, pi, 1.0, 0.2, 1.5)
+    for kw in (dict(), dict(use_argmax=True), dict(lm=lm)):
+        ks = [tfull.fullcov_chain(prior, X, pg, stats.counts, lo, x, new,
+                                  base, noise, lpv, 1.0, K, 1.2, 0.9, **kw)
+              for x in (t, ref)]
+        assert (ks[0][new >= 0] >= 0).all()
+        assert torch.equal(*ks)
+
+
+def test_touched_slot_counters_count_live_and_table_slots():
+    """``touched_slots_live`` rises by the live slots derived (distinct
+    components of the real old segments, 3 + 3 + 5 + 1) and
+    ``touched_slots_table`` by B * S."""
+    X, prior, stats, old_embeds, old_ks = _live_case("duplicate", 4)
+    live0, table0 = tfull.touched_slots_live, tfull.touched_slots_table
+    tfull.touched_leave_out(prior, stats, X, old_embeds, old_ks)
+    assert tfull.touched_slots_live - live0 == 12
+    assert tfull.touched_slots_table - table0 == 4 * 5

@@ -19,6 +19,8 @@ full) takes the LM's leave-out unigram weights, the chain is kernel K4 (K7
 for diag, K9's bigram mode for full), and the LM count tables take the
 block's signed count delta after the acoustic merge.  The LM is read
 before the merge, so its tables count every old pair the chain removes.
+The LM's own stages run in the profiler spans ``seg.lm.leave_out``,
+``seg.lm.delta`` and ``seg.lm.replay`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -101,6 +103,13 @@ def log_prob_z_replay(transcripts: torch.Tensor, intrp_lambda, a, b, K: int,
     return torch.where(valid, torch.log(p), 0.0).sum()
 
 
+def _only_if(assignments_only: bool) -> dict:
+    """The keyword that asks a block step to keep the boundaries, given
+    only where it is set: so the sweep calls ``block_step`` as the unigram
+    driver does, ``(idx_blk, anneal_temp, assign_temp)``."""
+    return {"assignments_only": True} if assignments_only else {}
+
+
 class BigramAcousticWordseg(BlockedWordseg):
     """Bigram word segmentation of speech using acoustic word embeddings
     (constructor parity with the JAX package and
@@ -174,8 +183,10 @@ class BigramAcousticWordseg(BlockedWordseg):
 
     def _log_prob_z(self) -> torch.Tensor:
         lm = self.lm
-        return log_prob_z_replay(self._all_transcripts(), lm.intrp_lambda,
-                                 lm.a, lm.b, lm.K, self.acoustic_model.X.dtype)
+        with annotate("seg.lm.replay"):
+            return log_prob_z_replay(self._all_transcripts(), lm.intrp_lambda,
+                                     lm.a, lm.b, lm.K,
+                                     self.acoustic_model.X.dtype)
 
     def log_prob_z(self) -> float:
         """Sequential-replay bigram assignment probability (reference
@@ -325,7 +336,7 @@ class BigramAcousticWordseg(BlockedWordseg):
         order[0, 0] = i
         return float(self._run_blocks(
             order, anneal_temp, anneal_temp if anneal_gibbs_am else 1.0,
-            assignments_only=assignments_only))
+            **_only_if(assignments_only)))
 
     def gibbs_sample(self, n_iter: int, am_n_iter: int = 0,
                      anneal_schedule=None, anneal_start_temp_inv: float = 0.1,
@@ -357,7 +368,7 @@ class BigramAcousticWordseg(BlockedWordseg):
                                     anneal_end_temp_inv, n_anneal_steps)
         return self._sample_sweeps(temps, anneal_gibbs_am,
                                    monitor_i=monitor_i, validate=validate,
-                                   assignments_only=assignments_only)
+                                   **_only_if(assignments_only))
 
     def block_step(self, idx_blk, anneal_temp: float = 1.0,
                    assign_temp: float = 1.0,
@@ -382,8 +393,9 @@ class BigramAcousticWordseg(BlockedWordseg):
                 blk = self._leave_out(idx_blk, split=True)
                 dp_noise, chain_noise = self._own_noise(
                     blk, dp_noise, chain_noise, not assignments_only)
-                pairs_old = transcript_pairs_batch(blk.old_ks)
-                uni_lo = self._lm_leave_out(blk)
+                with annotate("seg.lm.leave_out"):
+                    pairs_old = transcript_pairs_batch(blk.old_ks)
+                    uni_lo = self._lm_leave_out(blk)
 
             # 2. scoring with the LM's unigram weights (K1 / K5 / K8),
             # boundaries (K2)
@@ -430,12 +442,14 @@ class BigramAcousticWordseg(BlockedWordseg):
                     # the exact mode merges the gathered block, whose old
                     # pairs are not this step's
                     pairs = pairs_old if old_ks is blk.old_ks else None
-                    return block_count_delta(old_ks, new_ks, valid, K,
-                                             pairs_old=pairs)
+                    with annotate("seg.lm.delta"):
+                        return block_count_delta(old_ks, new_ks, valid, K,
+                                                 pairs_old=pairs)
 
                 lp, delta = self._merge(blk, new_bounds, new_embeds, Xe_new,
                                         new_ks, log_prob, lm_delta)
-                lm.state = apply_delta(lm.state, BigramLMState(*delta))
+                with annotate("seg.lm.delta"):
+                    lm.state = apply_delta(lm.state, BigramLMState(*delta))
         return lp
 
 

@@ -52,7 +52,7 @@ from ..ops.cuda_fullcov_score import fullcov_log_margs
 from ..ops.cuda_score import diag_log_margs_T, fixedvar_log_margs_T
 from ..ops.dp import segment_dp
 from ..ops.random import gumbel, logsumexp
-from ..ops.stats import SuffStats
+from ..ops.stats import SuffStats, suff_stats_from_assignments
 from ..utils import debug as dbg
 from ..utils.tracing import annotate, fetch
 from .common import (
@@ -319,7 +319,8 @@ class BlockedWordseg:
         """Blocked Gibbs sweeps at temperatures ``temps``: every sweep visits
         the utterances in a fresh host permutation, in blocks of
         ``batch_size``, after ``am_n_iter`` sweeps of the acoustic model
-        alone over the assigned items (``FBGMM.gibbs_sample``, sequential).
+        alone over the assigned items (``FBGMM.gibbs_sample``, sequential),
+        whose statistics are then rebuilt from the assignments.
         Returns the reference's 8-key record dict.
 
         After every sweep, ``monitor_i`` takes the utterance's trace
@@ -335,8 +336,14 @@ class BlockedWordseg:
                 t0 = time.time()
                 if am_n_iter > 0:
                     with annotate("seg.sweep.am"):
-                        self.acoustic_model.gibbs_sample(
-                            am_n_iter, consider_unassigned=False)
+                        am = self.acoustic_model
+                        am.gibbs_sample(am_n_iter, consider_unassigned=False)
+                        # the item chain moves every item out of its column
+                        # and back in, so its float32 running sums drift
+                        # (~2e-5 relative in 700 sweeps at D 130): rebuild
+                        # them from the assignments
+                        am.stats = suff_stats_from_assignments(
+                            am.X, am.assignments, am.K_max, am.full_cov)
                 temp = float(temp)
                 assign_temp = temp if anneal_gibbs_am else 1.0
                 order = (np.asarray([int(monitor_i)], dtype=np.int64)

@@ -18,6 +18,8 @@ name begins with ``seg.``):
         seg.block            one block step, opened inside ``block_step``
           seg.block.leave_out  stage 1: the block's index upload, its old
                                segments and leave-outs, its rows' noise
+            seg.lm.leave_out   the bigram LM's old pairs and leave-out
+                               unigram counts
           seg.block.score      stage 2a: the mixture weights, the scorer
                                (K1 / K5 / K8; k-means' distances) and the
                                candidates' masking
@@ -27,7 +29,10 @@ name begins with ``seg.``):
                                K9; k-means' nearest means)
           seg.block.merge      stage 4: decollision and the merge of the
                                statistics, boundaries and assignments
+            seg.lm.delta       the bigram LM's signed [K, K] count delta
+                               and its addition to the tables (two a block)
       seg.sweep.metrics      the sweep's record quantities and their fetch
+        seg.lm.replay        the bigram corpus log P(z) replay
     seg.sync.<site>          a call that waits for the device
                              (:func:`blocking`, :func:`fetch`)
 

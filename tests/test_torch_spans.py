@@ -147,3 +147,41 @@ def test_every_blocking_read_of_a_sweep_is_a_fetch(driver, cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert np.isfinite(rec["log_marg"][0])
+
+
+# the bigram LM's spans and the stage span that holds each
+LM_SPANS = {"seg.lm.leave_out": "seg.block.leave_out",
+            "seg.lm.delta": "seg.block.merge",
+            "seg.lm.replay": "seg.sweep.metrics"}
+
+
+def test_a_bigram_sweep_opens_the_lm_spans_inside_their_stages():
+    """One ``seg.lm.leave_out`` and two ``seg.lm.delta`` (the delta, then
+    its addition) a block step, one ``seg.lm.replay`` a sweep, each in its
+    stage; the unigram driver opens none (with no profiler, the bigram
+    driver's spans make no ``record_function`` call:
+    ``test_no_record_function_while_no_profiler_records``)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _sweep(_segmenter("bigram"))
+    tree = _span_tree(prof.events())
+    blocks = sum(1 for t in tree if t[0] == "seg.block")
+    lm = [(n, p) for n, _, _, p in tree if n.startswith("seg.lm.")]
+    assert set(lm) == set(LM_SPANS.items())
+    names = [n for n, _ in lm]
+    assert names.count("seg.lm.leave_out") == blocks
+    assert names.count("seg.lm.delta") == 2 * blocks
+    assert names.count("seg.lm.replay") == 1
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _sweep(_segmenter("unigram_fixed"))
+    assert not [t for t in _span_tree(prof.events())
+                if t[0].startswith("seg.lm.")]
+
+
+def test_the_lm_delta_counter_rises_by_its_dense_cells_a_block():
+    from segmentalist_torch.models import bigram_lm
+
+    seg = _segmenter("bigram")
+    K = seg.lm.K
+    before = bigram_lm.delta_cells
+    _sweep(seg)
+    assert bigram_lm.delta_cells - before == -(-N_UTT // BATCH) * (K * K + K)

@@ -194,6 +194,36 @@ def test_gibbs_sample_takes_am_n_iter_second():
     assert assigned.sum() == int(am.stats.counts.sum()) == rec["n_tokens"][-1]
 
 
+def test_the_am_sweeps_statistics_are_rebuilt_from_the_assignments():
+    """After its ``am_n_iter`` sweeps the acoustic model's statistics are
+    rebuilt from its assignments, so the item chain's float32 running
+    sums, which drift, never reach the block steps."""
+    from segmentalist_torch.ops.stats import suff_stats_from_assignments
+
+    _, tseg = _pair()
+    am = tseg.acoustic_model
+    inner = am.gibbs_sample
+
+    def drifted(*a, **kw):
+        out = inner(*a, **kw)
+        am.stats = am.stats._replace(sum_x=am.stats.sum_x + 0.5)
+        return out
+
+    def step(*a, **k):  # the block steps read the statistics only
+        seen.append((am.stats, suff_stats_from_assignments(
+            am.X, am.assignments, am.K_max, am.full_cov)))
+        return torch.zeros(())
+
+    seen = []
+    am.gibbs_sample = drifted
+    tseg.block_step = step
+    tseg.gibbs_sample(2, 1)
+    assert len(seen) > 2
+    for got, want in seen:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def _toy_segmenter():
     """The reference's one-utterance toy corpus
     (``tests/test_unigram_wordseg.py:19-66``)."""

@@ -25,7 +25,8 @@ chain of stage 3 and the bookkeeping around it.  Each ``block_step`` runs
 the stages in the profiler spans ``seg.block.leave_out``, ``.score``,
 ``.dp``, ``.chain`` and ``.merge`` inside ``seg.block``, and
 :meth:`BlockedWordseg._sample_sweeps` a sweep in ``seg.sweep``
-(``utils/tracing.py``).
+(``utils/tracing.py``).  On a card, stages 1 and 4 of the fixed family
+replay as CUDA graphs (``segmenters/graphs.py``).
 
 On a mesh (``parallel/``) the same stages run on a rank's rows: in the
 exact mode :meth:`BlockedWordseg._leave_out` takes this rank's rows of the
@@ -69,6 +70,7 @@ from .common import (
     put_assignments,
     seed_assignments_to_vector,
 )
+from . import graphs
 from .fullcov import (Touched, fullcov_chain, fullcov_score_inputs,
                       touched_leave_out)
 
@@ -224,6 +226,7 @@ class BlockedWordseg:
                      if self.n_slices_max > 0 else utt.N_max)
         self._seg_ids_dp = dp_window(utt.seg_ids, self.W_dp)
         self._seg_durs_dp = dp_window(utt.seg_durations, self.W_dp)
+        self._glue_graphs = graphs.GlueGraphs()
         self.refresh_candidates()
 
     # ------------------------------------------------------------------ API
@@ -465,21 +468,32 @@ class BlockedWordseg:
         package's ``unigram.py:841-853``).  ``idx_blk`` [B] host ints, -1
         for padding.  With ``split`` (a block step) and the exact mode on a
         mesh: this rank's rows of the block, the whole block's in
-        ``Block.full``."""
-        am, utt, dev = self.acoustic_model, self.utterances, self.device
-        X, K = am.X, am.K_max
+        ``Block.full``.  A block step that ``graphs.graphed`` admits
+        replays the stage as a CUDA graph; its ``Block`` is then valid
+        until the next block step's leave-out."""
         idx_np = np.asarray(idx_blk, dtype=np.int64)
-        exact = (split and self._shard is not None
-                 and not self._shard.per_shard)
-        if exact:
+        rows = None
+        if split and self._shard is not None and not self._shard.per_shard:
             idx_np, rows = self._shard.own_rows(idx_np)
         B = idx_np.shape[0]
         live_np = np.nonzero(idx_np >= 0)[0]
-        packed = _to_device(np.concatenate([idx_np, live_np]), dev)
+        packed = np.concatenate([idx_np, live_np])
+        if graphs.graphed(self.device, self._family, self._shard, split,
+                          live_np.shape[0], B):
+            return self._glue_graphs.leave_out(self, packed)
+        return self._leave_out_rows(_to_device(packed, self.device), B, rows)
+
+    def _leave_out_rows(self, packed: torch.Tensor, B: int,
+                        rows: Optional[slice] = None) -> Block:
+        """:meth:`_leave_out` on the device: ``packed`` [B + n] the block's
+        utterance ids (-1 for padding), then the positions of its n live
+        ones; ``rows`` this rank's rows of the block in the exact mode."""
+        am, utt = self.acoustic_model, self.utterances
+        X, K = am.X, am.K_max
         valid = packed[:B] >= 0
         idx, live = packed[:B].clamp_min(0), packed[B:]
         full = None
-        if exact:
+        if rows is not None:
             full = (idx, valid, live, rows)
             idx, valid, live = idx[rows], valid[rows], None
         lengths = torch.where(valid, utt.lengths_dev[idx], 0)
@@ -629,7 +643,23 @@ class BlockedWordseg:
         state.  ``lm_delta(old_ks, new_ks, valid)`` (the bigram segmenter)
         gives further integer deltas of the merged rows, summed like the
         statistics.  Returns (the block's summed ``log_prob``, the list of
-        ``lm_delta``'s tensors).
+        ``lm_delta``'s tensors).  A block step that ``graphs.graphed``
+        admits replays :meth:`_merge_rows` as a CUDA graph."""
+        if blk.full is None and graphs.graphed(
+                self.device, self._family, self._shard, True,
+                blk.live.shape[0], blk.valid.shape[0], lm_delta):
+            return self._glue_graphs.merge(self, blk, (
+                new_bounds, new_embeds, Xe_new, new_ks, log_prob)), []
+        return self._merge_rows(blk, new_bounds, new_embeds, Xe_new, new_ks,
+                                log_prob, lm_delta)
+
+    def _merge_rows(self, blk: Block, new_bounds: torch.Tensor,
+                    new_embeds: torch.Tensor, Xe_new: torch.Tensor,
+                    new_ks: torch.Tensor, log_prob: torch.Tensor,
+                    lm_delta=None, in_place: bool = False):
+        """:meth:`_merge` on the device; ``in_place`` (a graph's capture)
+        adds the statistics' deltas into ``am.stats``'s own tensors instead
+        of binding new ones.
 
         On a mesh: the exact mode gathers the whole block's segments,
         components, boundary rows and log probabilities, and every rank
@@ -674,6 +704,8 @@ class BlockedWordseg:
                                   + [lp] + extra)
             lp, extra = summed[3], summed[4:]
             am.stats = SuffStats(*(g + d for g, d in zip(stats, summed[:3])))
+        elif in_place:
+            merge_flat(stats, old_flat, new_flat, out=stats)
         else:
             am.stats = merge_flat(stats, old_flat, new_flat)
         utt.boundaries_dev[idx[live]] = new_bounds[live]

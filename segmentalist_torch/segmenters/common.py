@@ -27,7 +27,6 @@ import torch
 
 from ..ops.random import NEG_INF
 from ..ops.stats import SuffStats, item_sq, moment_sums, one_hot_rows
-from ..utils.tracing import blocking
 
 
 class Segments(NamedTuple):
@@ -134,7 +133,8 @@ def put_assignments(pad: torch.Tensor, valid: torch.Tensor,
                     new_ks: torch.Tensor):
     """In ``pad``, an [N + 1] assignment vector whose last slot is a sink,
     clear a block's old segments and set its new ones (rows of padding
-    write to the sink, so no host sync picks the live rows)."""
+    write to the sink, so no host sync picks the live rows), then reset
+    the sink with a device fill."""
     N = pad.shape[0] - 1
     vm = valid[:, None]
     clear = torch.where(vm & (old_embeds >= 0), old_embeds,
@@ -143,16 +143,21 @@ def put_assignments(pad: torch.Tensor, valid: torch.Tensor,
     put = torch.where(vm & (new_embeds >= 0), new_embeds, N)
     pad.index_put_((put.reshape(-1).long(),),
                    new_ks.reshape(-1).to(pad.dtype))
-    with blocking("assign_sink"):  # a copy from pageable memory
-        pad[N] = -1
+    pad[N:].fill_(-1)
 
 
 def merge_flat(global_stats: SuffStats, old_flat: SuffStats,
-               new_flat: SuffStats) -> SuffStats:
+               new_flat: SuffStats, out: SuffStats | None = None) -> SuffStats:
     """``global + (new - old)`` for every statistic, in that order (the
-    JAX package's ``tree.map(n - o)`` then ``g + d``)."""
-    return SuffStats(*(g + (n - o) for g, n, o in
-                       zip(global_stats, new_flat, old_flat)))
+    JAX package's ``tree.map(n - o)`` then ``g + d``); written into
+    ``out``'s tensors where given (in place where ``out`` is
+    ``global_stats``)."""
+    if out is None:
+        return SuffStats(*(g + (n - o) for g, n, o in
+                           zip(global_stats, new_flat, old_flat)))
+    for g, n, o, t in zip(global_stats, new_flat, old_flat, out):
+        torch.add(g, n - o, out=t)
+    return out
 
 
 def merge_sweep_assignments(assignments: torch.Tensor, updates,

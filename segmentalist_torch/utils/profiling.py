@@ -25,7 +25,10 @@ of a sweep (1 - device ms / ms a sweep, the latter without the profiler)
 and each kernel's launches a sweep by the form its launch plan chose.  For
 the full family it holds the touched slots a sweep that
 ``segmenters.fullcov.touched_leave_out`` derived (live) and the slots of
-its tables, and the live share.
+its tables, and the live share; for every driver, the block steps' glue
+stages replayed as CUDA graphs a sweep (``segmenters/graphs.py``), the
+qualifying ones run eagerly and the captures, and the replay share (of the
+leave-out and merge calls of the profiled block steps).
 
 The DP stage is every kernel launched inside the block steps' span
 ``seg.block.dp`` (the noise draw and K2; ``utils/tracing.py``), matched
@@ -278,6 +281,17 @@ def touched_slot_counts() -> tuple:
             getattr(fullcov, "touched_slots_table", 0))
 
 
+def glue_graph_counts() -> tuple:
+    """(replays, eager, captures): ``segmenters.graphs``' counters of the
+    block steps' glue stages so far (zeros in a tree without them)."""
+    try:
+        from segmentalist_torch.segmenters import graphs
+    except ImportError:
+        return 0, 0, 0
+    return tuple(getattr(graphs, n, 0) for n in (
+        "glue_graph_replays", "glue_graph_eager", "glue_graph_captures"))
+
+
 def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     """Warm up, time ``SWEEPS`` sweeps, then profile as many (each after
     ``am_n_iter`` acoustic-model sweeps; a k-means segmenter's
@@ -302,6 +316,7 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     t0 = time.time()
     counted = launch_counts()
     slots = touched_slot_counts()
+    glue = glue_graph_counts()
     forms = getattr(cuda_lib, "form_launches", {})  # {} in an older tree
     forms.clear()
     with profile(activities=[ProfilerActivity.CPU,
@@ -311,6 +326,8 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
     ms_prof = (time.time() - t0) / SWEEPS * 1e3
     counted = {k: v - counted.get(k, 0) for k, v in launch_counts().items()}
     live, table = (b - a for a, b in zip(slots, touched_slot_counts()))
+    replays, eager, captures = (b - a for a, b in zip(
+        glue, glue_graph_counts()))
     events = prof.key_averages()
     # device kernels (a span's own row on the device timeline is not one)
     kernels = [e for e in events if e.device_type.name == "CUDA"
@@ -383,6 +400,13 @@ def profile_sweeps(seg, am_n_iter: int = 0) -> dict:
         "touched_slots_live_per_sweep": live / SWEEPS,
         "touched_slots_table_per_sweep": table / SWEEPS,
         "touched_live_share": live / table if table else None,
+        # the block steps' glue stages (leave-out and merge) replayed as
+        # CUDA graphs a sweep, the qualifying ones run eagerly, the
+        # captures, and the replayed share of the two stages' calls
+        "glue_graph_replays_per_sweep": replays / SWEEPS,
+        "glue_graph_eager_per_sweep": eager / SWEEPS,
+        "glue_graph_captures_per_sweep": captures / SWEEPS,
+        "glue_replay_share": replays / (2 * blocks * SWEEPS),
         # the candidate scorer's (K1, K5 or K8) device time
         "scorer_ms_per_sweep": per_sweep_ms(sum(
             e.self_device_time_total for e in kernels

@@ -136,17 +136,26 @@ def cuda_device():
 @pytest.mark.parametrize("driver", ("unigram_fixed", "unigram_full"))
 def test_every_blocking_read_of_a_sweep_is_a_fetch(driver, cuda_device):
     """In the "error" sync debug mode any read that waits on the card
-    raises, but ``tracing.fetch``'s own."""
+    raises, but ``tracing.fetch``'s own.  The fixed driver's sweep runs
+    with its glue replayed as CUDA graphs, captured in the warm-up (two
+    full blocks of 16 a sweep, two stages each); the full family's stays
+    eager."""
+    from segmentalist_torch.segmenters import graphs
+
     seg = _segmenter(driver, cuda_device, n_utterances=40, D=13,
                      batch_size=16, am_K=64)
-    _sweep(seg)  # warm-up: the library's build and the kernels' plans
-    torch.cuda.synchronize()
+    _sweep(seg)  # warm-up: the library's build, the kernels' plans, the
+    torch.cuda.synchronize()  # graphs' capture
+    replays, captures = graphs.glue_graph_replays, graphs.glue_graph_captures
     torch.cuda.set_sync_debug_mode("error")
     try:
         rec = _sweep(seg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert np.isfinite(rec["log_marg"][0])
+    assert graphs.glue_graph_captures == captures
+    assert graphs.glue_graph_replays - replays == (
+        4 if driver == "unigram_fixed" else 0)
 
 
 # the bigram LM's spans and the stage span that holds each

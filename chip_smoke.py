@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (``segmentalist_torch``) once on one CUDA card.
+"""Check the PyTorch port (``segmentalist_torch``) on one CUDA card.
 
 Run from the repository root:
 
@@ -14,31 +14,26 @@ check that does not hold:
 3. each kernel (K1-K11, both compositions of K5, both modes of K9) against
    its plain PyTorch version on the card, in float32, at the flagship
    shapes (B=125, N_max=20, W=6, K=1000, D=13) and a long/wide case
-   (N_max=120, D=130), with CUDA-event timings, device time (profiler)
-   and each kernel's bound (the larger of its bytes over the memory rate
-   and its flops over the float32 peak, counted from the inputs; K9 and
-   the global form of K3 / K4 / K6 / K7 also their streamed-table bound);
-   K8 and the reference's expanded Mahalanobis form in float32 against
-   float64; K9's bigram mode on a crafted case where the own-pair
-   correction decides draws; the launch plans of K3 / K4, K6 / K7, K8 and
-   K9, and K3 / K4 / K6 / K7's longest chain and device time a dependent
-   step; K2 as the whole DP in one launch against the plain composition,
-   identical alphas and boundaries in both modes, also at W = N_max = 120
-   and, in Viterbi mode, on tied scores (integer scores, half the
-   utterances costing the same a slice in every window), with the unfused
-   stage's time beside it;
+   (N_max=120, D=130); K8 and the reference's expanded Mahalanobis form in
+   float32 against float64; K9's bigram mode on a crafted case where the
+   own-pair correction decides draws; the launch plans of K1 / K5, K3 /
+   K4, K6 / K7, K8 and K9, and K3 / K4 / K6 / K7's longest chain; K2 as
+   the whole DP in one launch against the plain composition, identical
+   alphas and boundaries in both modes, also at W = N_max = 120 and, in
+   Viterbi mode, on tied scores (integer scores, half the utterances
+   costing the same a slice in every window);
    K10, the FBGMM's item chain, in both families (fixed variance, exact
    diag) with the delete on and off, at every cluster size the card
    schedules, at the toy (N 100, K 4, D 2), the flagship's initial state
    (6,149 assigned items, K 1000, D 13), fbgmm_flagship's launch (51,972
    items) and D 130: ks, final counts and running sums identical to its
    plain version (run on the CPU in worker processes from the card's
-   inputs), with its plan and its time a step at every cluster size;
+   inputs), with its plan;
    K11, the full family's item chain, at the same three shapes with the
    delete on and off (at D 130 on its first 60 items), identical to its
    plain version, and at the flagship at every cluster size the card
    schedules (1 to 16 CTAs), with its plan (C, threads, form, shared
-   bytes a CTA), its times a step and its bound;
+   bytes a CTA);
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
@@ -54,8 +49,8 @@ check that does not hold:
    components (K1, K2, K3 / K4), diagonal-covariance components (K5, K2,
    K6 / K7) and full-covariance components (K8, K2, K9; the JAX package's
    `bench.py` unigram_full and `benchmarks/all_models.py` rows); for each,
-   every kernel's launch count in that run, ms/sweep, log_marg and
-   boundary F1.  Then the FBGMM's own sampler (K10): the notebook toy of
+   every kernel's launch count in that run, log_marg and boundary F1.
+   Then the FBGMM's own sampler (K10): the notebook toy of
    `bench.py:455-479` for 100 sweeps in each mode (purity >= 0.95) and 3
    full-family sequential sweeps on its points (K11), the FBGMM alone on
    the flagship corpus's 51,972 candidate spans at K 1000 (4 sequential
@@ -73,11 +68,11 @@ check that does not hold:
    host RNG, another generator seed) restores and runs the same 2; the
    two must be identical in every array of the checkpoint (assignments,
    boundaries, statistics, LM tables, k-means state, the generator's
-   state bytes), with each path's kernels launched; the save and restore
-   times and the checkpoint's bytes; (b) sweeps with ``validate=True,
-   monitor_i=0`` on unigram_fixed, bigram and kmeans_wordseg, timed
-   against sweeps without in turns, and the monitor on the card against
-   the CPU's from one state (scores within ``SCORE_TOL``); (c)
+   state bytes), with each path's kernels launched; the checkpoint's
+   bytes; (b) sweeps with ``validate=True, monitor_i=0`` on
+   unigram_fixed, bigram and kmeans_wordseg, each path's kernels
+   launched, and the monitor on the card against the CPU's from one state
+   (scores within ``SCORE_TOL``); (c)
    ``debug_gibbs_only`` leaves the other boundary rows untouched, and a
    NaN in ``sum_x[0, 0]`` raises ``ValidationError`` naming sum_x with no
    fault of the card; (d) every demo of ``segmentalist_torch/demos.py``
@@ -94,9 +89,7 @@ check that does not hold:
    all seven paths (unigram_fixed 137 sweeps to ``F1_MIN``, the others
    4), after every sweep the statistics equal to their rebuild, the LM
    tables to the recount, the ranks' states identical, each path's
-   kernels launched on each rank; (d) ms a sweep of each mode at one and
-   two ranks beside the unsharded run, and the collectives' count, bytes
-   and ms a block step, recorded and not gated; (e) two ranks, the
+   kernels launched on each rank; (d) two ranks, the
    per-shard mode's corpus readers on unigram_fixed, bigram and
    kmeans_wordseg: ``gibbs_sample(2, monitor_i=0, validate=True)``
    (``segment`` for k-means) logs the same monitor lines on both ranks, a
@@ -141,19 +134,19 @@ check that does not hold:
    full, full Viterbi) and at N_max 120 (unigram fixed, bigram), and the
    FBGMM's sequential sweep at D 130 in the three families.
 
-The sixth-to-last line is phase 9's JSON summary (each path's sweeps, ms
-a sweep per call and the best timed one, F1 at sweep 0 and at the end
-with its floor and the floor's source, log_marg first and last, each
-kernel's launches and launches by form, the candidate spans and the
-setup's seconds; the block steps' forms; the phase's seconds), the
-fifth-to-last phase 8's (each case's total variation, bound, trials,
-seconds and launches; the phase's seconds and processes), the
-fourth-to-last phase 7's, the third-to-last phase 6's, the second-to-last
-a JSON summary of the kernels (their launches by path include each rank's
-of phase 7 and phase 9's paths; ``forms_by_path`` the forms phase 9's
-paths launched), the last line ``{"ok": true, "device": {...}}``.
+The script checks; it does not time (the benchmark, ``perfbench/``, is the
+record of speed).  The sixth-to-last line is phase 9's JSON summary (each
+path's sweeps, F1 at sweep 0 and at the end with its floor and the floor's
+source, log_marg first and last, each kernel's launches and launches by
+form, the candidate spans; the block steps' forms), the fifth-to-last
+phase 8's (each case's total variation, bound, trials and launches; the
+phase's processes), the fourth-to-last phase 7's, the third-to-last phase
+6's, the second-to-last a JSON summary of the kernels (their errors
+against the plain versions and plans; their launches by path include each
+rank's of phase 7 and phase 9's paths; ``forms_by_path`` the forms phase
+9's paths launched), the last line ``{"ok": true, "device": {...}}``.
 
-To time some kernels alone (phases 1-3 of the named kernels, with their
+To check some kernels alone (phases 1-3 of the named kernels, with their
 kernels line and no result line):
 
     python3 chip_smoke.py --only K8,K9
@@ -166,7 +159,6 @@ import math
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 
@@ -182,7 +174,6 @@ ITEMS = {"flagship": dict(N=6149, K=1000, D=13),
          "spans": dict(N=51972, K=1000, D=13),
          "long": dict(N=300, K=1000, D=130), "toy": dict(N=100, K=4, D=2)}
 K10_SHAPES = {"flagship": ("toy", "flagship", "spans"), "long": ("long",)}
-PLAIN_ITEMS = 300       # K10's plain version is timed on this prefix
 PURITY_MIN = 0.95       # the FBGMM toy (tests/test_fbgmm.py asks 0.95)
 SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
 LP_TOL = 1e-6           # K2's log_prob: the plain version's card sum has no
@@ -215,37 +206,6 @@ def sync():
 
     if DEVICE == "cuda":
         torch.cuda.synchronize()
-
-
-def once_ms(fn):
-    """Milliseconds of one call of ``fn()`` by CUDA events, no warm-up
-    (for plain versions whose kernels the comparisons have run already)."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
-
-
-def cuda_ms(fn, reps):
-    """Median milliseconds of ``fn()`` over ``reps`` calls, CUDA events."""
-    import torch
-
-    fn()  # warm-up
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 # ----------------------------------------------------------------- inputs
@@ -444,7 +404,6 @@ def compare_score(shape, name):
     from segmentalist_torch.ops import cuda_score
 
     args = score_inputs(shape, 1, DEVICE)
-    Xc = args[0]
     got = cuda_score.fixedvar_log_margs_T(*args)
     ref = cuda_score.fixedvar_scores_plain(*args)
     sync()
@@ -456,19 +415,9 @@ def compare_score(shape, name):
     max_abs = err.max().item()
     check(rel <= SCORE_TOL, "K1 %s: relative error %.3g > %g"
           % (name, rel, SCORE_TOL))
-    ms = cuda_ms(lambda: cuda_score.fixedvar_log_margs_T(*args), 50)
-    plain_ms = cuda_ms(lambda: cuda_score.fixedvar_scores_plain(*args), 20)
-    D = Xc.shape[-1]
-    out = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-               device_ms=device_ms(
-                   lambda: cuda_score.fixedvar_log_margs_T(*args),
-                   "::FixedVar, "),
-               plan=score_plan(shape),
-               **score_bound(args, 4 * D + 5, 1, D))
-    log("K1 fixedvar_scores %s: plan %s, max|d|=%.3g max rel=%.3g  kernel "
-        "%.4f ms (device %s)  plain %.4f ms  bound %.4f ms (%s)" % (
-            name, out["plan"], max_abs, rel, ms, out["device_ms"], plain_ms,
-            out["bound_ms"], out["bound_by"]))
+    out = dict(max_abs_err=max_abs, plan=score_plan(shape))
+    log("K1 fixedvar_scores %s: plan %s, max|d|=%.3g max rel=%.3g" % (
+        name, out["plan"], max_abs, rel))
     return out
 
 
@@ -476,16 +425,13 @@ def compare_dp(shape, name):
     """K2 at one shape: the fused kernel (the whole DP in one launch)
     against its plain version, the composition ``dp.segment_dp_plain``, in
     both modes on shared noise: identical alphas and boundaries, log_prob
-    to ``LP_TOL``.  Times: the kernel (events and device), the plain
-    composition, and the unfused stage as the segmenters ran it before the
-    fusion, with the forward filter served by K2 (reverse the scores, K2's
-    alphas, then ``backward_sample``'s eager ops: events around the stage,
-    the profiler's device time summed over its kernels)."""
+    to ``LP_TOL``; Viterbi on tied scores breaks ties toward shorter
+    segments, as the plain version does."""
     import torch
     from segmentalist_torch.ops import cuda_dp, dp
 
     scores, lengths, noise = dp_inputs(shape, 2, DEVICE)
-    B, N, W = scores.shape
+    B = scores.shape[0]
     lpc = torch.full((), math.log(0.9), device=DEVICE)
     out = {"max_abs_err": 0.0}
     for use_max in (False, True):
@@ -526,36 +472,6 @@ def compare_dp(shape, name):
           % name)
     check(one_slice, "K2 %s: ties did not break toward shorter segments"
           % name)
-
-    def fused():
-        return cuda_dp.segment_dp(scores, lengths, lpc, 1.0, 0, False, noise)
-
-    def unfused():
-        r = dp._rev_mask_scores(scores, 0)
-        a = cuda_dp.segment_dp(scores, lengths, lpc, 1.0, 0, False, noise,
-                               with_alphas=True)[2]
-        return dp.backward_sample(r, a, lengths, 1.0, False, noise)
-
-    out["ms"] = cuda_ms(fused, 50)
-    out["device_ms"] = device_ms(fused, "segment_dp_kernel")
-    out["plain_ms"] = cuda_ms(lambda: dp.segment_dp_plain(
-        scores, lengths, lpc, 1.0, 0, False, noise), 10 if W <= 32 else 3)
-    out["unfused_ms"] = cuda_ms(unfused, 50)
-    out["unfused_device_ms"], out["unfused_kernels"] = device_ms(
-        unfused, None)
-    # the whole launch (the intercept and the backward pass included) over
-    # the N - 1 forward steps; utils/chain_probe.py --kernels K2 fits the
-    # time of one step alone
-    out["launch_us_a_step"] = (None if out["device_ms"] is None
-                               else out["device_ms"] * 1e3 / max(N - 1, 1))
-    out.update(dp_bound(scores, lengths, noise))
-    log("K2 segment_dp %s: kernel %.4f ms (device %s, the launch's device "
-        "time over %d forward steps %s us)  plain composition %.4f ms  bound "
-        "%.4f ms (%s); unfused stage %.4f ms (device %s ms in %s kernels)"
-        % (name, out["ms"], out["device_ms"], N - 1, out["launch_us_a_step"],
-           out["plain_ms"], out["bound_ms"], out["bound_by"],
-           out["unfused_ms"], out["unfused_device_ms"],
-           out["unfused_kernels"]))
     return out
 
 
@@ -588,16 +504,7 @@ def compare_chain(shape, name):
             "K3 fixedvar_chain use_argmax=%s" % use_argmax, name, ks_k, ks_p,
             embeds))
     plan = cuda_chain.card_plan(shape["D"], K, shape["N_max"], False)
-    out.update(chain_plan("K3 fixedvar_chain", name, plan, kernel, embeds,
-                          "FixedVarChain"))
-    out["ms"] = cuda_ms(kernel, 20)
-    out["plain_ms"] = cuda_ms(plain, 3)
-    out.update(chain_bound(data, 4 * Xe.shape[-1] + 8))
-    out.update(table_stream_bound(plan, kernel(), counts, Xe.shape[-1],
-                                  cuda_chain.TABLES["global"]))
-    log("K3 fixedvar_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms "
-        "(%s)%s" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
-                    out["bound_by"], stream_note(out)))
+    out.update(chain_plan("K3 fixedvar_chain", name, plan, embeds))
     return out
 
 
@@ -643,17 +550,11 @@ def compare_bigram_chain(shape, name):
     prec = 1.0 / prior.var
     prec0 = 1.0 / prior.var_0
 
-    def kernel():
-        return cuda_chain.bigram_fixedvar_chain(
-            *data, prior.var, prior.var_0, prior.mu_0, 0.8, *lm, alpha_a=1.0,
-            intrp_lambda=0.1, b_smooth=1.0, K=K)
-
-    def plain():
-        return cuda_chain.bigram_fixedvar_chain_plain(
-            *data, prec, prec0, prec0 * prior.mu_0, 0.8, *lm, consts, K, 1.0)
-
-    ks_k = kernel()
-    ks_p = plain()
+    ks_k = cuda_chain.bigram_fixedvar_chain(
+        *data, prior.var, prior.var_0, prior.mu_0, 0.8, *lm, alpha_a=1.0,
+        intrp_lambda=0.1, b_smooth=1.0, K=K)
+    ks_p = cuda_chain.bigram_fixedvar_chain_plain(
+        *data, prec, prec0, prec0 * prior.mu_0, 0.8, *lm, consts, K, 1.0)
     # the same chains with the own old pairs kept in the table: how many
     # draws the correction changes (a sign that it is exercised)
     ks_keep = cuda_chain.bigram_fixedvar_chain(
@@ -666,18 +567,7 @@ def compare_bigram_chain(shape, name):
     out = {"max_abs_err": ks_agreement("K4 bigram_fixedvar_chain", name,
                                        ks_k, ks_p, data[0])}
     plan = cuda_chain.card_plan(shape["D"], K, shape["N_max"], True)
-    out.update(chain_plan("K4 bigram_fixedvar_chain", name, plan, kernel,
-                          data[0], "FixedVarChain"))
-    out["ms"] = cuda_ms(kernel, 20)
-    out["plain_ms"] = cuda_ms(plain, 3)
-    D = data[1].shape[-1]
-    out.update(chain_bound(data, 4 * D + 18, lm))
-    out.update(table_stream_bound(plan, ks_k, data[4], D,
-                                  cuda_chain.TABLES["global"]))
-    log("K4 bigram_fixedvar_chain %s: kernel %.4f ms  plain %.4f ms  bound "
-        "%.4f ms (%s)%s" % (name, out["ms"], out["plain_ms"],
-                            out["bound_ms"], out["bound_by"],
-                            stream_note(out)))
+    out.update(chain_plan("K4 bigram_fixedvar_chain", name, plan, data[0]))
     return out
 
 
@@ -687,7 +577,6 @@ def compare_diag_score(shape, name):
     from segmentalist_torch.ops import cuda_score
 
     args = diag_score_inputs(shape, 5, DEVICE)
-    D = args[0].shape[-1]
     out = {"max_abs_err": 0.0, "plan": score_plan(shape)}
     for exact in (False, True):
         label = "K5 diag_scores %s exact=%s" % (name, exact)
@@ -701,78 +590,27 @@ def compare_diag_score(shape, name):
         rel = (err / ref.abs()[fin].clamp_min(1.0)).max().item()
         check(rel <= SCORE_TOL, "%s: relative error %.3g > %g"
               % (label, rel, SCORE_TOL))
-        pre = "exact_" if exact else ""
-        out[pre + "ms"] = cuda_ms(
-            lambda: cuda_score.diag_log_margs_T(*args, exact=exact), 50)
-        out[pre + "plain_ms"] = cuda_ms(
-            lambda: cuda_score.diag_scores_plain(*args, exact=exact), 5)
-        out[pre + "device_ms"] = device_ms(
-            lambda: cuda_score.diag_log_margs_T(*args, exact=exact),
-            "::Diag<%s>" % str(exact).lower())
         out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
-        # grouped: a log a closed group of 4; exact: a log1p a dim; both an
-        # exp a term of the logsumexp; a column's cst / vh (2 lgamma, a log)
-        # and its D divisions inv_var / v
-        n_sfu = D + 1 if exact else (D + 3) // 4 + 1
-        n_fp32 = 4 * D + 4 if exact else 5 * D + (D + 3) // 4 + 4
-        b = score_bound(args, n_fp32, n_sfu, D + 3)
-        out.update({pre + k: v for k, v in b.items()})
-        log("%s: max|d|=%.3g max rel=%.3g  kernel %.4f ms (device %s)  "
-            "plain %.4f ms  bound %.4f ms (%s)" % (
-                label, err.max().item(), rel, out[pre + "ms"],
-                out[pre + "device_ms"], out[pre + "plain_ms"],
-                b["bound_ms"], b["bound_by"]))
+        log("%s: max|d|=%.3g max rel=%.3g" % (label, err.max().item(), rel))
     log("K5 diag_scores %s: plan %s" % (name, out["plan"]))
     return out
 
 
-def device_ms(fn, kernel_name, reps=10):
-    """Mean device milliseconds a launch of the kernels whose name holds
-    ``kernel_name``, from ``torch.profiler`` (CUPTI) over ``reps`` calls:
-    the kernel alone, without the host's launch cost that `cuda_ms` sees
-    when the card waits for the host.  The mean is over the launches the
-    profiler recorded (it may drop a record, or a whole window's: then up
-    to two more windows are taken, and None comes back if all three lack
-    the kernel).  With ``kernel_name`` None: (device ms, kernels) a call of
-    ``fn``, summed over every kernel it launches, or (None, None)."""
-    from torch.profiler import ProfilerActivity, profile
+def chain_steps(embeds):
+    """Per utterance the chain's step count (one past its last segment)."""
+    import torch
 
-    fn()
-    sync()
-    for _ in range(3):  # a window can come back without kernel records
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            sync()
-        if kernel_name is None:
-            hits = [e for e in prof.key_averages()
-                    if e.device_type.name == "CUDA"
-                    and not getattr(e, "is_user_annotation", False)]
-        else:
-            hits = [e for e in prof.key_averages() if kernel_name in e.key]
-        n = sum(e.count for e in hits)
-        total_ms = sum(e.self_device_time_total for e in hits) / 1e3
-        if kernel_name is None and n:
-            return total_ms / reps, n / reps
-        if kernel_name is not None and n > reps // 2:
-            return total_ms / n
-        log("the profiler saw %d of %d launches of %s" % (
-            n, reps, kernel_name or "the stage's kernels"))
-    return (None, None) if kernel_name is None else None
+    S = embeds.shape[1]
+    steps = torch.arange(1, S + 1, device=embeds.device)
+    return torch.where(embeds >= 0, steps, 0).amax(1)
 
 
-def chain_plan(kernel, name, plan, run, embeds, family):
-    """A chain's (K3 / K4, K6 / K7) launch plan, each chain's longest step
-    count, the kernel's device time (profiler; the records of the chain
-    template's ``family`` policy) over ``run()`` and that time a dependent
-    step of the longest chain."""
-    out = {"form": plan.form, "steps_max": int(chain_steps(embeds).max()),
-           "device_ms": device_ms(run, family)}
-    out["us_per_step"] = (None if out["device_ms"] is None else
-                          out["device_ms"] * 1e3 / out["steps_max"])
-    log("%s %s: plan %s, longest chain %d steps, device %s ms (%s us a "
-        "step)" % (kernel, name, plan, out["steps_max"], out["device_ms"],
-                   out["us_per_step"]))
+def chain_plan(kernel, name, plan, embeds):
+    """A chain's (K3 / K4, K6 / K7) launch plan and each chain's longest
+    step count."""
+    out = {"form": plan.form, "steps_max": int(chain_steps(embeds).max())}
+    log("%s %s: plan %s, longest chain %d steps" % (kernel, name, plan,
+                                                   out["steps_max"]))
     return out
 
 
@@ -801,16 +639,7 @@ def compare_diag_chain(shape, name):
             "K6 diag_chain use_argmax=%s" % use_argmax, name, ks_k, ks_p,
             data[0]))
     plan = cdc.card_plan(shape["D"], K, shape["N_max"], False)
-    out.update(chain_plan("K6 diag_chain", name, plan, kernel, data[0],
-                          "DiagChain"))
-    out["ms"] = cuda_ms(kernel, 20)
-    out["plain_ms"] = cuda_ms(plain, 2)
-    D = data[1].shape[-1]
-    out.update(chain_bound(data, 6 * D + 12))
-    out.update(table_stream_bound(plan, kernel(), data[4], D, 2))
-    log("K6 diag_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)%s"
-        % (name, out["ms"], out["plain_ms"], out["bound_ms"],
-           out["bound_by"], stream_note(out)))
+    out.update(chain_plan("K6 diag_chain", name, plan, data[0]))
     return out
 
 
@@ -837,12 +666,9 @@ def compare_bigram_diag_chain(shape, name):
             *data, prior.m_0, k0, v0, prior.S_0, 0.8, counts, big, corr_j,
             pi, alpha_a=1.0, intrp_lambda=0.1, b_smooth=1.0, K=K)
 
-    def plain():
-        return cdc.bigram_diag_chain_plain(
-            *data, k0m0, snp0, k0, v0, 0.8, counts, big, pj, pi, consts, K,
-            1.0)
-
-    ks_k, ks_p = kernel(), plain()
+    ks_k = kernel()
+    ks_p = cdc.bigram_diag_chain_plain(
+        *data, k0m0, snp0, k0, v0, 0.8, counts, big, pj, pi, consts, K, 1.0)
     ks_keep = kernel(torch.full_like(pj, -1))  # own old pairs kept
     sync()
     log("K7 bigram_diag_chain %s: without the own-pair correction %d ks "
@@ -850,16 +676,7 @@ def compare_bigram_diag_chain(shape, name):
     out = {"max_abs_err": ks_agreement("K7 bigram_diag_chain", name, ks_k,
                                        ks_p, data[0])}
     plan = cdc.card_plan(shape["D"], K, shape["N_max"], True)
-    out.update(chain_plan("K7 bigram_diag_chain", name, plan, kernel,
-                          data[0], "DiagChain"))
-    out["ms"] = cuda_ms(kernel, 20)
-    out["plain_ms"] = cuda_ms(plain, 2)
-    D = data[1].shape[-1]
-    out.update(chain_bound(data, 6 * D + 22, (counts, big, pj, pi)))
-    out.update(table_stream_bound(plan, ks_k, counts, D, 2))
-    log("K7 bigram_diag_chain %s: kernel %.4f ms  plain %.4f ms  bound %.4f "
-        "ms (%s)%s" % (name, out["ms"], out["plain_ms"], out["bound_ms"],
-                       out["bound_by"], stream_note(out)))
+    out.update(chain_plan("K7 bigram_diag_chain", name, plan, data[0]))
     return out
 
 
@@ -986,21 +803,11 @@ def compare_fullcov_score(shape, name):
     log("K8 %s against float64: kernel (whitened form, float32) max rel "
         "%.3g; float32 expanded form %.3g" % (
             name, out["f64_rel_err"], out["expanded32_rel_err"]))
-    def kernel():
-        return cfs.fullcov_log_margs(*args[:-1], valid_m=args[-1])
-
-    out["ms"] = cuda_ms(kernel, 20)
-    out["device_ms"] = device_ms(kernel, "fullcov_scores_kernel")
-    out["plain_ms"] = cuda_ms(lambda: cfs.fullcov_scores_plain(
-        *args[:-1], valid_m=args[-1]), 3)
-    out.update(fullcov_score_bound(args))
     Xc = args[0]
     plan = cfs.card_plan(Xc.shape[-1], args[4].shape[-1], Xc.shape[1])
     out["plan"] = "%d rows x %d tiles" % (plan.rows, plan.tiles)
-    log("K8 fullcov_scores %s: plan %s, max|d|=%.3g max rel=%.3g  kernel "
-        "%.4f ms (device %s)  plain %.4f ms  bound %.4f ms (%s)" % (
-            name, plan, max_abs, rel, out["ms"], out["device_ms"],
-            out["plain_ms"], out["bound_ms"], out["bound_by"]))
+    log("K8 fullcov_scores %s: plan %s, max|d|=%.3g max rel=%.3g" % (
+        name, plan, max_abs, rel))
     return out
 
 
@@ -1049,25 +856,11 @@ def compare_fullcov_chain(shape, name):
         "would differ" % (name, int((ks_keep != ks_k).sum())))
     out["max_abs_err"] = max(out["max_abs_err"], ks_agreement(
         "K9 bigram_fullcov_chain", name, ks_k, ks_p, embeds))
-    out["ms"] = cuda_ms(kernel, 20)
-    out["bigram_ms"] = cuda_ms(kernel_bigram, 20)
-    out["device_ms"] = device_ms(kernel, "fullcov_chain_kernel")
-    out["bigram_device_ms"] = device_ms(kernel_bigram, "fullcov_chain_kernel")
-    out["plain_ms"] = cuda_ms(plain, 2)
-    out.update(fullcov_chain_bound(data, kernel(), K))
-    out["bigram_slot_steps"] = fullcov_chain_bound(
-        data, kernel_bigram(), K)["slot_steps"]
     plan = cfc.card_plan(shape["D"], K, shape["N_max"], data[9].shape[1],
                          False)
     out["plan"] = "%s, %d threads, %d ring buffers" % (
         plan.form, plan.threads, plan.ring)
-    log("K9 fullcov_chain %s: plan %s; kernel %.4f ms (bigram %.4f), device "
-        "%s ms (bigram %s)  plain %.4f ms  bound %.4f ms (%s), streamed "
-        "tables %.4f ms (%d slot steps; bigram %d)" % (
-            name, plan, out["ms"], out["bigram_ms"], out["device_ms"],
-            out["bigram_device_ms"], out["plain_ms"], out["bound_ms"],
-            out["bound_by"], out["stream_bound_ms"], out["slot_steps"],
-            out["bigram_slot_steps"]))
+    log("K9 fullcov_chain %s: plan %s" % (name, plan))
     return out
 
 
@@ -1209,26 +1002,23 @@ def plain_item_pool(jobs):
     return pool, futures
 
 
-def item_chain_pair(family, d, delete=True, n=None):
-    """(kernel, plain) callables of K10 (K11 for "full") on ``d`` (its
-    first ``n`` items); each returns (ks, final stats)."""
+def full_item_pair(d, delete=True, n=None):
+    """(kernel, plain) callables of K11 on ``d`` (its first ``n`` items);
+    each returns (ks, final stats)."""
     import torch
     from segmentalist_torch.ops import cuda_item_chain as cic
 
     n = d["X"].shape[0] if n is None else n
     k_old = d["k_old"][:n] if delete else torch.full_like(d["k_old"][:n],
                                                           -1)
-    args = (family, d["X"][:n], d["log_prior"][:n], d["noise"][:n], k_old,
+    args = (d["X"][:n], d["log_prior"][:n], d["noise"][:n], k_old,
             d["stats"], d["prior"], 1.0, d["K"], 1.0, 1.0)
 
     def kernel():
-        return cic.item_chain(*args)
+        return cic.item_chain("full", *args)
 
     def plain():
-        if family == "full":
-            return cic.full_chain_plain(*cic.full_chain_inputs(*args[1:]))
-        return cic.item_chain_result(*cic.item_chain_plain(
-            *cic.item_chain_inputs(*args)))
+        return cic.full_chain_plain(*cic.full_chain_inputs(*args))
 
     return kernel, plain
 
@@ -1250,25 +1040,6 @@ def same_items(what, got, want):
                for a, b in zip(st_k, st_p))
 
 
-def item_bound(family, d):
-    """K10: the noise rows, the items' vectors, prior densities and old
-    columns read once, the statistics read and written once; per step and
-    occupied column (the mean of the start's and the end's) 4 D + 8
-    float32 operations, and for the exact diag form D divisions and D
-    log1p (special-function results)."""
-    from segmentalist_torch.ops import cuda_item_chain as cic
-
-    N, D = d["X"].shape
-    ks, out = cic.item_chain(family, d["X"], d["log_prior"], d["noise"],
-                             d["k_old"], d["stats"], d["prior"], 1.0, d["K"])
-    occ = 0.5 * float((d["stats"].counts > 0).sum() + (out.counts > 0).sum())
-    col_steps = N * occ
-    n_bytes = nbytes(d["noise"], d["X"], d["log_prior"], d["k_old"],
-                     *d["stats"]) + nbytes(ks, *out)
-    return bound(n_bytes, col_steps * (4 * D + 8),
-                 col_steps * 2 * D if family == "diag" else 0)
-
-
 def compare_item_chain(shape, name):
     """K10 at the shapes of ``K10_SHAPES[name]`` (with the flagship: the
     toy, the flagship's 6,149 items and fbgmm_flagship's 51,972-item
@@ -1276,9 +1047,8 @@ def compare_item_chain(shape, name):
     off, at every cluster size the card schedules (1 to 16 CTAs, at most
     K): the kernel's ks, counts and sums identical to its plain version's
     (run once a case on the CPU, in worker processes, from the card's
-    inputs).  At the flagship and long shapes its plan, times (events,
-    device, a step; a step at every C), the plain version's time on the
-    card on the first ``PLAIN_ITEMS`` items, and its bound."""
+    inputs).  At the flagship and long shapes its plan and the cluster
+    sizes held."""
     import torch
     from segmentalist_torch.ops import cuda_item_chain as cic
 
@@ -1324,28 +1094,10 @@ def compare_item_chain(shape, name):
         d = data[name, family]
         N, D = d["X"].shape
         plan = cic.card_plan(family, D, d["K"])
-        kernel, _ = item_chain_pair(family, d)
-        _, plain = item_chain_pair(family, d, n=PLAIN_ITEMS)
-        args = jobs[name, family, True][3]
-        clusters = {C: cuda_ms(lambda C=C: cic._launch(*args, cluster=C),
-                               3) * 1e3 / N
-                    for C in sizes[name, family, True]}
         r = {"form": plan.tables, "plan": plan._asdict(), "steps_max": N,
-             "ms": cuda_ms(kernel, 5),
-             "device_ms": device_ms(kernel, "item_chain::items_kernel", 5),
-             "plain_ms": once_ms(plain), "plain_items": PLAIN_ITEMS,
-             "clusters": clusters}
-        r["us_per_step"] = (None if r["device_ms"] is None
-                            else r["device_ms"] * 1e3 / N)
-        r.update(item_bound(family, d))
-        log("K10 %s %s: plan %s, %d steps, kernel %.4f ms, device %s ms "
-            "(%s us a step; by cluster size %s), plain %.4f ms for %d "
-            "items, bound %.4f ms (%s) [%s]"
-            % (family, name, plan, N, r["ms"], r["device_ms"],
-               r["us_per_step"], json.dumps({C: round(v, 3) for C, v
-                                             in clusters.items()}),
-               r["plain_ms"], PLAIN_ITEMS, r["bound_ms"], r["bound_by"],
-               CARD))
+             "clusters": sizes[name, family, True]}
+        log("K10 %s %s: plan %s, %d steps, held at clusters %s"
+            % (family, name, plan, N, r["clusters"]))
         pre = "" if family == "fixed" else "diag_"
         out.update({pre + k: v for k, v in r.items()})
     return out
@@ -1354,38 +1106,15 @@ def compare_item_chain(shape, name):
 FULL_PLAIN_ITEMS = {"toy": None, "flagship": None, "long": 60}
 
 
-def full_item_bound(d, n):
-    """K11 on the first ``n`` items: the noise rows, the items' vectors,
-    prior densities and old columns read once, the statistics ([K, D, D]
-    sums) read and written once; per step and occupied column (the mean
-    of the start's and the end's) the whitened Mahalanobis form, D (D + 1)
-    flops, and 3 D + 8 more (x - m_n, the squares, the density), a
-    division and a log1p; per step two re-derivations of D^3/3 + D^3/6
-    flops (the factor and its inverse)."""
-    from segmentalist_torch.ops import cuda_item_chain as cic
-
-    D = d["X"].shape[1]
-    args = (d["X"][:n], d["log_prior"][:n], d["noise"][:n], d["k_old"][:n],
-            d["stats"], d["prior"], 1.0, d["K"])
-    ks, out = cic.item_chain("full", *args)
-    occ = 0.5 * float((d["stats"].counts > 0).sum() + (out.counts > 0).sum())
-    col_steps = n * occ
-    n_bytes = nbytes(*args[:4], *d["stats"]) + nbytes(ks, *out)
-    n_ops = col_steps * (D * (D + 1) + 3 * D + 8) + n * 2 * (D ** 3 / 2)
-    return dict(bound(n_bytes, n_ops, col_steps * 2), col_steps=col_steps)
-
-
 def compare_full_item_chain(shape, name):
     """K11 at ``ITEMS[name]`` (the toy too, with the flagship): the kernel
     against its plain version on the card, delete on and off (at D 130 on
     the first ``FULL_PLAIN_ITEMS["long"]`` items: the plain version's D
     vector steps a factorisation are slow there); at the flagship, with
     the delete on, also at every cluster size the card schedules, each
-    held to the same plain result and timed; at the flagship and long
+    held to the same plain result, with its plan; at the flagship and long
     shapes the plan (C, threads, form, where the tables and work area
-    live, shared bytes a CTA), its times (events, device, a step, a step
-    of the plain version on the first ``PLAIN_ITEMS``) and its bound, over
-    all the items."""
+    live, shared bytes a CTA)."""
     import torch
     from segmentalist_torch.ops import cuda_item_chain as cic
 
@@ -1396,7 +1125,7 @@ def compare_full_item_chain(shape, name):
         n = FULL_PLAIN_ITEMS[nm]
         N, D = d["X"].shape
         for delete in (True, False):
-            kernel, plain = item_chain_pair("full", d, delete, n)
+            kernel, plain = full_item_pair(d, delete, n)
             want = plain()
             err = same_items("K11 %s delete=%s%s" % (
                 nm, delete, "" if n is None else " (first %d items)" % n),
@@ -1419,199 +1148,14 @@ def compare_full_item_chain(shape, name):
                 err = same_items("K11 flagship at a cluster of %d" % C,
                                  forced(), want)
                 out["max_abs_err"] = max(out["max_abs_err"], err)
-                by_c[C] = dict(cic.card_plan("full", D, d["K"], C)._asdict(),
-                               us_per_step=cuda_ms(forced, 3) * 1e3 / N)
+                by_c[C] = cic.card_plan("full", D, d["K"], C)._asdict()
             out["clusters"] = by_c
         if nm != name:
             continue
         plan = cic.card_plan("full", D, d["K"])
-        kernel, _ = item_chain_pair("full", d)
-        n_plain = min(N, PLAIN_ITEMS, n or N)
-        _, plain = item_chain_pair("full", d, n=n_plain)
-        r = {"form": plan.form, "plan": plan._asdict(), "steps_max": N,
-             "ms": cuda_ms(kernel, 3),
-             "device_ms": device_ms(kernel, "fullcov_items_kernel", 3),
-             "plain_ms": once_ms(plain), "plain_items": n_plain}
-        r["us_per_step"] = (None if r["device_ms"] is None
-                            else r["device_ms"] * 1e3 / N)
-        r["plain_us_per_step"] = r["plain_ms"] * 1e3 / n_plain
-        r["ms_per_item"] = r["ms"] / N
-        r.update(full_item_bound(d, N))
-        log("K11 %s: plan %s, %d steps, kernel %.4f ms (%.6f ms an item), "
-            "device %s ms (%s us a step), plain %.4f ms for %d items, bound "
-            "%.4f ms (%s) [%s]" % (
-                name, plan, N, r["ms"], r["ms_per_item"], r["device_ms"],
-                r["us_per_step"], r["plain_ms"], n_plain, r["bound_ms"],
-                r["bound_by"], CARD))
-        if "clusters" in out:
-            log("K11 flagship by cluster size: %s" % json.dumps(
-                {C: round(v["us_per_step"], 3)
-                 for C, v in out["clusters"].items()}))
-        out.update(r)
+        log("K11 %s: plan %s, %d steps" % (name, plan, N))
+        out.update(form=plan.form, plan=plan._asdict(), steps_max=N)
     return out
-
-
-# ------------------------------------------------------------- bounds
-
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
-PEAK_FP32 = 67e12     # float32 outside the tensor cores, flop/s
-# Special-function results (log, exp, reciprocal: MUFU) a second: 16 a clock
-# an SM (CUDA C++ Programming Guide, "Arithmetic Instructions", throughput
-# table, compute capability 9.0) x 132 SMs x 1.98 GHz, the clock at which
-# 132 SMs x 128 float32 lanes x 2 give PEAK_FP32.  Each log / log1p / exp /
-# lgamma / division counts as one result: a floor, as the library's
-# accurate forms take further float32 operations besides.
-PEAK_SFU = 16 * 132 * 1.98e9
-
-
-def bound(n_bytes, n_ops, n_sfu=0):
-    """(bound_ms, bound_by): the largest of bytes over the memory rate,
-    float32 operations over the float32 peak and special-function results
-    over their rate (the two kinds of operation run on separate units)."""
-    t_b = n_bytes / PEAK_BYTES
-    t_o = max(n_ops / PEAK_FP32, n_sfu / PEAK_SFU)
-    return {"bound_ms": max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors
-               if t is not None)
-
-
-def dp_bound(scores, lengths, noise):
-    """K2: the scores (and the noise) read once, lengths once, the outputs
-    (log_prob [B] and boundaries [B, N] bool) written once; per forward
-    step that a row
-    needs (t < length) 4 W + 2 operations, W exps and a log; per node up to
-    the length W adds, W compares and 3 W for the draw, and W divisions
-    (sample mode)."""
-    B, N, W = scores.shape
-    lens = lengths.clamp(0, N)
-    steps = int((lens - 1).clamp_min(0).sum())
-    n_ops, n_sfu = steps * (4 * W + 2), steps * (W + 1)
-    nodes = int(lens.sum())
-    n_ops += nodes * 5 * W
-    n_sfu += nodes * W if noise is not None else 0
-    return bound(nbytes(scores, noise, lengths) + B * 4 + B * N, n_ops,
-                 n_sfu)
-
-
-def live_rows(valid_m, M):
-    return int(valid_m.clamp(0, M).sum())
-
-
-def chain_steps(embeds):
-    """Per utterance the chain's step count (one past its last segment)."""
-    import torch
-
-    S = embeds.shape[1]
-    steps = torch.arange(1, S + 1, device=embeds.device)
-    return torch.where(embeds >= 0, steps, 0).amax(1)
-
-
-def score_bound(args, per_term, sfu_per_term, sfu_per_column):
-    """K1 / K5: every input once, the output once; per live row
-    ``per_term`` float32 operations and ``sfu_per_term`` special-function
-    results for each active component, 4 operations for each component's
-    share of the logsumexp; ``sfu_per_column`` results for each active
-    component of an utterance (its constants: K1's D logs of prec, K5's D
-    divisions and 3 for cst)."""
-    Xc, counts, valid_m = args[0], args[-2], args[-1]
-    M = Xc.shape[1]
-    vm = valid_m.clamp(0, M).float()
-    active = (counts > 0).sum(1).float()
-    pairs = float((active * vm).sum())
-    n_ops = pairs * per_term + live_rows(valid_m, M) * counts.shape[1] * 4
-    n_sfu = pairs * sfu_per_term + float(active.sum()) * sfu_per_column
-    return bound(nbytes(*args) + Xc.shape[0] * M * 4, n_ops, n_sfu)
-
-
-def chain_bound(data, per_k, lm=()):
-    """K3 / K4 / K6 / K7: the noise rows of the steps that run, the other
-    inputs once, ks once; ``per_k`` flops a component a step (the update's
-    O(D) work is below the rounding of that)."""
-    embeds, gumbel = data[0], data[3]
-    K = gumbel.shape[-1]
-    steps = int(chain_steps(embeds).sum())
-    rest = [t for i, t in enumerate(data) if i != 3]
-    return bound(steps * K * 4 + nbytes(*rest, *lm) + embeds.numel() * 4,
-                 steps * K * per_k)
-
-
-def table_stream_bound(plan, ks, counts, D, tables):
-    """The global form of K3 / K4 and K6 / K7 re-reads every occupied
-    column's ``tables`` [D] rows each step (one CTA an utterance, the
-    tables in device memory): that traffic over the memory rate, the
-    occupied columns counted from the counts and this run's draws.  The
-    smem form keeps the tables on chip, so it has no such bound."""
-    if plan.form != "global":
-        return {}
-    ks_c, occ = ks.cpu().numpy(), (counts > 0).cpu().numpy()
-    col_steps = 0
-    for b in range(ks_c.shape[0]):
-        live = occ[b].copy()
-        for k in ks_c[b][ks_c[b] >= 0]:
-            col_steps += int(live.sum())
-            live[k] = True
-    return {"col_steps": col_steps,
-            "stream_bound_ms": col_steps * tables * D * 4 / PEAK_BYTES * 1e3}
-
-
-def stream_note(out):
-    return ("" if "stream_bound_ms" not in out else
-            ", streamed tables %.4f ms (%d column steps)"
-            % (out["stream_bound_ms"], out["col_steps"]))
-
-
-def fullcov_score_bound(args):
-    """K8: every input once, the output once; per live row 2 (F + D) + D +
-    8 flops for each active component (its global form, or its touched
-    slot's: pad and duplicate slots and those of empty components feed no
-    output), 4 for each component's share of the logsumexp (F =
-    D(D+1)/2)."""
-    Xc, prior_c, g, t, tslot, w, counts, valid_m = args
-    B, M, D = Xc.shape
-    F = D * (D + 1) // 2
-    rows = live_rows(valid_m, M)
-    K = w.shape[1]
-    per_row = (counts > 0).sum(1).float()
-    n_ops = (float((per_row * valid_m.clamp(0, M).float()).sum())
-             * (2 * (F + D) + D + 8) + rows * 4 * K)
-    return bound(nbytes(Xc, prior_c, *g, *t, tslot, w, counts, valid_m)
-                 + rows * 4, n_ops)
-
-
-def fullcov_chain_bound(data, ks, K):
-    """K9: the base and noise rows of the steps that run, the touched and
-    claimed slots' tables, the per-utterance inputs once, ks once; per step
-    each live slot's 2 D^2 + 3 D + 30 flops, 8 flops a component, and the
-    rank-1 update's 4 D^2 + 6 D (live slots counted from this run's
-    draws).  Also the streamed-table bound: the live slots' tables read
-    once a step (slot_steps D^2 4 bytes) at the memory rate."""
-    embeds, Xe, lpe, gumbel, base, counts, tm, tiP, tld, tk = data[:10]
-    B, S, D = Xe.shape
-    n = chain_steps(embeds)
-    steps = int(n.sum())
-    ks_c, tk_c = ks.cpu().numpy(), tk.cpu().numpy()
-    slot_steps = claimed = 0
-    for b in range(B):
-        live = set(tk_c[b][tk_c[b] >= 0].tolist())
-        for s in range(int(n[b])):
-            slot_steps += len(live)
-            k = int(ks_c[b, s])
-            if k >= 0 and k not in live:
-                live.add(k)
-                claimed += 1
-    n_ops = (slot_steps * (2 * D * D + 3 * D + 30) + steps * 8 * K
-             + steps * (4 * D * D + 6 * D))
-    n_bytes = (2 * steps * K * 4 + nbytes(embeds, Xe, lpe, counts, tm, tiP,
-                                          tld, tk, ks)
-               + claimed * (D * D + D + 1) * 4)
-    # a one-block-an-utterance chain whose tables do not fit on chip reads
-    # every live slot's D x D table each step
-    return dict(bound(n_bytes, n_ops), slot_steps=slot_steps,
-                stream_bound_ms=slot_steps * D * D * 4 / PEAK_BYTES * 1e3)
 
 
 # ------------------------------------------------------------- phase 4
@@ -1819,7 +1363,6 @@ def kmeans_block_steps_vs_cpu():
         forward_backward_kmeans_viterbi)
     from segmentalist_torch.utils.profiling import bench_kmeans_segmenter
 
-    t0 = time.time()
     segs = {dev: bench_kmeans_segmenter(device=dev)[0]
             for dev in ("cpu", DEVICE)}
     cpu, card = segs["cpu"], segs[DEVICE]
@@ -1840,10 +1383,9 @@ def kmeans_block_steps_vs_cpu():
     same_b, same_a = int((b_c == b_d).all(1).sum()), int((a_c == a_d).sum())
     log("kmeans block steps, card vs CPU (bench corpus, 3 blocks of %d): "
         "identical boundary rows %d/%d, identical assignments %d/%d, "
-        "objective rel. diff a block %s, K2 launches %d (%.1f s)" % (
+        "objective rel. diff a block %s, K2 launches %d" % (
             cpu.batch_size, same_b, U, same_a, a_c.size,
-            ["%.3g" % r for r in rel], cuda_dp.launches - before,
-            time.time() - t0))
+            ["%.3g" % r for r in rel], cuda_dp.launches - before))
     check(cuda_dp.launches == before + 3,
           "the k-means block steps did not run one K2 launch each")
     check(same_b >= AGREE_MIN * U and same_a >= AGREE_MIN * a_c.size
@@ -1940,11 +1482,10 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
 
     name = ("bigram" if bigram else "unigram") + (
         "_" + cov if cov != "fixed" else ("" if bigram else "_fixed"))
-    t0 = time.time()
     seg, truth = bench_segmenter(cov, bigram, n_utterances, DEVICE)
     n_cand = int((seg.utterances.seg_ids >= 0).sum())
-    log("%s slice: %d utterances, %d candidate spans, setup %.1f s"
-        % (name, n_utterances, n_cand, time.time() - t0))
+    log("%s slice: %d utterances, %d candidate spans"
+        % (name, n_utterances, n_cand))
 
     def f1():
         pred = {u: seg.utterances.boundaries[i]
@@ -1953,25 +1494,18 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
 
     f1_0 = f1()
     reset_launches()
-    records, sweep_ms = [], []
-    for n in sweeps:  # bench.py's sequence: warm-up 1 + 8, timed 2 x 64
-        sync()
-        t = time.time()
-        records.append(seg.gibbs_sample(n))
-        sync()
-        sweep_ms.append((time.time() - t) / n * 1e3)
+    # bench.py's sequence of calls: 1 + 8 + 64 + 64 sweeps
+    records = [seg.gibbs_sample(n) for n in sweeps]
     launches = read_launches()
     log_marg = [v for r in records for v in r["log_marg"]]
     comps = [v for r in records for v in r["components"]]
     f1_end = f1()
-    log("%s slice: %d sweeps, ms/sweep per call %s (timed %s, best %.3f), "
-        "log_marg first %.6g last %.6g, F1 sweep 0 %.4f -> end %.4f, "
-        "active components first %d last %d of %d, launches %s, by form "
-        "%s" % (name, len(log_marg), [round(v, 3) for v in sweep_ms],
-                [round(v, 3) for v in sweep_ms[2:]], min(sweep_ms[2:]),
-                log_marg[0], log_marg[-1], f1_0, f1_end, comps[0],
-                comps[-1], seg.acoustic_model.K_max, launches,
-                read_forms()))
+    log("%s slice: %d sweeps, log_marg first %.6g last %.6g, F1 sweep 0 "
+        "%.4f -> end %.4f, active components first %d last %d of %d, "
+        "launches %s, by form %s" % (
+            name, len(log_marg), log_marg[0], log_marg[-1], f1_0, f1_end,
+            comps[0], comps[-1], seg.acoustic_model.K_max, launches,
+            read_forms()))
     check(len(log_marg) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
     check(all(math.isfinite(v) for v in log_marg), "non-finite log_marg")
     for k in PATH_KERNELS[name]:
@@ -1998,8 +1532,7 @@ def run_fbgmm_toy(sweeps=100):
     centres, K 4, FixedVarPrior(0.5, 0, 1)) for ``sweeps`` sweeps in each
     mode; log_marg finite, purity >= ``PURITY_MIN``; then 3 sequential
     sweeps of the full family on the same points (one K11 launch each).
-    Returns the K10 and K11 launches, the ms a sweep of each mode and the
-    full family's ms an item."""
+    Returns the K10 and K11 launches and each mode's purity."""
     import segmentalist_torch as pt
 
     rng = np.random.RandomState(1)
@@ -2015,36 +1548,26 @@ def run_fbgmm_toy(sweeps=100):
         np.random.seed(1)
         am = pt.FBGMM(X, prior, 1.0, 4, "rand", covariance_type="fixed",
                       seed=1, device=DEVICE)
-        am.gibbs_sample(2, mode=mode)  # warm-up
-        sync()
-        t = time.time()
         rec = am.gibbs_sample(sweeps, mode=mode)
-        sync()
-        ms = (time.time() - t) / sweeps * 1e3
         p = purity(am.assignments.cpu().numpy(), z_true)
-        log("fbgmm_toy %s: %d sweeps, %.4f ms a sweep, log_marg %.6g -> "
-            "%.6g, purity %.3f, components %d" % (
-                mode, sweeps, ms, rec["log_marg"][0], rec["log_marg"][-1], p,
-                rec["components"][-1]))
+        log("fbgmm_toy %s: %d sweeps, log_marg %.6g -> %.6g, purity %.3f, "
+            "components %d" % (mode, sweeps, rec["log_marg"][0],
+                               rec["log_marg"][-1], p,
+                               rec["components"][-1]))
         check(all(math.isfinite(v) for v in rec["log_marg"]),
               "fbgmm_toy %s: non-finite log_marg" % mode)
         check(p >= PURITY_MIN, "fbgmm_toy %s: purity %.3f < %.2f"
               % (mode, p, PURITY_MIN))
-        out[mode + "_ms_per_sweep"] = ms
-    # the full family's sequential sweep (K11), on the same data: ms an item
+        out[mode + "_purity"] = p
+    # the full family's sequential sweep (K11), on the same data
     np.random.seed(1)
     am = pt.FBGMM(X, pt.NIW.create(np.zeros(2), 1.0 / 16, 5.0,
                                    5.0 * np.eye(2)), 1.0, 4, "rand",
                   covariance_type="full", seed=1, device=DEVICE)
-    sync()
-    t = time.time()
     rec = am.gibbs_sample(3)
-    sync()
-    out["full_sequential_ms_per_item"] = (time.time() - t) / 3 / len(X) * 1e3
     launches = read_launches()
-    log("fbgmm_toy full (one K11 launch a sweep): %.4f ms an item, log_marg "
-        "%.6g -> %.6g [%s]" % (out["full_sequential_ms_per_item"],
-                               rec["log_marg"][0], rec["log_marg"][-1], CARD))
+    log("fbgmm_toy full (one K11 launch a sweep): log_marg %.6g -> %.6g"
+        % (rec["log_marg"][0], rec["log_marg"][-1]))
     check(all(math.isfinite(v) for v in rec["log_marg"]),
           "fbgmm_toy full: non-finite log_marg")
     check(launches["K11"] == 3, "fbgmm_toy full: %d K11 launches for 3 "
@@ -2085,16 +1608,13 @@ def fbgmm_flagship_vs_cpu(X, sweeps):
     card, cpu = twins()
     noise = card.draw_noise(N)
     card.sequential_sweep(noise=noise)
-    t = time.time()
     cpu.sequential_sweep(noise=noise.cpu())
-    cpu_s = time.time() - t
     same_stats = all(torch.equal(a.cpu(), b)
                      for a, b in zip(card.stats, cpu.stats))
     n_same = int((card.assignments.cpu() == cpu.assignments).sum())
     log("fbgmm_flagship sequential sweep, card (one K10 launch over %d "
-        "items) vs CPU (the plain version, %.1f s): identical assignments "
-        "%d/%d, identical counts and sums %s"
-        % (N, cpu_s, n_same, N, same_stats))
+        "items) vs CPU (the plain version): identical assignments %d/%d, "
+        "identical counts and sums %s" % (N, n_same, N, same_stats))
     check(n_same == N and same_stats, "fbgmm_flagship: K10 and its plain "
           "version disagree on the flagship sequential sweep")
 
@@ -2124,7 +1644,7 @@ def run_fbgmm_flagship(sweeps=4):
     :func:`fbgmm_flagship_vs_cpu`; log_marg finite, the sequential one
     rising from sweep to sweep, the blocked one above the init (it
     oscillates after its first sweep, as the CPU's trajectory on shared
-    noise does).  Returns the K10 launches and the ms a sweep."""
+    noise does).  Returns the K10 launches and each mode's log_marg."""
     import segmentalist_torch as pt
     from segmentalist_torch.segmenters.blocked import process_embeddings
     from segmentalist_torch.utils.profiling import bench_prior
@@ -2143,15 +1663,11 @@ def run_fbgmm_flagship(sweeps=4):
         am = pt.FBGMM(X, bench_prior("fixed", 13, "cpu"), 1.0, 1000, "rand",
                       covariance_type="fixed", seed=0, device=DEVICE)
         lm0 = am.log_marg()
-        sync()
-        t = time.time()
         rec = am.gibbs_sample(sweeps, mode=mode)
-        sync()
-        ms = (time.time() - t) / sweeps * 1e3
         lm = rec["log_marg"]
-        log("fbgmm_flagship %s: %d items, K 1000, %d sweeps, %.3f ms a "
-            "sweep, log_marg %.1f (init) -> %s, components %d" % (
-                mode, X.shape[0], sweeps, ms, lm0, [round(v, 1) for v in lm],
+        log("fbgmm_flagship %s: %d items, K 1000, %d sweeps, log_marg %.1f "
+            "(init) -> %s, components %d" % (
+                mode, X.shape[0], sweeps, lm0, [round(v, 1) for v in lm],
                 rec["components"][-1]))
         # the blocked sweep at K 1000 oscillates after its first sweep, as
         # the reference does (the CPU's trajectory above; the JAX
@@ -2163,7 +1679,7 @@ def run_fbgmm_flagship(sweeps=4):
             mode == "blocked" or all(b > a for a, b in zip(lm, lm[1:])))
         check(all(math.isfinite(v) for v in lm) and rising,
               "fbgmm_flagship %s: log_marg not finite and rising" % mode)
-        out[mode + "_ms_per_sweep"] = ms
+        out[mode + "_log_marg"] = [lm0] + lm
     launches = read_launches()
     check(launches["K10"] == sweeps,
           "fbgmm_flagship: %d K10 launches for %d sequential sweeps"
@@ -2176,40 +1692,29 @@ def run_am_slice(sweeps=(1, 3), cov="fixed", n_utterances=1000):
     one-by-one init (one item-chain launch over the initial segments: K10,
     or K11 for the full family) and ``am_n_iter=1`` (one launch an
     acoustic-model sweep before each sweep).  Returns the launches of the
-    path's kernels and the ms a sweep of the last call."""
+    path's kernels, the initial items and F1."""
     from segmentalist_torch.utils.profiling import bench_segmenter
     from segmentalist_torch.utils.synth import boundary_f_score
 
     name = "unigram_%s_am" % cov
     item = "K11" if cov == "full" else "K10"
-    t0 = time.time()
     reset_launches()
     seg, truth = bench_segmenter(cov, False, n_utterances, DEVICE,
                                  init_am_assignments="one-by-one")
-    sync()
-    init_s = time.time() - t0
     n_init = int((seg.acoustic_model.assignments >= 0).sum())
     check(read_launches()[item] == 1,
           "the one-by-one init did not run one %s launch" % item)
-    log("%s: one-by-one init of %d segments in %.1f s (setup included) "
-        "[%s]" % (name, n_init, init_s, CARD))
+    log("%s: one-by-one init of %d segments" % (name, n_init))
     reset_launches()
-    records, sweep_ms = [], []
-    for n in sweeps:
-        sync()
-        t = time.time()
-        records.append(seg.gibbs_sample(n, am_n_iter=1))
-        sync()
-        sweep_ms.append((time.time() - t) / n * 1e3)
+    records = [seg.gibbs_sample(n, am_n_iter=1) for n in sweeps]
     launches = read_launches()
     lm = [v for r in records for v in r["log_marg"]]
     pred = {u: seg.utterances.boundaries[i]
             for i, u in enumerate(seg.ids_to_utterance_labels)}
     f1 = boundary_f_score(pred, truth)[2]
-    log("%s: %d sweeps with am_n_iter=1, ms/sweep per call %s, log_marg "
-        "%s, F1 %.4f, launches %s, by form %s [%s]" % (
-            name, len(lm), [round(v, 3) for v in sweep_ms],
-            [round(v, 1) for v in lm], f1, launches, read_forms(), CARD))
+    log("%s: %d sweeps with am_n_iter=1, log_marg %s, F1 %.4f, launches "
+        "%s, by form %s" % (name, len(lm), [round(v, 1) for v in lm], f1,
+                            launches, read_forms()))
     check(all(math.isfinite(v) for v in lm), "non-finite log_marg")
     check(launches[item] == len(lm), "%s: %d %s launches for %d sweeps"
           % (name, launches[item], item, len(lm)))
@@ -2217,25 +1722,22 @@ def run_am_slice(sweeps=(1, 3), cov="fixed", n_utterances=1000):
         check(launches[k] > 0, "kernel %s was not launched on the %s path"
               % (k, name))
     return ({k: launches[k] for k in PATH_KERNELS[name]},
-            {"ms_per_sweep": sweep_ms[-1], "init_items": n_init,
-             "init_s": init_s, "f1": f1})
+            {"init_items": n_init, "f1": f1})
 
 
 def run_kmeans_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
     """kmeans_wordseg at bench scale: the segmental k-means segmenter of
-    `bench.py:442-452` on the `bench.py` corpus, timed as `run_slice`
-    times its paths.  The record must be finite every sweep, the last
+    `bench.py:442-452` on the `bench.py` corpus, run as `run_slice` runs
+    its paths.  The record must be finite every sweep, the last
     sweep's objective above the first's, F1 >= ``F1_MIN_KMEANS``, and K2
     launched once a block (8 a sweep).  Returns K2's launches and the
     path's numbers."""
     from segmentalist_torch.utils.profiling import bench_kmeans_segmenter
     from segmentalist_torch.utils.synth import boundary_f_score
 
-    t0 = time.time()
     seg, truth = bench_kmeans_segmenter(n_utterances, DEVICE)
-    log("kmeans_wordseg slice: %d utterances, %d candidate spans, setup "
-        "%.1f s" % (n_utterances, int((seg.utterances.seg_ids >= 0).sum()),
-                    time.time() - t0))
+    log("kmeans_wordseg slice: %d utterances, %d candidate spans"
+        % (n_utterances, int((seg.utterances.seg_ids >= 0).sum())))
 
     def f1():
         pred = {u: seg.utterances.boundaries[i]
@@ -2244,25 +1746,18 @@ def run_kmeans_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
 
     f1_0 = f1()
     reset_launches()
-    records, sweep_ms = [], []
-    for n in sweeps:  # bench.py's sequence: warm-up 1 + 8, timed 2 x 64
-        sync()
-        t = time.time()
-        records.append(seg.segment(n))
-        sync()
-        sweep_ms.append((time.time() - t) / n * 1e3)
+    # bench.py's sequence of calls: 1 + 8 + 64 + 64 sweeps
+    records = [seg.segment(n) for n in sweeps]
     launches = read_launches()
     rec = {k: [v for r in records for v in r[k]] for k in records[0]}
     obj, comps = rec["sum_neg_len_sqrd_norm"], rec["components"]
     f1_end = f1()
     blocks = -(-seg.utterances.D // seg.batch_size)
-    log("kmeans_wordseg slice: %d sweeps, ms/sweep per call %s (timed %s, "
-        "best %.3f), sum_neg_len_sqrd_norm first %.9g last %.9g, "
-        "sum_neg_sqrd_norm first %.9g last %.9g, components first %d last "
-        "%d of %d, F1 sweep 0 %.4f -> end %.4f, launches %s, by form %s" % (
-            len(obj), [round(v, 3) for v in sweep_ms],
-            [round(v, 3) for v in sweep_ms[2:]], min(sweep_ms[2:]), obj[0],
-            obj[-1], rec["sum_neg_sqrd_norm"][0],
+    log("kmeans_wordseg slice: %d sweeps, sum_neg_len_sqrd_norm first %.9g "
+        "last %.9g, sum_neg_sqrd_norm first %.9g last %.9g, components "
+        "first %d last %d of %d, F1 sweep 0 %.4f -> end %.4f, launches %s, "
+        "by form %s" % (
+            len(obj), obj[0], obj[-1], rec["sum_neg_sqrd_norm"][0],
             rec["sum_neg_sqrd_norm"][-1], comps[0], comps[-1],
             seg.acoustic_model.K_max, f1_0, f1_end, launches, read_forms()))
     check(len(obj) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
@@ -2275,7 +1770,7 @@ def run_kmeans_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
     check(f1_end >= F1_MIN_KMEANS, "kmeans_wordseg: final F1 %.4f < %.2f"
           % (f1_end, F1_MIN_KMEANS))
     return ({"K2": launches["K2"]},
-            {"ms_per_sweep": min(sweep_ms[2:]), "f1": f1_end,
+            {"f1": f1_end,
              "objective_first": obj[0], "objective_last": obj[-1],
              "components_first": comps[0], "components_last": comps[-1]})
 
@@ -2283,7 +1778,6 @@ def run_kmeans_slice(n_utterances=1000, sweeps=(1, 8, 64, 64)):
 # ------------------------------------------------------------- phase 6
 
 AUX_SWEEPS = 2          # phase 6: sweeps before and after the save
-CARD = ""               # the card's name and power limit (nvidia-smi)
 
 
 def aux_builders(n_utterances=1000):
@@ -2325,31 +1819,23 @@ def resume_path(name, build, sweep):
     identical in every array of the checkpoint: assignments, boundaries,
     counts, sum_x, sum_sq, the LM tables, the k-means state and the
     generator's state bytes.  Returns the launches of the path's kernels
-    and (save ms, restore ms, checkpoint bytes)."""
+    and the checkpoint's bytes."""
     import shutil
 
     from segmentalist_torch.utils import checkpoint as ckpt
 
-    t0 = time.time()
     reset_launches()
     seg_b = build(DEVICE)
     sweep(seg_b, AUX_SWEEPS)
     path = ckpt_dir(name)
-    sync()
-    t = time.time()
     ckpt.save_checkpoint(path, seg_b, AUX_SWEEPS)
-    save_ms = (time.time() - t) * 1e3
     n_bytes = os.path.getsize(ckpt.checkpoint_file(path, AUX_SWEEPS))
     sweep(seg_b, AUX_SWEEPS)
     seg_c = build(DEVICE)
     seg_c._rng = np.random.RandomState(999)
     if hasattr(seg_c, "_gen"):
         seg_c._gen.manual_seed(999)
-    sync()
-    t = time.time()
     ckpt.restore_checkpoint(path, seg_c, AUX_SWEEPS)
-    sync()
-    restore_ms = (time.time() - t) * 1e3
     shutil.rmtree(path)
     sweep(seg_c, AUX_SWEEPS)
     launches = read_launches()
@@ -2358,9 +1844,9 @@ def resume_path(name, build, sweep):
     differ = [k for k in want if k not in got
               or not np.array_equal(got[k], want[k])]
     log("resume %s: %d + save + %d sweeps against a fresh segmenter "
-        "restored after %d, %d arrays compared, differing %s, launches %s "
-        "(%.1f s)" % (name, AUX_SWEEPS, AUX_SWEEPS, AUX_SWEEPS, len(want),
-                      differ, launches, time.time() - t0))
+        "restored after %d, %d arrays compared, differing %s, launches %s, "
+        "%d bytes" % (name, AUX_SWEEPS, AUX_SWEEPS, AUX_SWEEPS, len(want),
+                      differ, launches, n_bytes))
     check(got.keys() == want.keys() and not differ,
           "resume %s: the restored segmenter left the chain in %s"
           % (name, differ))
@@ -2370,46 +1856,22 @@ def resume_path(name, build, sweep):
     for k in PATH_KERNELS[name]:
         check(launches[k] > 0, "kernel %s was not launched on the resumed "
               "%s path" % (k, name))
-    return ({k: launches[k] for k in PATH_KERNELS[name]},
-            (save_ms, restore_ms, n_bytes))
+    return {k: launches[k] for k in PATH_KERNELS[name]}, n_bytes
 
 
 def monitored_path(name, build, sweep):
-    """Sweeps with ``validate=True, monitor_i=0`` against sweeps without,
-    in turns (off, on, on, off, off, on; AUX_SWEEPS each); the flags must
-    pass.  One monitor call and one validate call are timed alone.
-    Then the monitor on the card against the same computation on the CPU
-    from one state: scores within SCORE_TOL, boundary row and components
-    identical.  Returns the launches of the monitored sweeps, the ms a
-    sweep off and on, and the segmenter."""
+    """``3 * AUX_SWEEPS`` sweeps with ``validate=True, monitor_i=0``; the
+    flags must pass and the path's kernels launch.  Then the monitor on the
+    card against the same computation on the CPU from one state: scores
+    within SCORE_TOL, boundary row and components identical.  Returns the
+    launches of the monitored sweeps, the monitor's error and the
+    segmenter."""
     from segmentalist_torch.utils import checkpoint as ckpt
 
     seg = build(DEVICE)
-    sweep(seg, 1)  # warm-up
-    ms = {False: [], True: []}
-    launches = dict.fromkeys(PATH_KERNELS[name], 0)
-    for on in (False, True, True, False, False, True):
-        kw = {"validate": True, "monitor_i": 0} if on else {}
-        reset_launches()
-        sync()
-        t = time.time()
-        sweep(seg, AUX_SWEEPS, **kw)
-        sync()
-        ms[on].append((time.time() - t) / AUX_SWEEPS * 1e3)
-        if on:
-            n = read_launches()
-            launches = {k: launches[k] + n[k] for k in launches}
-    hook_ms = {}
-    for hook in ("_monitor_device", "_validate_device"):
-        fn = (lambda: seg._monitor_device(0)) if hook == "_monitor_device" \
-            else seg._validate_device
-        fn()
-        sync()
-        t = time.time()
-        for _ in range(10):
-            fn()
-        sync()
-        hook_ms[hook] = (time.time() - t) / 10 * 1e3
+    reset_launches()
+    sweep(seg, 3 * AUX_SWEEPS, validate=True, monitor_i=0)
+    launches = {k: read_launches()[k] for k in PATH_KERNELS[name]}
     cpu = build("cpu")
     state = ckpt.segmenter_state(seg)
     state.pop("torch_generator", None)  # a CUDA generator's, not the CPU's
@@ -2422,24 +1884,15 @@ def monitored_path(name, build, sweep):
     same = (np.array_equal(np.isinf(got[0]), np.isinf(want[0]))
             and np.array_equal(got[1], want[1])
             and np.array_equal(got[2], want[2]))
-    off, on = float(np.mean(ms[False])), float(np.mean(ms[True]))
-    log("%s validate and monitor: ms/sweep off %s, on %s (means %.3f / "
-        "%.3f, +%.3f); monitor utterance 0, card vs CPU: score rel. err "
-        "%.3g, masks, boundaries and components identical %s; one "
-        "monitor call %.3f ms, one validate call %.3f ms (host clock, "
-        "synchronized); launches on %s [%s]" % (
-            name, [round(v, 3) for v in ms[False]],
-            [round(v, 3) for v in ms[True]], off, on, on - off, err, same,
-            hook_ms["_monitor_device"], hook_ms["_validate_device"],
-            launches, CARD))
+    log("%s validate and monitor: monitor utterance 0, card vs CPU: score "
+        "rel. err %.3g, masks, boundaries and components identical %s; "
+        "launches %s" % (name, err, same, launches))
     check(same and err <= SCORE_TOL,
           "%s: the monitor on the card differs from the CPU's" % name)
     for k in PATH_KERNELS[name]:
         check(launches[k] > 0, "kernel %s was not launched on the "
               "monitored %s path" % (k, name))
-    return launches, {"ms_off": off, "ms_on": on, "monitor_rel_err": err,
-                      "monitor_ms": hook_ms["_monitor_device"],
-                      "validate_ms": hook_ms["_validate_device"]}, seg
+    return launches, {"monitor_rel_err": err}, seg
 
 
 def poisoned_state(seg):
@@ -2508,13 +1961,8 @@ def run_auxiliary(n_utterances=1000):
     paths, out = {}, {"resume": {}}
     builders = aux_builders(n_utterances)
     for name, (build, sweep) in builders.items():
-        paths["resume_" + name], times = resume_path(name, build, sweep)
-        out["resume"][name] = dict(zip(("save_ms", "restore_ms", "bytes"),
-                                       times))
-    fl = out["resume"]["unigram_fixed"]
-    log("checkpoint at the flagship (unigram_fixed): save %.3f ms, restore "
-        "%.3f ms, %d bytes [%s]" % (fl["save_ms"], fl["restore_ms"],
-                                    fl["bytes"], CARD))
+        paths["resume_" + name], n_bytes = resume_path(name, build, sweep)
+        out["resume"][name] = {"bytes": n_bytes}
     monitored = {}
     for name in ("unigram_fixed", "bigram", "kmeans_wordseg"):
         paths["monitor_" + name], out[name], monitored[name] = \
@@ -2529,7 +1977,6 @@ def run_auxiliary(n_utterances=1000):
 P7_SWEEPS = 8        # (a), (b) Viterbi: sweeps held against the unsharded run
 P7_LONG = 137        # (b), (c): unigram_fixed to F1 (bench.py's 1 + 8 + 64 + 64)
 P7_SHORT = 4         # (c): the six other paths
-P7_TIMED = 4         # (d): sweeps with the collectives' clocks on
 P7_SUM_RTOL = 1e-5   # max |sum - rebuild| / max |rebuild|, sum_x and sum_sq
 P7_PATHS = ("unigram_fixed", "unigram_diag", "unigram_full", "bigram",
             "bigram_diag", "bigram_full", "kmeans_wordseg")
@@ -2558,7 +2005,7 @@ def p7_state(seg, per_shard):
 
 
 P7_SURFACE = ("unigram_fixed", "bigram", "kmeans_wordseg")
-P7_MONITOR = 3  # (e): the monitored utterance of the debug-only sweep
+P7_MONITOR = 3  # (d): the monitored utterance of the debug-only sweep
 
 
 def p7_interop_state(seg, per_shard):
@@ -2578,7 +2025,7 @@ def p7_interop_state(seg, per_shard):
 
 
 def p7_surface(mesh, path, n_utterances):
-    """Phase 7 (e), this rank's part: after ``use_shard_map_sweep``,
+    """Phase 7 (d), this rank's part: after ``use_shard_map_sweep``,
     ``gibbs_sample(2, monitor_i=0, validate=True)`` (``segment`` for
     k-means) with the monitor lines it logs, a debug-only sweep of
     utterance ``P7_MONITOR`` (the bigram driver has no such flag), then
@@ -2606,9 +2053,7 @@ def p7_surface(mesh, path, n_utterances):
     log_.addHandler(handler)
     log_.setLevel(logging.DEBUG)
     try:
-        t = time.perf_counter()
         rec = gibbs(2, monitor_i=0, validate=True)
-        ms = (time.perf_counter() - t) * 1e3 / 2
     finally:
         log_.removeHandler(handler)
         log_.setLevel(level)
@@ -2616,7 +2061,7 @@ def p7_surface(mesh, path, n_utterances):
             None if hasattr(seg, "lm") else "debug_gibbs_only")
     if flag is not None:
         gibbs(1, monitor_i=P7_MONITOR, **{flag: True})
-    out = {"records": rec, "ms_per_sweep": ms,
+    out = {"records": rec,
            "log": [ln for ln in lines if "monitor" in ln],
            "trace": tuple(t.cpu().numpy() for t in seg._monitor(P7_MONITOR)),
            "state": p7_interop_state(seg, True)}
@@ -2628,7 +2073,7 @@ def p7_surface(mesh, path, n_utterances):
 
 
 def p7_surface_check(two, n_utterances):
-    """Phase 7 (e), held: on both ranks the records finite and the same
+    """Phase 7 (d), held: on both ranks the records finite and the same
     four monitor lines; the trace and the batch scores the same on both
     ranks and, to ``SCORE_TOL``, what an unsharded segmenter on the card
     gives from the ranks' final state.  Returns the numbers."""
@@ -2641,36 +2086,35 @@ def p7_surface_check(two, n_utterances):
             rec = r["records"]
             vals = rec.get("log_marg", rec.get("sum_neg_sqrd_norm"))
             check(len(vals) == 2 and all(math.isfinite(v) for v in vals),
-                  "phase 7 (e) %s rank %d: records %s" % (path, rank, vals))
+                  "phase 7 (d) %s rank %d: records %s" % (path, rank, vals))
         check(len(r0["log"]) == 4 and r0["log"] == r1["log"],
-              "phase 7 (e) %s: the ranks logged different monitor lines"
+              "phase 7 (d) %s: the ranks logged different monitor lines"
               % path)
         check(all(np.array_equal(a, b) for a, b in zip(r0["trace"],
                                                        r1["trace"])),
-              "phase 7 (e) %s: the ranks' traces differ" % path)
+              "phase 7 (d) %s: the ranks' traces differ" % path)
         seg, _ = p7_build(path, DEVICE, n_utterances)
         load_state(seg, r0["state"])
         want = [t.cpu().numpy() for t in seg._monitor_device(P7_MONITOR)]
         errs = [score_err(r0["trace"][0], want[0])]
         check(all(np.array_equal(a, b) for a, b in zip(r0["trace"][1:],
                                                        want[1:])),
-              "phase 7 (e) %s: the trace's boundaries or components differ "
+              "phase 7 (d) %s: the trace's boundaries or components differ "
               "from the unsharded segmenter's" % path)
         if "scores" in r0:
             check(all(np.array_equal(a, b) for a, b in zip(r0["scores"],
                                                            r1["scores"])),
-                  "phase 7 (e) %s: the ranks' batch scores differ" % path)
+                  "phase 7 (d) %s: the ranks' batch scores differ" % path)
             full = (seg.get_vec_embed_log_probs_unigram_all
                     if hasattr(seg, "lm") else seg.get_vec_embed_log_probs_all)()
             check(len(full) == len(r0["scores"]) == n_utterances,
-                  "phase 7 (e) %s: %d batch scores" % (path,
+                  "phase 7 (d) %s: %d batch scores" % (path,
                                                        len(r0["scores"])))
             errs += [score_err(a, b) for a, b in zip(r0["scores"], full)]
         err = max(errs)
-        check(err <= SCORE_TOL, "phase 7 (e) %s: the per-shard surface is "
+        check(err <= SCORE_TOL, "phase 7 (d) %s: the per-shard surface is "
               "%.3g off the unsharded segmenter's" % (path, err))
-        out[path] = {"ms_per_sweep": r0["ms_per_sweep"],
-                     "max_rel_err_vs_unsharded": err}
+        out[path] = {"max_rel_err_vs_unsharded": err}
     return out
 
 
@@ -2688,77 +2132,39 @@ def score_err(got, want):
 
 
 def p7_run(mesh, path, mode, sweeps, n_utterances, fb_type=None,
-           check_each=False, timed=0, snap_after=None):
+           check_each=False, snap_after=None):
     """This rank's part of ``sweeps`` sweeps of ``path`` on ``mesh``, in
-    the exact mode or the per-shard one ("exact" / "per_shard"), each
-    sweep timed on the host clock between synchronisations; the kernels'
-    launches over those sweeps; with ``check_each``, after every sweep
-    the statistics against their rebuild, the LM tables against the
+    the exact mode or the per-shard one ("exact" / "per_shard"); the
+    kernels' launches over those sweeps; with ``check_each``, after every
+    sweep the statistics against their rebuild, the LM tables against the
     recount and every rank's state digest; the state after sweep
-    ``snap_after`` and at the end.  Then ``timed`` more sweeps with the
-    collectives' clocks on (each collective between two synchronisations):
-    collectives, bytes put in and collective ms a block step."""
-    import torch
+    ``snap_after`` and at the end."""
     from segmentalist_torch.parallel.dryrun import (consistency, mesh_device,
                                                     sweep_once)
     from segmentalist_torch.parallel.mesh import (gather_digests,
                                                   shard_segmenter)
     from segmentalist_torch.parallel.shard_sweep import use_shard_map_sweep
 
-    dev = mesh_device(mesh)
-
-    def sync_dev():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    seg, _ = p7_build(path, dev, n_utterances)
+    seg, _ = p7_build(path, mesh_device(mesh), n_utterances)
     if fb_type is not None:
         seg.set_fb_type(fb_type)
     shard_segmenter(seg, mesh)
     per_shard = mode == "per_shard"
     if per_shard:
         use_shard_map_sweep(seg, mesh)
-    sh = seg._shard
-    steps = [0]
-    step = seg.block_step
-
-    def counted(*args, **kwargs):
-        steps[0] += 1
-        return step(*args, **kwargs)
-
-    seg.block_step = counted
-    out = {"ms": [], "log": [], "checks": [], "snap": None}
+    out = {"log": [], "checks": [], "snap": None}
     reset_launches()
     for i in range(sweeps):
-        sync_dev()
-        t = time.perf_counter()
         rec = sweep_once(seg)
-        sync_dev()
-        out["ms"].append((time.perf_counter() - t) * 1e3)
         out["log"].append(rec.get("log_marg", rec.get("sum_neg_sqrd_norm"))[0])
         if check_each:
             c = consistency(seg)
-            c["same_state"] = len(set(gather_digests(seg, sh))) == 1
+            c["same_state"] = len(set(gather_digests(seg, seg._shard))) == 1
             out["checks"].append(c)
         if snap_after == i + 1:
             out["snap"] = p7_state(seg, per_shard)
     out["launches"] = read_launches()
     out.update(p7_state(seg, per_shard))
-    if timed:
-        sh.timed, sh.seconds, sh.bytes, sh.calls = True, 0.0, 0, 0
-        steps[0] = 0
-        sync_dev()
-        t = time.perf_counter()
-        for _ in range(timed):
-            sweep_once(seg)
-        sync_dev()
-        n = steps[0]
-        out["timed"] = {
-            "timed_ms_per_sweep": (time.perf_counter() - t) * 1e3 / timed,
-            "blocks_per_sweep": n / timed,
-            "collectives_per_block": sh.calls / n,
-            "bytes_per_block": sh.bytes / n,
-            "collective_ms_per_block": sh.seconds * 1e3 / n}
     return out
 
 
@@ -2766,12 +2172,12 @@ def p7_one_rank(mesh, n_utterances):
     """Phase 7 (a): unigram_fixed on one rank, the exact mode and then the
     per-shard one."""
     return {mode: p7_run(mesh, "unigram_fixed", mode, P7_SWEEPS,
-                         n_utterances, timed=P7_TIMED)
+                         n_utterances)
             for mode in ("exact", "per_shard")}
 
 
 def p7_two_ranks(mesh, n_utterances, long_sweeps):
-    """Phase 7 (b), (c) and (e) on two ranks: the exact mode in Viterbi
+    """Phase 7 (b), (c) and (d) on two ranks: the exact mode in Viterbi
     and in sampling (``long_sweeps`` sweeps), then the per-shard mode on
     every path (unigram_fixed for ``long_sweeps``, the others
     ``P7_SHORT``), then what reads the corpus in the per-shard mode
@@ -2779,12 +2185,11 @@ def p7_two_ranks(mesh, n_utterances, long_sweeps):
     out = {"viterbi": p7_run(mesh, "unigram_fixed", "exact", P7_SWEEPS,
                              n_utterances, fb_type="viterbi"),
            "exact": p7_run(mesh, "unigram_fixed", "exact", long_sweeps,
-                           n_utterances, timed=P7_TIMED, snap_after=1)}
+                           n_utterances, snap_after=1)}
     for path in P7_PATHS:
         out[path] = p7_run(mesh, path, "per_shard",
                            long_sweeps if path == "unigram_fixed"
-                           else P7_SHORT, n_utterances, check_each=True,
-                           timed=P7_TIMED)
+                           else P7_SHORT, n_utterances, check_each=True)
     out["surface"] = {path: p7_surface(mesh, path, n_utterances)
                       for path in P7_SURFACE}
     return out
@@ -2810,18 +2215,14 @@ def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
     sweeps, to ``F1_MIN``; the others ``P7_SHORT``): after every sweep the
     statistics equal their rebuild (counts exactly, sums to
     ``P7_SUM_RTOL``), the LM tables the recount, the ranks' states the
-    same bits, and each path's kernels launched on each rank.  (d) ms a
-    sweep of each mode at one and two ranks beside the unsharded run, and
-    the collectives' count, bytes and ms a block step, recorded and not
-    gated (two ranks on one card share its SMs: what the layer costs, not
-    how it scales).  (e) Two ranks, the per-shard mode's monitor,
+    same bits, and each path's kernels launched on each rank.  (d) Two
+    ranks, the per-shard mode's monitor,
     validate, debug-only sweeps and batch scores on unigram_fixed, bigram
     and kmeans_wordseg (:func:`p7_surface_check`).  Returns each rank's
     launches by path and the phase's numbers."""
     from segmentalist_torch.parallel.dryrun import launch
     from segmentalist_torch.utils.synth import boundary_f_score
 
-    t0 = time.time()
     seg, truth = p7_build("unigram_fixed", DEVICE, n_utterances)
     labels = seg.ids_to_utterance_labels
 
@@ -2829,13 +2230,9 @@ def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
         return boundary_f_score({u: boundaries[i]
                                  for i, u in enumerate(labels)}, truth)[2]
 
-    ref, ms = {}, []
-    for _ in range(P7_SWEEPS):  # the unsharded run on the card
-        sync()
-        t = time.perf_counter()
+    ref = {}
+    for _ in range(P7_SWEEPS):  # the unsharded run on the card, a sweep a call
         seg.gibbs_sample(1)
-        sync()
-        ms.append((time.perf_counter() - t) * 1e3)
     ref["last"] = p7_state(seg, False)
     # two ranks round the batch up to a multiple of 2 (125 -> 126): the
     # unsharded runs that (b) is held to take that batch too
@@ -2851,10 +2248,7 @@ def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
                  device="cpu" if cpu else "cuda", timeout=300.0)[0]
     two = launch(p7_two_ranks, 2, args=(n_utterances, long_sweeps),
                  device="cpu" if cpu else "cuda:0", timeout=600.0)
-    paths, out = {}, {"card": CARD, "unsharded_ms_per_sweep":
-                      float(np.mean(ms[1:])), "one_rank": {},
-                      "two_ranks": {}}
-    kern = PATH_KERNELS["unigram_fixed"]
+    paths, out = {}, {"two_ranks": {}}
 
     def launched(name, res, path):
         ks = PATH_KERNELS[path]
@@ -2870,8 +2264,6 @@ def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
               "phase 7 (a): one rank, %s mode, differs from the unsharded "
               "run: agreement %s" % (mode, p7_agree(r, ref["last"])))
         launched("p7_a_%s" % mode, r, "unigram_fixed")
-        out["one_rank"][mode] = {"ms_per_sweep": float(np.mean(r["ms"][1:])),
-                                 **r["timed"]}
     for rank, res in enumerate(two):  # (b)
         for what, got, want in (("viterbi", res["viterbi"], ref["viterbi"]),
                                 ("first sweep", res["exact"]["snap"],
@@ -2891,9 +2283,6 @@ def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
     check(all(np.array_equal(two[0]["exact"][k], two[1]["exact"][k])
               for k in ("assignments", "boundaries")),
           "phase 7 (b): the two ranks' final states differ")
-    out["two_ranks"]["exact"] = {
-        "ms_per_sweep": float(np.mean(two[0]["exact"]["ms"][1:])),
-        **two[0]["exact"]["timed"]}
     per_path = {}
     for path in P7_PATHS:  # (c)
         for rank, res in enumerate(two):
@@ -2908,19 +2297,17 @@ def run_multichip(n_utterances=1000, long_sweeps=P7_LONG):
             launched("p7_c_%s_rank%d" % (path, rank), r, path)
         r = two[0][path]
         per_path[path] = {
-            "sweeps": len(r["ms"]), "ms_per_sweep": float(np.mean(r["ms"][1:])),
+            "sweeps": len(r["log"]),
             "max_sum_rel_err": max(c["sum_rel_err"] for c in r["checks"]),
             "log_first": r["log"][0], "log_last": r["log"][-1]}
-        per_path[path].update(r["timed"])
         if path == "unigram_fixed":
             f = f1(r["boundaries"])
             check(f >= F1_MIN, "phase 7 (c) unigram_fixed: F1 %.4f < %.2f "
                   "after %d sweeps" % (f, F1_MIN, long_sweeps))
             per_path[path]["f1"] = f
     out["two_ranks"]["per_shard"] = per_path
-    out["two_ranks"]["surface"] = p7_surface_check(two, n_utterances)  # (e)
-    log("phase 7 (multi-device) in %.1f s [%s]: %s"
-        % (time.time() - t0, CARD, json.dumps(out)))
+    out["two_ranks"]["surface"] = p7_surface_check(two, n_utterances)  # (d)
+    log("phase 7 (multi-device): %s" % json.dumps(out))
     return paths, out
 
 
@@ -2976,8 +2363,8 @@ def p8_cases() -> dict:
 
 def p8_case(job):
     """Phase 8's worker: run the case ``job = (name, device)``; returns
-    (name, its summary with the launches of its kernels in this process,
-    the failed check's message or None)."""
+    (name, its summary with the launches of its kernels in this process
+    and without its seconds, the failed check's message or None)."""
     import torch
 
     from segmentalist_torch.utils.profiling import launch_counts
@@ -2992,6 +2379,7 @@ def p8_case(job):
     if device == "cuda":
         torch.cuda.synchronize()
     after = launch_counts()
+    res.pop("seconds", None)
     res["launches"] = {k: after[c] - before[c]
                        for k, c in P8_KERNELS[name].items()}
     return name, res, None
@@ -3008,7 +2396,7 @@ def run_oracles(workers=P8_WORKERS):
     ``workers`` spawned processes (each builds nothing: the parent has
     built the kernels).  Each case must hold its bound and launch each of
     its kernels (:data:`P8_KERNELS`).  Returns (each kernel's launches in
-    the phase, each case's total variation, bound, trials, seconds and
+    the phase, each case's total variation, bound, trials and
     launches)."""
     import multiprocessing
 
@@ -3016,7 +2404,6 @@ def run_oracles(workers=P8_WORKERS):
     check(set(cases) == set(P8_KERNELS),
           "phase 8's cases %s, kernels listed for %s"
           % (sorted(cases), sorted(P8_KERNELS)))
-    t0 = time.time()
     out, launches = {}, {}
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
         for name, res, err in pool.imap_unordered(
@@ -3028,13 +2415,9 @@ def run_oracles(workers=P8_WORKERS):
             out[name] = res
             for k, n in res["launches"].items():
                 launches[k] = launches.get(k, 0) + n
-    seconds = time.time() - t0
-    log("phase 8: %d oracle cases in %.1f s on %d processes"
-        % (len(out), seconds, workers))
+    log("phase 8: %d oracle cases on %d processes" % (len(out), workers))
     return launches, {"cases": {name: out[name] for name in cases},
-                      "seconds": seconds, "workers": workers, "card": CARD}
-
-
+                      "workers": workers}
 
 # ------------------------------------------------------------- phase 9
 
@@ -3090,7 +2473,6 @@ def p9_path(name, corpus, sweeps, kind="gibbs", family="fixed",
     from segmentalist_torch.utils.synth import boundary_f_score
 
     kernels = PATH_KERNELS[name.rsplit("_", 1)[0]]
-    t0 = time.time()
     reset_launches()
     if kind == "kmeans":
         seg, truth = bench_kmeans_segmenter(device=DEVICE, corpus=corpus)
@@ -3098,8 +2480,6 @@ def p9_path(name, corpus, sweeps, kind="gibbs", family="fixed",
         kw = {"init_am_assignments": "one-by-one"} if kind == "am" else {}
         seg, truth = bench_segmenter(family, bigram, device=DEVICE,
                                      corpus=corpus, **kw)
-    sync()
-    setup_s = time.time() - t0
     init, forms = read_launches(), read_forms()
 
     def f1():
@@ -3115,7 +2495,7 @@ def p9_path(name, corpus, sweeps, kind="gibbs", family="fixed",
         return c["sum_rel_err"]
 
     out = {"candidate_spans": int((seg.utterances.seg_ids >= 0).sum()),
-           "setup_s": setup_s, "f1_0": f1()}
+           "f1_0": f1()}
     if kind == "am":
         item = kernels[-1]
         check(init[item] == 1, "%s: the one-by-one init ran %d %s launches"
@@ -3124,18 +2504,14 @@ def p9_path(name, corpus, sweeps, kind="gibbs", family="fixed",
                                   .sum()), sum_rel_err=[consistent(
                                       "after the init")])
     reset_launches()
-    records, ms = [], []
+    records = []
     for i, n in enumerate(sweeps):
-        sync()
-        t = time.time()
         if kind == "kmeans":
             records.append(seg.segment(n))
         elif kind == "am":
             records.append(seg.gibbs_sample(n, am_n_iter=1))
         else:
             records.append(seg.gibbs_sample(n))
-        sync()
-        ms.append((time.time() - t) / n * 1e3)
         if kind == "am":
             out["sum_rel_err"].append(consistent("after sweep %d" % (i + 1)))
     launches = read_launches()
@@ -3146,11 +2522,10 @@ def p9_path(name, corpus, sweeps, kind="gibbs", family="fixed",
         launches[kernels[-1]] += 1  # the init's
     key = "sum_neg_len_sqrd_norm" if kind == "kmeans" else "log_marg"
     trace = [v for r in records for v in r[key]]
-    out.update(sweeps=len(trace), ms_per_sweep=ms,
-               best_ms_per_sweep=min(ms[2:] or ms), f1=f1(),
-               first=trace[0], last=trace[-1], record=key,
-               launches={k: launches[k] for k in kernels}, forms=forms)
-    log("%s: %s [%s]" % (name, json.dumps(out), CARD))
+    out.update(sweeps=len(trace), f1=f1(), first=trace[0], last=trace[-1],
+               record=key, launches={k: launches[k] for k in kernels},
+               forms=forms)
+    log("%s: %s" % (name, json.dumps(out)))
     check(len(trace) == sum(sweeps), "%s: expected %d sweeps"
           % (name, sum(sweeps)))
     check(all(math.isfinite(v) for v in trace), "%s: non-finite %s"
@@ -3215,7 +2590,6 @@ def run_paper_shapes(n_utterances=1000):
     (each path's kernel launches, the phase's summary)."""
     from segmentalist_torch.utils.profiling import bench_corpus
 
-    t0 = time.time()
     paths = {}
     corpus = bench_corpus(n_utterances, n_landmarks_max=120)
     paths["unigram_fixed_long"] = p9_path(
@@ -3239,23 +2613,19 @@ def run_paper_shapes(n_utterances=1000):
         paths[name] = out
     del corpus
     block_forms = p9_block_steps()
-    seconds = time.time() - t0
-    log("phase 9: %d paths and the card-vs-CPU steps in %.1f s"
-        % (len(paths), seconds))
     return ({name: p["launches"] for name, p in paths.items()},
-            {"paths": paths, "block_steps_forms": block_forms,
-             "seconds": seconds, "card": CARD})
+            {"paths": paths, "block_steps_forms": block_forms})
 
 
 def parse_args(argv):
     import argparse
 
     ap = argparse.ArgumentParser(
-        description="Drive the PyTorch port on one CUDA card.")
+        description="Check the PyTorch port on one CUDA card.")
     ap.add_argument("--only", default=None,
-                    help="comma-separated kernels (e.g. K6,K7): run phases "
-                    "1-3 for these only and print their kernels line, with "
-                    "no result line")
+                    help="comma-separated kernels (e.g. K6,K7): check the "
+                    "named kernels alone (phases 1-3) and print their "
+                    "kernels line, with no result line")
     return ap.parse_args(argv)
 
 
@@ -3273,19 +2643,14 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    global CARD
-    CARD = smi.stdout.strip().splitlines()[0]
-    log(CARD)
+    log(smi.stdout.strip().splitlines()[0])
     log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                    torch.cuda.get_device_name(0)))
     resolve_device("cuda")
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
 
-    t0 = time.time()
     cuda_lib.library()
-    log("kernel library built/loaded in %.1f s (nvcc %s s)"
-        % (time.time() - t0, cuda_lib.build_seconds))
 
     compare = {"K1": compare_score, "K2": compare_dp, "K3": compare_chain,
                "K4": compare_bigram_chain, "K5": compare_diag_score,
@@ -3366,68 +2731,28 @@ def main(argv=None) -> int:
             "name": fn, "route": "cuda", "source": src, "replaces": tpu,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(fl["max_abs_err"], lo["max_abs_err"]),
-            "ms": fl["ms"], "plain_ms": fl["plain_ms"],
-            "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-            # no single PyTorch call computes any of these functions
-            "library_ms": None,
-            "device_ms": fl["device_ms"],
-            "long_ms": lo["ms"], "long_plain_ms": lo["plain_ms"],
-            "long_bound_ms": lo["bound_ms"],
-            "long_device_ms": lo["device_ms"],
         }
-        if "unfused_ms" in fl:  # K2: the unfused stage, the launch's
-            # device time a step; the W = N_max shape
-            wd = results[("K2", "wide")]
-            entry.update({pre + k: r[k] for pre, r in (
-                ("", fl), ("long_", lo), ("wide_", wd)) for k in (
-                    "launch_us_a_step", "unfused_ms", "unfused_device_ms",
-                    "unfused_kernels")})
-            entry.update({"wide_" + k: wd[k] for k in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "max_abs_err")})
-            entry.update(paths={"kmeans_wordseg": kmeans})
-        if "exact_ms" in fl:  # K5's exact composition (diag Viterbi)
-            entry.update({pre + k: r["exact_" + k] for pre, r in (
-                ("exact_", fl), ("exact_long_", lo)) for k in (
-                    "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")})
-        if "bigram_ms" in fl:  # K9's bigram mode and streamed-table bound
-            entry.update({pre + k: r[k] for pre, r in (("", fl),
-                                                       ("long_", lo))
-                          for k in ("bigram_ms", "bigram_device_ms",
-                                    "stream_bound_ms", "slot_steps")})
-        if "plan" in fl:  # K1, K5, K8, K9: the launch plan at each shape
-            entry.update(plan=fl["plan"], long_plan=lo["plan"])
+        # the launch plan (K1, K5, K8 - K11), the form and the longest
+        # chain (K3, K4, K6, K7, K10, K11) at each shape
+        for f in ("plan", "form", "steps_max"):
+            if f in fl:
+                entry.update({f: fl[f], "long_" + f: lo[f]})
+        if k == "K2":  # the W = N_max shape; k-means' path
+            entry.update(wide_max_abs_err=results[("K2", "wide")][
+                "max_abs_err"], paths={"kmeans_wordseg": kmeans})
         if "f64_rel_err" in fl:  # K8 and the expanded form vs float64
             entry.update({pre + k: r[k] for pre, r in (("", fl),
                                                        ("long_", lo))
                           for k in ("f64_rel_err", "expanded32_rel_err")})
-        if "us_per_step" in fl:  # K3, K4, K6, K7: form, longest chain
-            entry.update({pre + k: r[k] for pre, r in (("", fl),
-                                                       ("long_", lo))
-                          for k in ("form", "steps_max", "us_per_step")})
-            if "stream_bound_ms" in lo:  # the global form's table traffic
-                entry.update(long_stream_bound_ms=lo["stream_bound_ms"],
-                             long_col_steps=lo["col_steps"])
-        if k == "K10":  # the exact diag policy, the plain version's prefix,
-            # the plans and a step at every cluster size, and the FBGMM
-            # paths' times
+        if k == "K10":  # the exact diag policy, the cluster sizes held, the
+            # FBGMM paths
             entry.update({pre + "diag_" + f: r["diag_" + f] for pre, r in (
-                ("", fl), ("long_", lo)) for f in (
-                    "ms", "device_ms", "us_per_step", "plain_ms", "bound_ms",
-                    "bound_by", "form", "plan", "clusters")})
+                ("", fl), ("long_", lo)) for f in ("form", "plan",
+                                                   "clusters")})
             entry.update(clusters=fl["clusters"], long_clusters=lo["clusters"],
-                         plain_items=fl["plain_items"], paths=fbgmm)
-        if k == "K11":  # plans, a step's time, the plain version's
-            # prefix, the flagship at every cluster size
-            entry.update({pre + f: r[f] for pre, r in (("", fl),
-                                                       ("long_", lo))
-                          for f in ("form", "plan", "us_per_step",
-                                    "ms_per_item", "plain_us_per_step",
-                                    "plain_items")})
+                         paths=fbgmm)
+        if k == "K11":  # the flagship's plan at every cluster size
             entry["clusters"] = fl["clusters"]
-            entry["full_sequential_ms_per_item"] = {
-                "flagship_launch": fl["ms_per_item"],
-                "fbgmm_toy": fbgmm["fbgmm_toy"][
-                    "full_sequential_ms_per_item"]}
         entry["forms_by_path"] = {
             p: v["forms"][k] for p, v in papers["paths"].items()
             if k in v["forms"]}

@@ -39,11 +39,6 @@ class BigramLMState(NamedTuple):
 _K_MAX_LM = min(1 << 20, 46340)
 _PAIR_KEY_BITS = 20  # component ids < 2^20; positions < 2^11 (int32 safe)
 
-# count-table cells the dense deltas of :func:`block_count_delta` wrote
-# (K^2 + K a call), summed over its calls in this process (readers take
-# differences); counted on the host, with no read of the device
-delta_cells = 0
-
 
 def empty_lm_state(K: int, device=None) -> BigramLMState:
     if K > _K_MAX_LM:
@@ -166,8 +161,6 @@ def block_count_delta(old_ks: torch.Tensor, new_ks: torch.Tensor,
     """Signed LM count delta of a block swap (remove ``old_ks``, add
     ``new_ks``, both [B, S], in the rows where ``valid`` [B] holds).
     ``pairs_old`` reuses the caller's ``transcript_pairs_batch(old_ks)``."""
-    global delta_cells
-    delta_cells += K * K + K
     if pairs_old is None:
         pairs_old = transcript_pairs_batch(old_ks)
     pj_n, pi_n = transcript_pairs_batch(new_ks)

@@ -25,7 +25,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 
 import torch
 
@@ -154,7 +153,6 @@ _RESTYPES = {"diag_family_smem_bytes": ctypes.c_longlong,
              "fullcov_scores_smem_bytes": ctypes.c_longlong,
              "segment_dp_smem_bytes": ctypes.c_longlong}
 
-build_seconds = None  # wall time of the last nvcc build in this process
 # each kernel's launches by the form its launch plan chose, since the last
 # reset (``form_launches.clear()``): {"K3": {"global": 8}, ...}; the
 # wrappers' own counters count the launches, this says which form ran them
@@ -184,7 +182,6 @@ def sources():
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
-    global build_seconds
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources():
         with open(path, "rb") as f:
@@ -193,12 +190,10 @@ def library() -> ctypes.CDLL:
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = "%s.%d.tmp" % (so, os.getpid())
-        t0 = time.time()
         objs = _compile_all(tmp)
         _run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
         for o in objs:
             os.remove(o)
-        build_seconds = time.time() - t0
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():

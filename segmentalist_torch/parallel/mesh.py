@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -85,10 +84,7 @@ class Shard:
 
     gloo moves CPU tensors only; a CUDA tensor on a gloo group (ranks that
     share one card) is staged through host memory here, explicitly, and
-    the kernels still run on the card.  With ``timed`` set, every
-    collective synchronises the device before and after and adds its host
-    time to ``seconds``; ``bytes`` counts what this rank puts in, and
-    ``calls`` the collectives."""
+    the kernels still run on the card."""
 
     def __init__(self, mesh, device: torch.device):
         self.group = mesh.get_group()
@@ -101,49 +97,24 @@ class Shard:
         self.gen = None      # per-shard mode: the rank's block-noise generator
         self.updates = []    # per-shard mode: this sweep's assignment updates
         self.u_local = None  # per-shard mode: the utterance rows a rank owns
-        self.timed = False
-        self.seconds = 0.0
-        self.bytes = 0
-        self.calls = 0
 
     # --------------------------------------------------------- collectives
 
-    def _begin(self, t: torch.Tensor):
-        self.calls += 1
-        self.bytes += t.numel() * t.element_size()
-        if not self.timed:
-            return None
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def _end(self, t0):
-        if t0 is not None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.seconds += time.perf_counter() - t0
-
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """[size, *t.shape]: every rank's ``t``, in rank order."""
-        t0 = self._begin(t)
         src = t.cpu() if self._stage else t.contiguous()
         out = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(out, src, group=self.group)
-        res = torch.stack(out).to(t.device)
-        self._end(t0)
-        return res
+        return torch.stack(out).to(t.device)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's integer ``t`` (exact in any order)."""
         if t.is_floating_point():
             raise TypeError("float sums go through sum_ranks")
-        t0 = self._begin(t)
         buf = (t.cpu() if self._stage else t).clone(
             memory_format=torch.contiguous_format)
         dist.all_reduce(buf, group=self.group)
-        res = buf.to(t.device)
-        self._end(t0)
-        return res
+        return buf.to(t.device)
 
     def sum_ranks(self, tensors) -> list:
         """Each tensor of ``tensors`` summed over the ranks, the same bits
@@ -181,12 +152,10 @@ class Shard:
                 continue
             dtype = tensors[ids[0]].dtype if floating else torch.int32
             flat = torch.cat([tensors[i].reshape(-1).to(dtype) for i in ids])
-            t0 = self._begin(flat)
             buf = flat.cpu() if self._stage else flat
             dist.broadcast(buf, src=dist.get_global_rank(self.group, src),
                            group=self.group)
             buf = buf.to(flat.device)
-            self._end(t0)
             for i, piece in zip(ids, buf.split(
                     [tensors[i].numel() for i in ids])):
                 out[i] = piece.reshape(tensors[i].shape).to(tensors[i].dtype)

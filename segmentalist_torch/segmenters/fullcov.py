@@ -40,11 +40,6 @@ from ..utils.tracing import blocking
 
 _LOG_PI = math.log(math.pi)
 
-# slots :func:`touched_leave_out` derived (live) and slots of its tables
-# (B * S), summed over its calls in this process (readers take differences)
-touched_slots_live = 0
-touched_slots_table = 0
-
 
 def n_to_sv(k_0, v_0, D: int, n, dtype):
     """Predictive scalars of a member count ``n``: ``s = (k_n + 1) / (k_n
@@ -108,7 +103,6 @@ def touched_leave_out(prior, stats: SuffStats, X: torch.Tensor,
     in the packed lanes and unpacked once; the host reads their number once
     (``seg.sync.touched_live``).  ``rows`` [B, S, D] supplies the old
     segments' vectors directly."""
-    global touched_slots_live, touched_slots_table
     B, S = old_ks.shape
     D = X.shape[-1]
     valid = (old_embeds >= 0) & (old_ks >= 0)
@@ -121,8 +115,6 @@ def touched_leave_out(prior, stats: SuffStats, X: torch.Tensor,
     with blocking("touched_live"):  # nonzero waits for the live count
         slots = (tk.reshape(-1) >= 0).nonzero().squeeze(1)
     n = slots.numel()
-    touched_slots_live += n
-    touched_slots_table += B * S
 
     x_old = X[old_embeds.clamp_min(0).long()] if rows is None else rows
     x_old = torch.where(valid[..., None], x_old, 0.0)

@@ -3,8 +3,7 @@
 A span is a ``torch.profiler.record_function`` range: a host event of the
 profile's Kineto trace, on the same timeline as the CUPTI device events.
 A kernel therefore belongs to the innermost span open when its launch was
-made (launch correlation, as ``utils/profiling.py`` :func:`span_events`
-reads it), and an idle gap of the device opens inside the span the host
+made (launch correlation, as ``perfbench/trace.py`` reads it), and an idle gap of the device opens inside the span the host
 was in.
 
 Spans exist exactly while a ``torch.profiler.profile`` records: with none,

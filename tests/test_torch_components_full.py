@@ -403,14 +403,3 @@ def test_kernels_on_live_slot_tables_match_all_slot_tables(case, D):
               for x in (t, ref)]
         assert (ks[0][new >= 0] >= 0).all()
         assert torch.equal(*ks)
-
-
-def test_touched_slot_counters_count_live_and_table_slots():
-    """``touched_slots_live`` rises by the live slots derived (distinct
-    components of the real old segments, 3 + 3 + 5 + 1) and
-    ``touched_slots_table`` by B * S."""
-    X, prior, stats, old_embeds, old_ks = _live_case("duplicate", 4)
-    live0, table0 = tfull.touched_slots_live, tfull.touched_slots_table
-    tfull.touched_leave_out(prior, stats, X, old_embeds, old_ks)
-    assert tfull.touched_slots_live - live0 == 12
-    assert tfull.touched_slots_table - table0 == 4 * 5

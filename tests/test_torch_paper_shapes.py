@@ -17,9 +17,7 @@ on shared noise (the noise the JAX block steps draw from their keys, as
 - the kernels' pure-Python launch plans, at the shapes the segmenters
   hand them at D 130 with K 1000 and at N_max 120 (recorded from the plain
   versions the CPU runs), choose the forms ``chip_smoke.py`` phase 9
-  demands of the card (``chip_smoke.D130_FORMS``);
-- ``utils/profiling.py``'s ``--D`` and ``--n-landmarks-max`` reach the
-  bench segmenter it builds.
+  demands of the card (``chip_smoke.D130_FORMS``).
 """
 
 import os
@@ -419,29 +417,3 @@ def test_segmenter_shapes_choose_the_phase9_forms(path, family, bigram,
             "K9": "stream ring 2" + (" bigram" if bigram else "")}
     for k in set(want) & set(forms):
         assert forms[k] == {want[k]}, (k, forms[k])
-
-
-@pytest.mark.parametrize("argv,builder,shape", [
-    (["--cov", "full", "--D", "130"], "bench_segmenter",
-     dict(D=130, n_landmarks_max=20)),
-    (["--kmeans", "--n-landmarks-max", "120"], "bench_kmeans_segmenter",
-     dict(D=13, n_landmarks_max=120)),
-])
-def test_profiling_cli_builds_the_papers_shapes(argv, builder, shape,
-                                                monkeypatch):
-    """``python -m segmentalist_torch.utils.profiling`` hands ``--D`` and
-    ``--n-landmarks-max`` to the bench segmenter it profiles (the card's
-    part is stopped before it starts)."""
-    from segmentalist_torch.utils import profiling
-
-    class Built(Exception):
-        pass
-
-    def build(*args, **kwargs):
-        raise Built(kwargs)
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(profiling, builder, build)
-    with pytest.raises(Built) as got:
-        profiling.main(argv)
-    assert got.value.args[0] == shape

@@ -184,13 +184,3 @@ def test_a_bigram_sweep_opens_the_lm_spans_inside_their_stages():
         _sweep(_segmenter("unigram_fixed"))
     assert not [t for t in _span_tree(prof.events())
                 if t[0].startswith("seg.lm.")]
-
-
-def test_the_lm_delta_counter_rises_by_its_dense_cells_a_block():
-    from segmentalist_torch.models import bigram_lm
-
-    seg = _segmenter("bigram")
-    K = seg.lm.K
-    before = bigram_lm.delta_cells
-    _sweep(seg)
-    assert bigram_lm.delta_cells - before == -(-N_UTT // BATCH) * (K * K + K)

@@ -11,7 +11,7 @@ check that does not hold:
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 must be off;
 2. build: compile the hand-written kernels from ``segmentalist_torch/csrc``;
-3. each kernel (K1-K11, both compositions of K5, both modes of K9) against
+3. each kernel (K1-K12, both compositions of K5, both modes of K9) against
    its plain PyTorch version on the card, in float32, at the flagship
    shapes (B=125, N_max=20, W=6, K=1000, D=13) and a long/wide case
    (N_max=120, D=130); K8 and the reference's expanded Mahalanobis form in
@@ -34,6 +34,11 @@ check that does not hold:
    plain version, and at the flagship at every cluster size the card
    schedules (1 to 16 CTAs), with its plan (C, threads, form, shared
    bytes a CTA);
+   K12, the merge kernel of a block's statistics, at D 130 with the
+   flagship's and the long shape's blocks (B 125, K 1000, S 20 and 120),
+   in the [K, D] and the [K, D, D] form on ``tests/merge_cases.py``'s
+   edge cases: one launch a merge, identical to its plain version, and
+   the one-hot composition it replaces within ``MERGE_RTOL``;
 4. small-input references: the reference-pinned candidate scores of the
    one-utterance toy corpus, and block steps on the card against the same
    block steps on the CPU (plain versions) on shared noise, for the
@@ -49,7 +54,10 @@ check that does not hold:
    components (K1, K2, K3 / K4), diagonal-covariance components (K5, K2,
    K6 / K7) and full-covariance components (K8, K2, K9; the JAX package's
    `bench.py` unigram_full and `benchmarks/all_models.py` rows); for each,
-   every kernel's launch count in that run, log_marg and boundary F1.
+   every kernel's launch count in that run, log_marg and boundary F1;
+   K12 launched once a block step where the merge is eager (all but
+   unigram_fixed, whose merge replays a CUDA graph and launches the
+   kernel only where it runs eagerly or captures).
    Then the FBGMM's own sampler (K10): the notebook toy of
    `bench.py:455-479` for 100 sweeps in each mode (purity >= 0.95) and 3
    full-family sequential sweeps on its points (K11), the FBGMM alone on
@@ -176,6 +184,9 @@ ITEMS = {"flagship": dict(N=6149, K=1000, D=13),
 K10_SHAPES = {"flagship": ("toy", "flagship", "spans"), "long": ("long",)}
 PURITY_MIN = 0.95       # the FBGMM toy (tests/test_fbgmm.py asks 0.95)
 SCORE_TOL = 1e-4        # |kernel - plain| <= SCORE_TOL * max(1, |plain|)
+MERGE_D = 130           # K12's width at both shapes (the benchmark's)
+MERGE_RTOL = 1e-6       # K12 against the one-hot composition, of the
+                        # table's largest value (cuBLAS sums in another order)
 LP_TOL = 1e-6           # K2's log_prob: the plain version's card sum has no
                         # fixed order
 AGREE_MIN = 0.999       # share of identical boundaries / assignments
@@ -1160,6 +1171,56 @@ def compare_full_item_chain(shape, name):
 
 # ------------------------------------------------------------- phase 4
 
+def compare_merge(shape, name):
+    """K12 at ``MERGE_D`` with the shape's B, K and N_max segments a row,
+    in the [K, D] (fixed, diag) and the [K, D, D] (full) form, on
+    ``tests/merge_cases.py``'s edge cases (padding, -1 ids, a component
+    the block empties, one it creates, one with more members than a staged
+    chunk): one launch a merge, identical to the plain version on the
+    card, counts equal to the one-hot composition's and the sums within
+    ``MERGE_RTOL`` of the table's largest value, the full second moments
+    symmetric."""
+    import torch
+    from segmentalist_torch.ops import cuda_merge
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from merge_cases import merge_case, one_hot_merge
+
+    out = dict(max_abs_err=0.0, one_hot_rel_err={})
+    for family in ("fixed", "full"):
+        what = "K12 %s %s" % (name, family)
+        stats, valid, old, new = merge_case(
+            family, shape["B"], shape["N_max"], MERGE_D, K=shape["K"],
+            seed=1, device=DEVICE)
+        before = cuda_merge.launches
+        got = cuda_merge.merge_stats(stats, valid, old, new)
+        check(cuda_merge.launches == before + 1, "%s: %d launches for one "
+              "merge" % (what, cuda_merge.launches - before))
+        want = cuda_merge.merge_stats_plain(stats, valid, old, new)
+        hot = one_hot_merge(stats, valid, old, new)
+        sync()
+        err = max((g.double() - w.double()).abs().max().item()
+                  for g, w in zip(got, want))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "%s: differs from the plain version (max|d| %.3g)"
+              % (what, err))
+        check(torch.equal(got.counts, hot.counts),
+              "%s: counts differ from the one-hot composition" % what)
+        rel = max(((g.double() - h.double()).abs().max()
+                   / h.double().abs().max()).item()
+                  for g, h in zip(got[1:], hot[1:]))
+        check(rel <= MERGE_RTOL, "%s: %.3g of the table's largest value "
+              "from the one-hot composition > %g" % (what, rel, MERGE_RTOL))
+        if family == "full":
+            check(torch.equal(got.sum_sq, got.sum_sq.transpose(1, 2)),
+                  "%s: sum_sq is not symmetric" % what)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["one_hot_rel_err"][family] = rel
+    log("K12 merge_stats %s: identical to the plain version, against the "
+        "one-hot composition %s" % (name, out["one_hot_rel_err"]))
+    return out
+
+
 def toy_reference():
     """Reference-pinned candidate scores of the one-utterance toy corpus
     (tests/test_unigram_wordseg.py:69), computed on the card."""
@@ -1416,9 +1477,10 @@ def reset_launches():
     from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
                                         cuda_fullcov_chain,
                                         cuda_fullcov_score, cuda_item_chain,
-                                        cuda_lib, cuda_score)
+                                        cuda_lib, cuda_merge, cuda_score)
 
     cuda_item_chain.launches = cuda_item_chain.full_launches = 0
+    cuda_merge.launches = 0
     cuda_score.launches = cuda_score.diag_launches = 0
     cuda_score.diag_exact_launches = cuda_dp.launches = 0
     cuda_chain.launches = cuda_chain.bigram_launches = 0
@@ -1431,11 +1493,11 @@ def reset_launches():
 def read_launches():
     """Each kernel's launches since `reset_launches` (K5: both
     compositions; K9: both weight modes; K10: the fixed and diag
-    families; K11: the full family's item chain)."""
+    families; K11: the full family's item chain; K12: the merge)."""
     from segmentalist_torch.ops import (cuda_chain, cuda_diag_chain, cuda_dp,
                                         cuda_fullcov_chain,
                                         cuda_fullcov_score, cuda_item_chain,
-                                        cuda_score)
+                                        cuda_merge, cuda_score)
 
     return {"K1": cuda_score.launches,
             "K2": cuda_dp.launches, "K3": cuda_chain.launches,
@@ -1447,7 +1509,8 @@ def read_launches():
             "K9": (cuda_fullcov_chain.launches
                    + cuda_fullcov_chain.bigram_launches),
             "K10": cuda_item_chain.launches,
-            "K11": cuda_item_chain.full_launches}
+            "K11": cuda_item_chain.full_launches,
+            "K12": cuda_merge.launches}
 
 
 def read_forms():
@@ -1475,8 +1538,10 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
     unigram segmenter, or the bigram one (`bench.py`'s `bigram` row), with
     fixed-variance, diag or full components (the NIW priors and keywords
     of `bench.py:379-395` and `benchmarks/all_models.py:124-171`).  Returns
-    the launches of every kernel in this run; those of the path's own
-    kernels must be > 0."""
+    the launches of the path's own kernels in this run, which must be > 0,
+    and of K12, which must be one a block step where the merge is eager
+    (every path but unigram_fixed, whose merges replay a CUDA graph: a
+    replay does not call the wrapper)."""
     from segmentalist_torch.utils.profiling import bench_segmenter
     from segmentalist_torch.utils.synth import boundary_f_score
 
@@ -1493,6 +1558,9 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
         return boundary_f_score(pred, truth)[2]
 
     f1_0 = f1()
+    steps = []
+    step = seg.block_step
+    seg.block_step = lambda *a, **k: steps.append(1) or step(*a, **k)
     reset_launches()
     # bench.py's sequence of calls: 1 + 8 + 64 + 64 sweeps
     records = [seg.gibbs_sample(n) for n in sweeps]
@@ -1502,15 +1570,22 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
     f1_end = f1()
     log("%s slice: %d sweeps, log_marg first %.6g last %.6g, F1 sweep 0 "
         "%.4f -> end %.4f, active components first %d last %d of %d, "
-        "launches %s, by form %s" % (
+        "launches %s, by form %s, block steps %d" % (
             name, len(log_marg), log_marg[0], log_marg[-1], f1_0, f1_end,
             comps[0], comps[-1], seg.acoustic_model.K_max, launches,
-            read_forms()))
+            read_forms(), len(steps)))
     check(len(log_marg) == sum(sweeps), "expected %d sweeps" % sum(sweeps))
     check(all(math.isfinite(v) for v in log_marg), "non-finite log_marg")
     for k in PATH_KERNELS[name]:
         check(launches[k] > 0, "kernel %s was not launched on the %s path"
               % (k, name))
+    if name == "unigram_fixed":
+        check(0 < launches["K12"] < len(steps), "%s: %d merge kernel "
+              "launches for %d block steps, most of them graph replays"
+              % (name, launches["K12"], len(steps)))
+    else:
+        check(launches["K12"] == len(steps), "%s: %d merge kernel launches "
+              "for %d block steps" % (name, launches["K12"], len(steps)))
     if bigram:
         check(np.array_equal(seg.lm.unigram_counts,
                              seg.acoustic_model.stats.counts.cpu().numpy()),
@@ -1518,7 +1593,7 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
     f1_min = {"fixed": F1_MIN, "diag": F1_MIN_DIAG, "full": F1_MIN_FULL}[cov]
     check(f1_end >= f1_min, "%s: final F1 %.4f < %.2f"
           % (name, f1_end, f1_min))
-    return {k: launches[k] for k in PATH_KERNELS[name]}
+    return {k: launches[k] for k in PATH_KERNELS[name] + ("K12",)}
 
 
 def purity(assignments, z_true):
@@ -2656,7 +2731,8 @@ def main(argv=None) -> int:
                "K4": compare_bigram_chain, "K5": compare_diag_score,
                "K6": compare_diag_chain, "K7": compare_bigram_diag_chain,
                "K8": compare_fullcov_score, "K9": compare_fullcov_chain,
-               "K10": compare_item_chain, "K11": compare_full_item_chain}
+               "K10": compare_item_chain, "K11": compare_full_item_chain,
+               "K12": compare_merge}
     if args.only:
         compare = {k: compare[k] for k in args.only.split(",")}
     results = {(k, name): fn(shape, name)
@@ -2722,6 +2798,9 @@ def main(argv=None) -> int:
                 "segmentalist_torch/csrc/fullcov_item_chain.cu",
                 "segmentalist_tpu/models/fbgmm.py:517-570 (lax.scan, "
                 "components_full)"),
+        "K12": ("merge_stats", "segmentalist_torch/csrc/merge_stats.cu",
+                "segmentalist_tpu/segmenters/common.py:268,310 (XLA one-hot "
+                "dots of flat_contrib, merge_flat)"),
     }
     kernels = []
     for k, (fn, src, tpu) in meta.items():
@@ -2753,6 +2832,9 @@ def main(argv=None) -> int:
                          paths=fbgmm)
         if k == "K11":  # the flagship's plan at every cluster size
             entry["clusters"] = fl["clusters"]
+        if k == "K12":  # against the one-hot composition, by form
+            entry.update(one_hot_rel_err=fl["one_hot_rel_err"],
+                         long_one_hot_rel_err=lo["one_hot_rel_err"])
         entry["forms_by_path"] = {
             p: v["forms"][k] for p, v in papers["paths"].items()
             if k in v["forms"]}

@@ -140,6 +140,9 @@ _SIGNATURES = {
     "fullcov_chain_smem_bytes": [_I] * 7,
     # -> bytes (or minus a CUDA error code)
     "fullcov_chain_smem_limit": [],
+    # embeds_o, ks_o, rows_o, embeds_n, ks_n, rows_n, valid, B, S, D, K,
+    # full, keys, hist, counts, sum_x, sum_sq, stream
+    "merge_stats_launch": [_P] * 7 + [_I] * 5 + [_P] * 6,
 }
 
 # entry points that return something other than a CUDA error code

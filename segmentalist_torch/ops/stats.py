@@ -6,9 +6,10 @@
     sum_sq [K, D]        -- per-dimension sum of squares (fixed / diag), or
            [K, D, D]        sum of outer products (full covariance)
 
-Statistics are built with one-hot matrix products, never with float
-``index_add_``/``scatter_add_``: CUDA atomics add in a run-dependent order,
-and these sums feed argmax-sensitive leave-out scores.  Full second moments
+Statistics are built with one-hot matrix products or, for a block's merge,
+by the merge kernel's sums in item order (``ops/cuda_merge.py``), never with
+float ``index_add_``/``scatter_add_``: CUDA atomics add in a run-dependent
+order, and these sums feed argmax-sensitive leave-out scores.  Full second moments
 are contracted in the symmetric-packed layout of :func:`sym_pack` and
 unpacked by a mirror copy.
 """

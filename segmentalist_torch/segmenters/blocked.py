@@ -50,6 +50,7 @@ from ..corpus import Utterances
 from ..device import resolve_device
 from ..models.components_full import PredParams
 from ..ops.cuda_fullcov_score import fullcov_log_margs
+from ..ops.cuda_merge import merge_stats
 from ..ops.cuda_score import diag_log_margs_T, fixedvar_log_margs_T
 from ..ops.dp import segment_dp
 from ..ops.random import gumbel, logsumexp
@@ -65,7 +66,6 @@ from .common import (
     gather_block_segments,
     leave_out_moments_T,
     masked_candidate_scores,
-    merge_flat,
     pad_utterance_order,
     put_assignments,
     seed_assignments_to_vector,
@@ -657,17 +657,18 @@ class BlockedWordseg:
                     new_embeds: torch.Tensor, Xe_new: torch.Tensor,
                     new_ks: torch.Tensor, log_prob: torch.Tensor,
                     lm_delta=None, in_place: bool = False):
-        """:meth:`_merge` on the device; ``in_place`` (a graph's capture)
-        adds the statistics' deltas into ``am.stats``'s own tensors instead
-        of binding new ones.
+        """:meth:`_merge` on the device: the statistics by the merge kernel
+        (``ops/cuda_merge.py``; its plain version on the CPU); ``in_place``
+        (a graph's capture) adds the deltas into ``am.stats``'s own tensors
+        instead of binding new ones.
 
         On a mesh: the exact mode gathers the whole block's segments,
         components, boundary rows and log probabilities, and every rank
         merges the whole block as one device would (the JAX package's
-        GSPMD mode).  The per-shard mode sums the ranks' deltas and log
-        probabilities (``Shard.sum_ranks``, the JAX package's ``psum``,
-        ``unigram.py:1037-1046``) and leaves the assignments to the
-        sweep's merge (``parallel/shard_sweep.py``)."""
+        GSPMD mode).  The per-shard mode sums the ranks' one-hot deltas
+        (``flat_contrib``) and log probabilities (``Shard.sum_ranks``, the
+        JAX package's ``psum``, ``unigram.py:1037-1046``) and leaves the
+        assignments to the sweep's merge (``parallel/shard_sweep.py``)."""
         am, utt, sh = self.acoustic_model, self.utterances, self._shard
         X, K, stats = am.X, am.K_max, am.stats
         exact = blk.full is not None
@@ -681,9 +682,10 @@ class BlockedWordseg:
                 stats.counts, comm=sh)
         if exact:
             idx, valid, live, _ = blk.full
-            old_embeds, new_embeds, new_ks, new_bounds, log_prob = \
-                sh.gather_rows(blk.old_embeds, new_embeds, new_ks, new_bounds,
-                               log_prob)
+            old_embeds, new_embeds, new_ks, new_bounds, log_prob = (
+                t.contiguous() for t in sh.gather_rows(
+                    blk.old_embeds, new_embeds, new_ks, new_bounds,
+                    log_prob))
             old_rows = old_embeds.clamp_min(0).long()
             old_ks = torch.where(old_embeds >= 0, am.assignments[old_rows],
                                  -1)
@@ -692,22 +694,22 @@ class BlockedWordseg:
             idx, valid, live = blk.idx, blk.valid, blk.live
             old_embeds, old_ks, Xe_old = (blk.old_embeds, blk.old_ks,
                                           blk.Xe_old)
-        old_flat = flat_contrib(X, old_embeds, old_ks, K, valid, rows=Xe_old,
-                                full_cov=am.full_cov)
-        new_flat = flat_contrib(X, new_embeds, new_ks, K, valid, rows=Xe_new,
-                                full_cov=am.full_cov)
         lp = torch.where(valid, log_prob, 0.0).sum()
         extra = list(lm_delta(old_ks, new_ks, valid)) if lm_delta else []
         per_shard = sh is not None and sh.per_shard
         if per_shard:  # one collective a dtype for the whole block
+            old_flat, new_flat = (
+                flat_contrib(X, e, k, K, valid, rows=r, full_cov=am.full_cov)
+                for e, k, r in ((old_embeds, old_ks, Xe_old),
+                                (new_embeds, new_ks, Xe_new)))
             summed = sh.sum_ranks([n - o for n, o in zip(new_flat, old_flat)]
                                   + [lp] + extra)
             lp, extra = summed[3], summed[4:]
             am.stats = SuffStats(*(g + d for g, d in zip(stats, summed[:3])))
-        elif in_place:
-            merge_flat(stats, old_flat, new_flat, out=stats)
         else:
-            am.stats = merge_flat(stats, old_flat, new_flat)
+            am.stats = merge_stats(stats, valid, (Xe_old, old_embeds, old_ks),
+                                   (Xe_new, new_embeds, new_ks),
+                                   in_place=in_place)
         utt.boundaries_dev[idx[live]] = new_bounds[live]
         if per_shard:
             sh.updates.append((valid, old_embeds, new_embeds, new_ks))

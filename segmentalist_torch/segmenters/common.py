@@ -13,9 +13,12 @@ utterances is resampled against the block-start state:
 
 The JAX package pulled rows and ids with one-hot matrix products because
 element gathers are slow on a TPU; here rows come from direct gathers
-(``X[embeds]``), which copy exactly the same values.  The statistic sums
-keep one-hot matrix products: they fix one addition order, where float
-scatter-add atomics would add in a run-dependent order.
+(``X[embeds]``), which copy exactly the same values.  The merge of step 5
+adds each touched component's members in item order, in one kernel
+(``ops/cuda_merge.py``, the JAX package's ``flat_contrib`` twice and
+``merge_flat``).  The other statistic sums keep one-hot matrix products:
+they fix one addition order, where float scatter-add atomics would add in
+a run-dependent order.
 """
 
 from __future__ import annotations
@@ -114,8 +117,9 @@ def flat_contrib(X: torch.Tensor, embeds: torch.Tensor, ks: torch.Tensor,
                  second_moments: bool = True) -> SuffStats:
     """Summed statistics of all (utterance, segment) pairs of a block, as
     one-hot matrix products [K, B*S] @ [B*S, D]; full second moments
-    through the packed lanes, unpacked by the mirror map.  Without
-    ``second_moments`` (k-means) ``sum_sq`` is None."""
+    through the packed lanes, unpacked by the mirror map (the per-shard
+    mode's deltas, the monitor, k-means).  Without ``second_moments``
+    (k-means) ``sum_sq`` is None."""
     ok = (embeds >= 0) & (ks >= 0) & valid[:, None]
     D = X.shape[-1]
     x = X[embeds.clamp_min(0).long()] if rows is None else rows
@@ -144,20 +148,6 @@ def put_assignments(pad: torch.Tensor, valid: torch.Tensor,
     pad.index_put_((put.reshape(-1).long(),),
                    new_ks.reshape(-1).to(pad.dtype))
     pad[N:].fill_(-1)
-
-
-def merge_flat(global_stats: SuffStats, old_flat: SuffStats,
-               new_flat: SuffStats, out: SuffStats | None = None) -> SuffStats:
-    """``global + (new - old)`` for every statistic, in that order (the
-    JAX package's ``tree.map(n - o)`` then ``g + d``); written into
-    ``out``'s tensors where given (in place where ``out`` is
-    ``global_stats``)."""
-    if out is None:
-        return SuffStats(*(g + (n - o) for g, n, o in
-                           zip(global_stats, new_flat, old_flat)))
-    for g, n, o, t in zip(global_stats, new_flat, old_flat, out):
-        torch.add(g, n - o, out=t)
-    return out
 
 
 def merge_sweep_assignments(assignments: torch.Tensor, updates,

@@ -3,7 +3,7 @@
 A block step's two glue stages launch well over a hundred small kernels
 between them: the leave-out (stage 1: the block's old segments, their
 components and the leave-out moments) and the merge (stage 4: the
-decollision, the one-hot sums and the writes into the state).  Issued one
+decollision, the merge kernel and the writes into the state).  Issued one
 by one from the host, they set the pace of the fixed family's sweeps, and
 the card waits on them.  On a card, :class:`GlueGraphs` captures each stage
 once per block size as a ``torch.cuda.CUDAGraph`` and replays it for every

@@ -174,8 +174,8 @@ def bench_segmenter(cov: str = "fixed", bigram: bool = False,
 
 
 def launch_counts() -> dict:
-    """The wrappers' launch counters of the scorers, K2, the chains, K10
-    and K11."""
+    """The wrappers' launch counters of the scorers, K2, the chains, K10,
+    K11 and the merge kernel."""
     counts = {}
     for mod, names in (("cuda_score", ("launches", "diag_launches",
                                        "diag_exact_launches")),
@@ -185,7 +185,8 @@ def launch_counts() -> dict:
                        ("cuda_diag_chain", ("launches", "bigram_launches")),
                        ("cuda_fullcov_chain", ("launches",
                                                "bigram_launches")),
-                       ("cuda_item_chain", ("launches", "full_launches"))):
+                       ("cuda_item_chain", ("launches", "full_launches")),
+                       ("cuda_merge", ("launches",))):
         m = importlib.import_module("segmentalist_torch.ops." + mod)
         for n in names:
             counts["%s.%s" % (mod, n)] = getattr(m, n)

@@ -27,6 +27,7 @@ from segmentalist_tpu.utils.annealing import anneal_temperatures as j_anneal
 from segmentalist_torch import native
 from segmentalist_torch.models import components_fixedvar as tcfv
 from segmentalist_torch.models import fbgmm as tfbgmm
+from segmentalist_torch.ops import cuda_merge
 from segmentalist_torch.ops import random as trandom
 from segmentalist_torch.ops import stats as tstats
 from segmentalist_torch.priors import FixedVarPrior as TPrior
@@ -298,8 +299,17 @@ def test_statistic_contributions():
     tf = tcommon.flat_contrib(_t(X), _t(embeds), _t(ks), K, _t(valid))
     for a, b in zip(tf, jf):
         npt.assert_allclose(_n(a), np.asarray(b), rtol=1e-10, atol=1e-12)
-    merged_t = tcommon.merge_flat(ts, tf, tf._replace(sum_x=tf.sum_x * 2))
-    merged_j = jcommon.merge_flat(js, jf, jf._replace(sum_x=jf.sum_x * 2))
+    # the block's merge (the merge kernel's plain version) against the
+    # JAX package's one-hot merge, with the new segments moved one slot on
+    ks2 = np.where(ks >= 0, (ks + 1) % K, -1).astype(np.int32)
+    jf2 = jcommon.flat_contrib(jnp.asarray(X), jnp.asarray(embeds),
+                               jnp.asarray(ks2), K, False,
+                               jnp.asarray(valid))
+    rows = _t(X)[_t(embeds).clamp_min(0).long()]
+    merged_t = cuda_merge.merge_stats_plain(
+        ts, _t(valid), (rows, _t(embeds), _t(ks)),
+        (rows, _t(embeds), _t(ks2)))
+    merged_j = jcommon.merge_flat(js, jf, jf2)
     for a, b in zip(merged_t, merged_j):
         npt.assert_allclose(_n(a), np.asarray(b), rtol=1e-10, atol=1e-12)
 

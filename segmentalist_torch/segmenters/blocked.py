@@ -23,7 +23,9 @@ state and resample a block of utterances through the same stages
 The segmenters differ only in the mixture weights they hand to stage 2, the
 chain of stage 3 and the bookkeeping around it.  Each ``block_step`` runs
 the stages in the profiler spans ``seg.block.leave_out``, ``.score``,
-``.dp``, ``.chain`` and ``.merge`` inside ``seg.block``, and
+``.dp``, ``.chain`` and ``.merge`` inside ``seg.block`` (the diag family's
+[B, D, K] tables also in ``seg.diag.tables``, once in the leave-out and once
+in the scoring), and
 :meth:`BlockedWordseg._sample_sweeps` a sweep in ``seg.sweep``
 (``utils/tracing.py``).  On a card, stages 1 and 4 of the fixed family
 replay as CUDA graphs (``segmenters/graphs.py``).
@@ -513,8 +515,10 @@ class BlockedWordseg:
                                         old_ks, rows=Xe_old)
             params_g = am.cov.predictive_params(am.prior, am.stats)
         elif self._family == "diag":
-            sum_xT, sum_sqT = leave_out_moments_T(
-                am.stats, X, old_embeds, old_ks, K, rows=Xe_old, with_sq=True)
+            with annotate("seg.diag.tables"):
+                sum_xT, sum_sqT = leave_out_moments_T(
+                    am.stats, X, old_embeds, old_ks, K, rows=Xe_old,
+                    with_sq=True)
         else:
             sum_xT = leave_out_moments_T(am.stats, X, old_embeds, old_ks, K,
                                          rows=Xe_old)
@@ -588,8 +592,9 @@ class BlockedWordseg:
                 Xc, prior_c, *fullcov_score_inputs(blk.params_g, blk.touched),
                 w_b, blk.lo_counts, valid_m=valid_m)
         elif self._family == "diag":
-            muT, inv_varT, lpv, v = am.cov.predictive_params_T(
-                am.prior, blk.lo_counts, blk.sum_xT, blk.sum_sqT)
+            with annotate("seg.diag.tables"):
+                muT, inv_varT, lpv, v = am.cov.predictive_params_T(
+                    am.prior, blk.lo_counts, blk.sum_xT, blk.sum_sqT)
             log_margs = diag_log_margs_T(
                 Xc, prior_c, muT, inv_varT, lpv, v, w_b, blk.lo_counts,
                 valid_m=valid_m, exact=exact)

@@ -17,11 +17,15 @@ name begins with ``seg.``):
         seg.block            one block step, opened inside ``block_step``
           seg.block.leave_out  stage 1: the block's index upload, its old
                                segments and leave-outs, its rows' noise
+            seg.diag.tables    the diag family's leave-out moment tables
+                               ``sum_xT`` / ``sum_sqT`` [B, D, K]
             seg.lm.leave_out   the bigram LM's old pairs and leave-out
                                unigram counts
           seg.block.score      stage 2a: the mixture weights, the scorer
                                (K1 / K5 / K8; k-means' distances) and the
                                candidates' masking
+            seg.diag.tables    the diag family's predictive tables (``m_nT``,
+                               ``varT``, ``1 / varT``, the log variances)
           seg.block.dp         stage 2b: ``segment_dp`` (K2 and its noise)
           seg.block.chain      stage 3: the new segments, the chain's
                                noise and the chain (K3 / K4 / K6 / K7 /

@@ -56,8 +56,8 @@ check that does not hold:
    `bench.py` unigram_full and `benchmarks/all_models.py` rows); for each,
    every kernel's launch count in that run, log_marg and boundary F1;
    K12 launched once a block step where the merge is eager (all but
-   unigram_fixed, whose merge replays a CUDA graph and launches the
-   kernel only where it runs eagerly or captures).
+   unigram_fixed and bigram, whose merges replay a CUDA graph and launch
+   the kernel only where they run eagerly or capture).
    Then the FBGMM's own sampler (K10): the notebook toy of
    `bench.py:455-479` for 100 sweeps in each mode (purity >= 0.95) and 3
    full-family sequential sweeps on its points (K11), the FBGMM alone on
@@ -1540,8 +1540,8 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
     of `bench.py:379-395` and `benchmarks/all_models.py:124-171`).  Returns
     the launches of the path's own kernels in this run, which must be > 0,
     and of K12, which must be one a block step where the merge is eager
-    (every path but unigram_fixed, whose merges replay a CUDA graph: a
-    replay does not call the wrapper)."""
+    (every path but unigram_fixed and bigram, whose merges replay a CUDA
+    graph: a replay does not call the wrapper)."""
     from segmentalist_torch.utils.profiling import bench_segmenter
     from segmentalist_torch.utils.synth import boundary_f_score
 
@@ -1579,7 +1579,7 @@ def run_slice(n_utterances=1000, sweeps=(1, 8, 64, 64), bigram=False,
     for k in PATH_KERNELS[name]:
         check(launches[k] > 0, "kernel %s was not launched on the %s path"
               % (k, name))
-    if name == "unigram_fixed":
+    if cov == "fixed":
         check(0 < launches["K12"] < len(steps), "%s: %d merge kernel "
               "launches for %d block steps, most of them graph replays"
               % (name, launches["K12"], len(steps)))

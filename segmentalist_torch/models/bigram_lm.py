@@ -8,7 +8,8 @@ segmenter's device as integer tensors
     bigram_counts  [K, K] int32
 
 and every probability query is a vectorised function of them.  Count
-updates are integer ``index_add_`` over flat ``j * K + i`` pair keys:
+updates are integer ``index_add_`` over flat ``j * K + i`` pair keys
+(:class:`CountKeys`), into the tables' own storage in a block step:
 integer addition is exact and independent of order, so the run-dependent
 order of CUDA atomics does not matter here (the JAX package built the same
 deltas with bf16 one-hot matmuls, a TPU scatter workaround).
@@ -115,30 +116,41 @@ def transcript_pairs_batch(transcripts: torch.Tensor,
     return pj, pi
 
 
-def _signed_counts(keys: torch.Tensor, sign: torch.Tensor,
-                   n: int) -> torch.Tensor:
-    """[n] int32 sums of ``sign`` per key; keys equal to ``n`` are dropped."""
-    out = torch.zeros(n + 1, dtype=torch.int32, device=keys.device)
-    out.index_add_(0, keys.reshape(-1).long(), sign.reshape(-1))
-    return out[:n]
+class CountKeys(NamedTuple):
+    """Signed counts in sparse form: each table's flat keys and the values
+    to add there, the operands of one ``index_add_`` a table.  An entry
+    that counts nothing adds 0 at key 0, so the keys are never out of
+    range."""
+
+    unigram_keys: torch.Tensor    # [n] int64, i
+    unigram_values: torch.Tensor  # [n] int32
+    bigram_keys: torch.Tensor     # [n] int64, j * K + i
+    bigram_values: torch.Tensor   # [n] int32
 
 
-def _count_delta(tokens, pj, pi, ok, sign, K: int) -> BigramLMState:
-    """Signed unigram and bigram counts of the tokens and (prev, cur) pairs
-    of ``tokens`` [R, S] in the rows where ``ok`` [R, S] holds."""
+def _count_keys(tokens, pj, pi, ok, sign, K: int) -> CountKeys:
+    """:class:`CountKeys` of ``sign`` [R, S] for the tokens and (prev, cur)
+    pairs of ``tokens`` [R, S] in the rows where ``ok`` [R, S] holds."""
     cur = (tokens >= 0) & ok
     pair = (pj >= 0) & (pi >= 0) & ok
-    tok_key = torch.where(cur, tokens.long(), K)
-    pair_key = torch.where(pair, pj.long() * K + pi.long(), K * K)
-    sign = sign.to(torch.int32).expand(tokens.shape)
-    return BigramLMState(
-        unigram_counts=_signed_counts(tok_key, sign, K),
-        bigram_counts=_signed_counts(pair_key, sign, K * K).reshape(K, K),
-    )
+    return CountKeys(
+        tokens.clamp_min(0).long().reshape(-1),
+        torch.where(cur, sign, 0).reshape(-1),
+        (pj.clamp_min(0).long() * K + pi.clamp_min(0).long()).reshape(-1),
+        torch.where(pair, sign, 0).reshape(-1))
 
 
-def apply_delta(state: BigramLMState, delta: BigramLMState) -> BigramLMState:
-    """``state + delta``, table by table."""
+def apply_delta(state: BigramLMState, delta) -> BigramLMState:
+    """``state + delta``, table by table.  A dense delta (a
+    :class:`BigramLMState`) gives new tables; :class:`CountKeys` are added
+    into the state's own tables in place, one ``index_add_`` a table, and
+    the state is returned."""
+    if isinstance(delta, CountKeys):
+        state.unigram_counts.index_add_(0, delta.unigram_keys,
+                                        delta.unigram_values)
+        state.bigram_counts.view(-1).index_add_(0, delta.bigram_keys,
+                                                delta.bigram_values)
+        return state
     return BigramLMState(*(g + d for g, d in zip(state, delta)))
 
 
@@ -146,31 +158,42 @@ def add_block_counts(state: BigramLMState, transcripts: torch.Tensor,
                      valid: torch.Tensor, sign: int = 1) -> BigramLMState:
     """Add (``sign`` +1) or remove (-1) a block of transcripts [B, S] in the
     rows where ``valid`` [B] holds (counts are additive, so no
-    per-utterance sequencing is needed)."""
+    per-utterance sequencing is needed); ``state`` is left as it was."""
     K = state.unigram_counts.shape[0]
     pj, pi = transcript_pairs_batch(transcripts)
     ok = valid[:, None].expand(transcripts.shape)
-    delta = _count_delta(transcripts, pj, pi, ok,
-                         torch.tensor(sign, device=transcripts.device), K)
-    return apply_delta(state, delta)
+    keys = _count_keys(transcripts, pj, pi, ok,
+                       transcripts.new_full(transcripts.shape, sign,
+                                            dtype=torch.int32), K)
+    return apply_delta(BigramLMState(*(t.clone() for t in state)), keys)
 
 
-def block_count_delta(old_ks: torch.Tensor, new_ks: torch.Tensor,
-                      valid: torch.Tensor, K: int,
-                      pairs_old=None) -> BigramLMState:
-    """Signed LM count delta of a block swap (remove ``old_ks``, add
-    ``new_ks``, both [B, S], in the rows where ``valid`` [B] holds).
+def block_count_keys(old_ks: torch.Tensor, new_ks: torch.Tensor,
+                     valid: torch.Tensor, K: int,
+                     pairs_old=None) -> CountKeys:
+    """The signed LM counts of a block swap (remove ``old_ks``, add
+    ``new_ks``, both [B, S], in the rows where ``valid`` [B] holds) as
+    :class:`CountKeys`: old and new in one ``index_add_`` a table.
     ``pairs_old`` reuses the caller's ``transcript_pairs_batch(old_ks)``."""
     if pairs_old is None:
         pairs_old = transcript_pairs_batch(old_ks)
     pj_n, pi_n = transcript_pairs_batch(new_ks)
     B, S = old_ks.shape
     ok = valid[:, None].expand(B, S)
-    sign = torch.cat([old_ks.new_full((B, S), -1),
-                      new_ks.new_full((B, S), 1)])
-    return _count_delta(
+    sign = torch.cat([old_ks.new_full((B, S), -1, dtype=torch.int32),
+                      new_ks.new_full((B, S), 1, dtype=torch.int32)])
+    return _count_keys(
         torch.cat([old_ks, new_ks]), torch.cat([pairs_old[0], pj_n]),
         torch.cat([pairs_old[1], pi_n]), torch.cat([ok, ok]), sign, K)
+
+
+def block_count_delta(old_ks: torch.Tensor, new_ks: torch.Tensor,
+                      valid: torch.Tensor, K: int,
+                      pairs_old=None) -> BigramLMState:
+    """:func:`block_count_keys` as dense [K] and [K, K] tables (the
+    per-shard mode's, which its collective sums over the ranks)."""
+    return apply_delta(empty_lm_state(K, old_ks.device),
+                       block_count_keys(old_ks, new_ks, valid, K, pairs_old))
 
 
 def add_transcript_counts(state: BigramLMState, transcript: torch.Tensor,

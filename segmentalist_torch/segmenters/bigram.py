@@ -17,10 +17,14 @@ sharing every stage but the chain with the unigram segmenter
 (``segmenters/blocked.py``): the scorer (K1; K5 for the diag family, K8 for
 full) takes the LM's leave-out unigram weights, the chain is kernel K4 (K7
 for diag, K9's bigram mode for full), and the LM count tables take the
-block's signed count delta after the acoustic merge.  The LM is read
-before the merge, so its tables count every old pair the chain removes.
-The LM's own stages run in the profiler spans ``seg.lm.leave_out``,
-``seg.lm.delta`` and ``seg.lm.replay`` (``utils/tracing.py``).
+block's signed counts in place inside the merge (one ``index_add_`` a
+table; the per-shard mode sums a dense delta over the ranks first).  The
+LM is read before the merge, so its tables count every old pair the chain
+removes.  The LM's part of stage 1 runs inside ``_leave_out_rows`` and its
+update inside ``_merge_rows``, so the fixed family's CUDA graphs of the
+two stages (``segmenters/graphs.py``) capture both.  The LM's own stages
+run in the profiler spans ``seg.lm.leave_out``, ``seg.lm.delta`` and
+``seg.lm.replay`` (``utils/tracing.py``) wherever the host runs them.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..models.bigram_lm import (
     add_block_counts,
     apply_delta,
     block_count_delta,
+    block_count_keys,
     empty_lm_state,
     log_prob_vec_i,
     prob_vec_given_j,
@@ -51,7 +56,7 @@ from ..ops.stats import add_item, canonicalize_new_component, num_active
 from ..utils import debug as dbg
 from ..utils.annealing import anneal_temperatures
 from ..utils.tracing import annotate, fetch
-from .blocked import BlockedWordseg
+from .blocked import Block, BlockedWordseg
 from .common import gather_block_segments
 from .unigram import _dense_to_tri
 
@@ -208,17 +213,23 @@ class BigramAcousticWordseg(BlockedWordseg):
                 "log_marg": lpz + lpx, "components": int(k_act),
                 "n_assigned": int(n_assigned)}
 
-    def _lm_leave_out(self, blk) -> torch.Tensor:
-        """[B, K] the LM's unigram counts without each utterance's own."""
-        return self.lm.state.unigram_counts[None] - blk.own_counts
+    def _leave_out_rows(self, packed: torch.Tensor, B: int,
+                        rows=None) -> Block:
+        """Stage 1 on the device with the LM's part in ``Block.lm``: the
+        old transcripts' (prev, cur) pairs and the LM's unigram counts
+        without each utterance's own [B, K]."""
+        blk = super()._leave_out_rows(packed, B, rows)
+        with annotate("seg.lm.leave_out"):
+            return blk._replace(lm=(
+                *transcript_pairs_batch(blk.old_ks),
+                self.lm.state.unigram_counts[None] - blk.own_counts))
 
     def _candidate_weights(self, blk) -> torch.Tensor:
         """[B, K] mixture-weight terms of a block's candidate scores: the
         LM's leave-out unigram weights."""
         am = self.acoustic_model
-        return log_weights(self._lm_leave_out(blk), self.lm.a, am.K_max,
-                           self.lms, include_denominator=True,
-                           dtype=am.X.dtype)
+        return log_weights(blk.lm[2], self.lm.a, am.K_max, self.lms,
+                           include_denominator=True, dtype=am.X.dtype)
 
     VALIDATION_CHECKS = dbg.BIGRAM_CHECKS
 
@@ -393,9 +404,6 @@ class BigramAcousticWordseg(BlockedWordseg):
                 blk = self._leave_out(idx_blk, split=True)
                 dp_noise, chain_noise = self._own_noise(
                     blk, dp_noise, chain_noise, not assignments_only)
-                with annotate("seg.lm.leave_out"):
-                    pairs_old = transcript_pairs_batch(blk.old_ks)
-                    uni_lo = self._lm_leave_out(blk)
 
             # 2. scoring with the LM's unigram weights (K1 / K5 / K8),
             # boundaries (K2)
@@ -419,6 +427,7 @@ class BigramAcousticWordseg(BlockedWordseg):
                 noise = self._chain_noise(chain_noise, blk.idx.shape[0])
                 data = (new_embeds, Xe_new, lpe_new, noise, blk.lo_counts,
                         blk.sum_xT)
+                pairs_old, uni_lo = blk.lm[:2], blk.lm[2]
                 lm_args = (uni_lo, lm.state.bigram_counts, *pairs_old)
                 opts = dict(alpha_a=lm.a, intrp_lambda=lm.intrp_lambda,
                             b_smooth=lm.b, K=K, lms=self.lms)
@@ -436,20 +445,28 @@ class BigramAcousticWordseg(BlockedWordseg):
                         *data, prior.var, prior.var_0, prior.mu_0,
                         assign_temp, *lm_args, **opts)
 
-            # 4. decollision, the acoustic merge, then the LM count delta
+            # 4. decollision, the acoustic merge and the LM's counts
             with annotate("seg.block.merge"):
+                per_shard = self._shard is not None and self._shard.per_shard
+
                 def lm_delta(old_ks, new_ks, valid):
                     # the exact mode merges the gathered block, whose old
                     # pairs are not this step's
                     pairs = pairs_old if old_ks is blk.old_ks else None
                     with annotate("seg.lm.delta"):
-                        return block_count_delta(old_ks, new_ks, valid, K,
-                                                 pairs_old=pairs)
+                        if per_shard:  # summed over the ranks, added below
+                            return block_count_delta(old_ks, new_ks, valid,
+                                                     K, pairs_old=pairs)
+                        lm.state = apply_delta(lm.state, block_count_keys(
+                            old_ks, new_ks, valid, K, pairs_old=pairs))
+                        return ()
 
                 lp, delta = self._merge(blk, new_bounds, new_embeds, Xe_new,
                                         new_ks, log_prob, lm_delta)
-                with annotate("seg.lm.delta"):
-                    lm.state = apply_delta(lm.state, BigramLMState(*delta))
+                if per_shard:
+                    with annotate("seg.lm.delta"):
+                        lm.state = apply_delta(lm.state,
+                                               BigramLMState(*delta))
         return lp
 
 

@@ -149,6 +149,9 @@ class Block(NamedTuple):
     # exact mode on a mesh: (idx, valid, live) of the whole block and the
     # slice of this rank's rows; None elsewhere
     full: Optional[tuple] = None
+    # the bigram segmenter: (pj, pi) [B, N_max] of old_ks and the LM's
+    # [B, K] leave-out unigram counts; None elsewhere
+    lm: Optional[tuple] = None
 
 
 class BlockedWordseg:
@@ -646,15 +649,17 @@ class BlockedWordseg:
         """Stage 4: cross-utterance decollision of new components, then the
         merge of statistics, boundaries and assignments into the global
         state.  ``lm_delta(old_ks, new_ks, valid)`` (the bigram segmenter)
-        gives further integer deltas of the merged rows, summed like the
+        counts the merged rows into the LM's tables: in place, or in the
+        per-shard mode by returning integer deltas, summed like the
         statistics.  Returns (the block's summed ``log_prob``, the list of
-        ``lm_delta``'s tensors).  A block step that ``graphs.graphed``
-        admits replays :meth:`_merge_rows` as a CUDA graph."""
+        those deltas).  A block step that ``graphs.graphed`` admits replays
+        :meth:`_merge_rows` as a CUDA graph."""
         if blk.full is None and graphs.graphed(
                 self.device, self._family, self._shard, True,
-                blk.live.shape[0], blk.valid.shape[0], lm_delta):
+                blk.live.shape[0], blk.valid.shape[0]):
             return self._glue_graphs.merge(self, blk, (
-                new_bounds, new_embeds, Xe_new, new_ks, log_prob)), []
+                new_bounds, new_embeds, Xe_new, new_ks, log_prob),
+                lm_delta), []
         return self._merge_rows(blk, new_bounds, new_embeds, Xe_new, new_ks,
                                 log_prob, lm_delta)
 
@@ -665,7 +670,8 @@ class BlockedWordseg:
         """:meth:`_merge` on the device: the statistics by the merge kernel
         (``ops/cuda_merge.py``; its plain version on the CPU); ``in_place``
         (a graph's capture) adds the deltas into ``am.stats``'s own tensors
-        instead of binding new ones.
+        instead of binding new ones (the bigram LM's tables take their
+        counts in place on every path but the per-shard mode).
 
         On a mesh: the exact mode gathers the whole block's segments,
         components, boundary rows and log probabilities, and every rank

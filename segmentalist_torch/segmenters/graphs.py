@@ -2,12 +2,14 @@
 
 A block step's two glue stages launch well over a hundred small kernels
 between them: the leave-out (stage 1: the block's old segments, their
-components and the leave-out moments) and the merge (stage 4: the
-decollision, the merge kernel and the writes into the state).  Issued one
-by one from the host, they set the pace of the fixed family's sweeps, and
-the card waits on them.  On a card, :class:`GlueGraphs` captures each stage
-once per block size as a ``torch.cuda.CUDAGraph`` and replays it for every
-block that :func:`graphed` admits.  A graph is a capture of the functions
+components and the leave-out moments; for the bigram segmenter also the
+LM's old pairs and leave-out unigram counts) and the merge (stage 4: the
+decollision, the merge kernel, the writes into the state and the bigram
+LM's count update).  Issued one by one from the host, they set the pace of
+the fixed family's sweeps, and the card waits on them.  On a card,
+:class:`GlueGraphs` captures each stage once per block size as a
+``torch.cuda.CUDAGraph`` and replays it for every block that
+:func:`graphed` admits.  A graph is a capture of the functions
 the eager path calls (``BlockedWordseg._leave_out_rows`` and
 ``_merge_rows``), so the graphed and the eager path give the same bits.
 
@@ -18,17 +20,20 @@ the eager path calls (``BlockedWordseg._leave_out_rows`` and
   the merge's outputs of the eager stages (the new boundaries, segments,
   their vectors and components, the DP's log probabilities).
 - The state the graphs read and write (``am.stats``, ``am._assign_pad``,
-  ``utterances.boundaries_dev``) lives in fixed buffers that the merge
-  updates in place.  Code that rebinds one of them (the rebuild of the
-  statistics after the am sweeps, the ``assignments`` setter, an eager
-  merge, a checkpoint load) is followed, before the next replay, by a copy
-  into the buffer and a rebind to it, never by a capture.
+  ``utterances.boundaries_dev`` and, where the segmenter has an LM, its
+  ``lm.state`` tables) lives in fixed buffers that the merge updates in
+  place.  Code that rebinds one of them (the rebuild of the statistics
+  after the am sweeps, the ``assignments`` setter, an eager merge,
+  ``set_lm_counts``, a checkpoint load) is followed, before the next
+  replay, by a copy into the buffer and a rebind to it, never by a
+  capture.
 - A graph is captured again only where the state's shapes change (every
   graph is dropped) or a tensor it reads that is not state is replaced
   (``am.X``, the corpus's ``seg_ids`` and ``lengths_dev``; for the merge,
   the leave-out graph's ``Block``).
 - No random draw is captured: the DP's and the chain's noise and the
-  kernels K1, K2 and K3 run in the eager stages between the two graphs.
+  kernels K1, K2 and K3 (K4) run in the eager stages between the two
+  graphs.
 
 A replay overwrites its outputs: the leave-out's ``Block`` is valid until
 the next block step's leave-out, and the merge hands back a copy of its
@@ -42,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models.bigram_lm import BigramLMState
 from ..ops.stats import SuffStats
 
 # glue stage calls of block steps that replayed a graph; qualifying ones
@@ -53,18 +59,20 @@ glue_graph_captures = 0
 
 
 def graphed(device: torch.device, family: str, shard, split: bool,
-            n_live: int, B: int, lm_delta=None) -> bool:
+            n_live: int, B: int) -> bool:
     """Whether a glue stage replays a graph: on a card, for the fixed
     family, off a mesh, in a block step (``split``) whose ``B`` rows are
-    all live, and for the merge without the bigram LM's delta."""
+    all live."""
     return (device.type == "cuda" and family == "fixed" and shard is None
-            and split and n_live == B and lm_delta is None)
+            and split and n_live == B)
 
 
 def _state(seg) -> tuple:
-    """The tensors the graphs update in place."""
+    """The tensors the graphs update in place: the statistics, the
+    assignments, the boundaries and a segmenter's LM tables."""
     am = seg.acoustic_model
-    return (*am.stats, am._assign_pad, seg.utterances.boundaries_dev)
+    lm = tuple(seg.lm.state) if hasattr(seg, "lm") else ()
+    return (*am.stats, am._assign_pad, seg.utterances.boundaries_dev, *lm)
 
 
 def _refs(seg) -> tuple:
@@ -103,18 +111,20 @@ class GlueGraphs:
             self._blocks[B] = blk
         return blk
 
-    def merge(self, seg, blk, args: tuple) -> torch.Tensor:
+    def merge(self, seg, blk, args: tuple, lm_delta=None) -> torch.Tensor:
         """Stage 4 of a block step (``seg._merge_rows``): ``args`` are its
         new boundaries, segments, their vectors and components and the DP's
-        log probabilities.  Returns the block's summed log probability.  A
-        block whose leave-out did not replay merges eagerly."""
+        log probabilities; ``lm_delta`` the bigram segmenter's in-place
+        update of its LM tables.  Returns the block's summed log
+        probability.  A block whose leave-out did not replay merges
+        eagerly."""
         B = blk.valid.shape[0]
         lp, replayed = self._run(
             seg, "merge", B, args,
-            lambda *a: seg._merge_rows(blk, *a, in_place=True)[0],
+            lambda *a: seg._merge_rows(blk, *a, lm_delta, in_place=True)[0],
             _refs(seg) + (blk, seg.decollide_new),
             ready=blk is self._blocks.get(B),
-            eager=lambda *a: seg._merge_rows(blk, *a)[0])
+            eager=lambda *a: seg._merge_rows(blk, *a, lm_delta)[0])
         return lp.clone() if replayed else lp
 
     def _run(self, seg, stage, B, args, body, refs, ready=True, eager=None):
@@ -182,3 +192,5 @@ class GlueGraphs:
         am.stats = SuffStats(*self._bufs[:3])
         am._assign_pad = self._bufs[3]
         seg.utterances.boundaries_dev = self._bufs[4]
+        if hasattr(seg, "lm"):
+            seg.lm.state = BigramLMState(*self._bufs[5:])

@@ -32,8 +32,10 @@ name begins with ``seg.``):
                                K9; k-means' nearest means)
           seg.block.merge      stage 4: decollision and the merge of the
                                statistics, boundaries and assignments
-            seg.lm.delta       the bigram LM's signed [K, K] count delta
-                               and its addition to the tables (two a block)
+            seg.lm.delta       the bigram LM's count update: a block's
+                               signed counts added into the tables in
+                               place (the per-shard mode: the dense
+                               delta, then its addition)
       seg.sweep.metrics      the sweep's record quantities and their fetch
         seg.lm.replay        the bigram corpus log P(z) replay
     seg.sync.<site>          a call that waits for the device

@@ -69,6 +69,59 @@ def test_block_count_delta_matches_jax(seed):
         _eq_state(t, j)
 
 
+def _loop_counts(ts, valid, k, sign, uni, big):
+    """Add ``sign`` for each token and (prev, cur) pair of the valid rows
+    of ``ts``, the reference's per-utterance loop (-1 entries skipped,
+    the previous component carried over them)."""
+    for row, ok in zip(ts, valid):
+        if not ok:
+            continue
+        j_prev = -1
+        for cur in row:
+            if cur < 0:
+                continue
+            uni[cur] += sign
+            if j_prev >= 0:
+                big[j_prev, cur] += sign
+            j_prev = cur
+
+
+@pytest.mark.parametrize("k", [K, 1000])
+def test_the_in_place_block_update_equals_the_dense_delta(k):
+    """A block swap's counts added in place (``block_count_keys`` through
+    ``apply_delta``, one ``index_add_`` a table) give the tables of
+    ``block_count_delta`` + ``apply_delta`` and of the reference's loop,
+    exactly, in the state's own storage: -1 pads and gaps inside
+    transcripts, invalid rows, an empty row and one-segment rows."""
+    rng = np.random.RandomState(k)
+    old, new = (_transcripts(s, (B, S), k) for s in (k + 1, k + 2))
+    old[1], new[2] = -1, -1                     # an empty row each side
+    old[3, 1:], new[4, 1:] = -1, -1             # one-segment rows
+    new[3, :] = [-1, 2, -1, -1, 0, -1]          # a gap inside a transcript
+    valid = rng.rand(B) < 0.7
+    valid[[1, 2, 3, 4]] = True
+    valid[5] = False                            # an invalid row
+    state = tlm.add_block_counts(
+        tlm.empty_lm_state(k), torch.as_tensor(old),
+        torch.as_tensor(np.ones(B, bool)))
+    uni, big = (t.numpy().copy() for t in state)
+    _loop_counts(old, valid, k, -1, uni, big)
+    _loop_counts(new, valid, k, 1, uni, big)
+    args = (torch.as_tensor(old), torch.as_tensor(new),
+            torch.as_tensor(valid), k)
+    dense = tlm.apply_delta(state, tlm.block_count_delta(*args))
+    for pairs_old in (None, tlm.transcript_pairs_batch(args[0])):
+        st = tlm.BigramLMState(*(t.clone() for t in state))
+        ptrs = [t.data_ptr() for t in st]
+        got = tlm.apply_delta(st, tlm.block_count_keys(*args,
+                                                       pairs_old=pairs_old))
+        assert [t.data_ptr() for t in got] == ptrs
+        for g, d, w in zip(got, dense, (uni, big)):
+            assert g.dtype == torch.int32
+            assert torch.equal(g, d)
+            npt.assert_array_equal(g.numpy(), w)
+
+
 def test_transcript_pairs_match_jax():
     ts = _transcripts(3)
     ts[2] = -1

@@ -241,11 +241,12 @@ def test_a_fault_fails_the_tiny_bigram_cell(root, monkeypatch, fault):
 
 def test_the_unigram_drivers_unchanged_fault_ends_the_bigram_run(
         root, monkeypatch):
-    """``faults.py``'s ``unchanged`` merge returns no LM delta: the bigram
-    step raises on it, and the run ends with no result."""
+    """``faults.py``'s ``unchanged`` merge returns no LM delta.  The bigram
+    step counts its LM inside the merge, so the fault leaves the LM's
+    tables unchanged too: the run ends, and not correct."""
     FAULTS["unchanged"](monkeypatch)
-    with pytest.raises(TypeError):
-        _run(root, "tb")
+    res, checks = _run(root, "tb")
+    assert not res["correct"], checks
 
 
 def test_the_check_sees_the_bigram_term_where_the_lm_decides(root,

@@ -28,12 +28,12 @@ N_UTT, BATCH = 10, 4  # blocks of 4, 4 and a padded 2
     (dict(shard=object()), False),
     (dict(n_live=3), False),
     (dict(split=False), False),
-    (dict(lm_delta=lambda o, n, v: ()), False),
+    (dict(n_live=1, B=1), True),
     (dict(device=torch.device("cpu")), False),
 ])
 def test_the_gate_decides_by_what_the_stage_can_observe(case, expect):
     args = dict(device=CUDA, family="fixed", shard=None, split=True,
-                n_live=4, B=4, lm_delta=None)
+                n_live=4, B=4)
     args.update(case)
     assert graphs.graphed(**args) is expect
 
@@ -119,8 +119,9 @@ def stand_in(monkeypatch):
 
 def _state(seg):
     am = seg.acoustic_model
+    lm = tuple(seg.lm.state) if hasattr(seg, "lm") else ()
     return [t.clone() for t in (*am.stats, am.assignments,
-                                seg.utterances.boundaries_dev)]
+                                seg.utterances.boundaries_dev, *lm)]
 
 
 def _run(seg, sweeps, am_n_iter):
@@ -134,16 +135,17 @@ def _run(seg, sweeps, am_n_iter):
     ("unigram", 0), ("unigram", 1), ("bigram", None)])
 def test_replayed_glue_equals_the_eager_sweeps(stand_in, monkeypatch,
                                                driver, am_n_iter):
-    """Three sweeps through the cache equal three eager ones bit for bit;
-    a block size warms up once and captures once a stage, every later
-    full block replays, the padded block runs eagerly, and the bigram
-    driver's merge (its LM delta) stays eager."""
+    """Three sweeps through the cache equal three eager ones bit for bit,
+    the bigram driver's LM tables included; a block size warms up once and
+    captures once a stage, every later full block replays both stages (the
+    bigram driver's LM leave-out and count update inside them), and the
+    padded block runs eagerly."""
     bigram = driver == "bigram"
     seg = _segmenter(bigram)
     before = _counts()
     recs, state = _run(seg, 3, am_n_iter)
     replays, eager, captures = (b - a for a, b in zip(before, _counts()))
-    stages = 1 if bigram else 2
+    stages = 2
     full = 3 * (N_UTT // BATCH)  # full blocks in three sweeps
     assert (eager, captures) == (stages, stages)
     assert replays == stages * (full - 1)
@@ -172,6 +174,32 @@ def test_a_rebound_state_is_copied_in_and_a_replaced_input_recaptures(
     am.X = am.X.clone()                          # read by both stages
     seg.gibbs_sample(1)
     assert _counts()[2] == captures + 2
+
+
+def test_a_rebound_lm_state_is_copied_in_before_the_next_replay(stand_in,
+                                                                monkeypatch):
+    """The bigram LM's tables are graph state: a rebound ``lm.state`` (here
+    tables of other counts) goes into the buffers before the next replay,
+    with no capture, and the replayed block step reads it as an eager one
+    does."""
+    seg = _segmenter(bigram=True)
+    seg.gibbs_sample(1)
+    captures = _counts()[2]
+    bump = lambda st: type(st)(*(t + 1 for t in st))  # noqa: E731
+    seg.lm.state = bump(seg.lm.state)
+    seg.block_step(np.arange(BATCH))             # a full block replays
+    assert _counts()[2] == captures
+    bufs = seg._glue_graphs._bufs
+    assert (seg.lm.state.unigram_counts is bufs[5]
+            and seg.lm.state.bigram_counts is bufs[6])
+
+    monkeypatch.setattr(graphs, "graphed", lambda *a, **k: False)
+    want = _segmenter(bigram=True)
+    want.gibbs_sample(1)
+    want.lm.state = bump(want.lm.state)
+    want.block_step(np.arange(BATCH))
+    for got, w in zip(_state(seg), _state(want)):
+        assert torch.equal(got, w)
 
 
 def test_a_new_state_shape_drops_every_graph_and_the_buffers(stand_in):

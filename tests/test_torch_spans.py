@@ -133,13 +133,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("driver", ("unigram_fixed", "unigram_full"))
+@pytest.mark.parametrize("driver", ("unigram_fixed", "unigram_full",
+                                    "bigram"))
 def test_every_blocking_read_of_a_sweep_is_a_fetch(driver, cuda_device):
     """In the "error" sync debug mode any read that waits on the card
-    raises, but ``tracing.fetch``'s own.  The fixed driver's sweep runs
-    with its glue replayed as CUDA graphs, captured in the warm-up (two
-    full blocks of 16 a sweep, two stages each); the full family's stays
-    eager."""
+    raises, but ``tracing.fetch``'s own.  The fixed family's sweeps (the
+    unigram and the bigram driver) run with their glue replayed as CUDA
+    graphs, captured in the warm-up (two full blocks of 16 a sweep, two
+    stages each); the full family's stays eager."""
     from segmentalist_torch.segmenters import graphs
 
     seg = _segmenter(driver, cuda_device, n_utterances=40, D=13,
@@ -155,7 +156,7 @@ def test_every_blocking_read_of_a_sweep_is_a_fetch(driver, cuda_device):
     assert np.isfinite(rec["log_marg"][0])
     assert graphs.glue_graph_captures == captures
     assert graphs.glue_graph_replays - replays == (
-        4 if driver == "unigram_fixed" else 0)
+        0 if driver == "unigram_full" else 4)
 
 
 # the bigram LM's spans and the stage span that holds each
@@ -165,10 +166,10 @@ LM_SPANS = {"seg.lm.leave_out": "seg.block.leave_out",
 
 
 def test_a_bigram_sweep_opens_the_lm_spans_inside_their_stages():
-    """One ``seg.lm.leave_out`` and two ``seg.lm.delta`` (the delta, then
-    its addition) a block step, one ``seg.lm.replay`` a sweep, each in its
-    stage; the unigram driver opens none (with no profiler, the bigram
-    driver's spans make no ``record_function`` call:
+    """One ``seg.lm.leave_out`` and one ``seg.lm.delta`` (the counts added
+    into the tables in place) a block step, one ``seg.lm.replay`` a sweep,
+    each in its stage; the unigram driver opens none (with no profiler, the
+    bigram driver's spans make no ``record_function`` call:
     ``test_no_record_function_while_no_profiler_records``)."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _sweep(_segmenter("bigram"))
@@ -178,7 +179,7 @@ def test_a_bigram_sweep_opens_the_lm_spans_inside_their_stages():
     assert set(lm) == set(LM_SPANS.items())
     names = [n for n, _ in lm]
     assert names.count("seg.lm.leave_out") == blocks
-    assert names.count("seg.lm.delta") == 2 * blocks
+    assert names.count("seg.lm.delta") == blocks
     assert names.count("seg.lm.replay") == 1
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _sweep(_segmenter("unigram_fixed"))
